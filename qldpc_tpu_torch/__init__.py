@@ -1,0 +1,38 @@
+"""qldpc_tpu_torch — PyTorch/CUDA port of the qLDPC Monte-Carlo decoder.
+
+The host layer (BB codes, circuits, decoding matrices) is NumPy; the decode
+round (sampling, flooding min-sum BP, OSD, logical readout) runs on an NVIDIA
+GPU through hand-written CUDA kernels (``csrc/``), with a plain PyTorch twin
+of each kernel for CPU tensors.
+
+Device rule: every entry point runs on ``cuda`` by default and raises when no
+GPU is present unless the caller passes ``device="cpu"``. Nothing falls back
+to the CPU silently.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+import torch
+
+from .models.bb import BBCode, CODE_REGISTRY, get_code
+from .models.builder import build_decoding_matrices, channel_llrs
+from .models.circuit import SyndromeCircuit
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA device without a visible GPU raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "qldpc_tpu_torch runs on a CUDA GPU and none is visible; pass "
+            "device='cpu' to run the plain PyTorch versions explicitly")
+    return dev
+
+
+def __getattr__(name):
+    # lazy: the engine pulls in the whole decode stack
+    if name == "run_simulation":
+        from .parallel.engine import run_simulation
+        return run_simulation
+    raise AttributeError(name)

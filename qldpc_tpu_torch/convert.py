@@ -1,0 +1,67 @@
+"""Carry a JAX ``BasisDecoder`` across into the port.
+
+The JAX package's per-basis decode bundle (``qldpc_tpu.parallel.engine
+.BasisDecoder``) is a pytree of device arrays plus static metadata. Its
+leaves travel here as numpy arrays (``np.asarray`` of each leaf) and become
+the port's :class:`~qldpc_tpu_torch.parallel.engine.BasisDecoder` on one
+device. The 0/1 matrices the JAX bundle keeps in bfloat16 (signature
+matrix, logical action) are exact in any type and arrive as float32 or
+integers.
+
+``arrays`` keys: ``sel``, ``gate_loc``, ``A_loc`` (L, R) from the trial
+maps; ``prior_grid``, ``slot_mask``, ``cmask``, ``out_gather``,
+``residual`` from the lifted graph; ``H`` (m, n), ``H_logical`` (n, k),
+``logical_pack``, ``prior``, ``alpha_seq``, ``basis_cols``.
+
+``meta`` keys: ``num_syn``, ``k`` (trial maps); ``eb_pb``, ``eb_o``,
+``eb_cx``, ``eb_cy``, ``NB``, ``ell``, ``mm``, ``T``, ``n``, ``m`` (lifted
+graph); ``K``, ``num_test``, ``rank``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .ops.bp_lift import LiftedGraph
+from .ops.sampler import trial_maps_from_arrays
+from .parallel.engine import BasisDecoder
+
+LIFT_STATICS = ("eb_pb", "eb_o", "eb_cx", "eb_cy", "NB", "ell", "mm", "T",
+                "n", "m")
+
+
+def basis_from_jax(arrays: dict, meta: dict, device=None) -> BasisDecoder:
+    """The port's decode bundle from the leaves of a JAX BasisDecoder."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(arrays[name]).astype(dtype)), device=dev)
+
+    maps = trial_maps_from_arrays(arrays["sel"], arrays["gate_loc"],
+                                  np.asarray(arrays["A_loc"], np.float32),
+                                  meta["num_syn"], meta["k"], dev)
+    statics = {k: (tuple(int(v) for v in meta[k])
+                   if k.startswith("eb_") else int(meta[k]))
+               for k in LIFT_STATICS}
+    lifted = LiftedGraph(
+        prior_grid=t("prior_grid", np.float32),
+        slot_mask=t("slot_mask", np.bool_),
+        cmask=t("cmask", np.bool_),
+        out_gather=t("out_gather", np.int64),
+        residual=t("residual", np.bool_),
+        **statics)
+    H = np.asarray(arrays["H"]).astype(np.uint8)
+    return BasisDecoder(
+        maps=maps, lifted=lifted,
+        H=torch.as_tensor(H, device=dev),
+        HT=torch.as_tensor(np.ascontiguousarray(H.T, np.float32),
+                           device=dev),
+        H_logical=t("H_logical", np.float32),
+        logical_pack=t("logical_pack", np.int32),
+        prior=t("prior", np.float32),
+        alpha_seq=t("alpha_seq", np.float32),
+        basis_cols=t("basis_cols", np.int64),
+        K=int(meta["K"]), num_test=int(meta["num_test"]),
+        rank=int(meta["rank"]))

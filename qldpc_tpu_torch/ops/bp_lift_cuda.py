@@ -1,0 +1,229 @@
+"""Flooding min-sum BP on a lifted graph: CUDA kernel K1 and its plain twin.
+
+``decode_batch_lift_cuda`` has the contract of the JAX package's
+``decode_batch_lift_pallas`` (schedule="flooding", damping 1): same
+arguments and outputs, including the ``out_gather`` / ``residual`` epilogue
+(edge-free columns keep the prior and decide ``prior < 0``). On a CUDA
+tensor it launches ``csrc/bp_lift_flood.cu`` (one thread block per shot,
+all iterations, per-shot exit) or raises; on a CPU tensor it runs
+``decode_batch_lift_plain``, the same algorithm in PyTorch over the same
+neighbour tables.
+
+Output note: each shot's ``values`` are frozen at its converging iteration
+(the kernel stops the shot there), so converged shots' values equal the
+reference lift's. The Pallas kernel instead keeps iterating converged shots
+of a block; only ``hard``, ``converged``, ``iterations`` and the values of
+unconverged shots are part of the cross-implementation contract.
+
+Internal column-slot order is (pattern, t, x, y) — the check order
+(t, x, y) of the syndrome rows with the pattern in front — so neighbouring
+threads touch neighbouring shared-memory words in both passes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .bp import _BIG
+from .bp_lift import LiftedGraph
+
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+
+
+def flood_tables(g: LiftedGraph, device) -> dict:
+    """Neighbour tables of the lifted graph in the kernel's layout, cached
+    on the graph per device.
+
+    chk_nbr (EB, m): column slot of edge e at check row r, -1 when dead.
+    col_chk (EB, P): check row of edge e at column position q of its
+      pattern, -1 when dead (P = ell*mm*T).
+    pb_start (NB+1,): edge-slot range of each base pattern.
+    prior_grid (NB*P,), out_gather (n,): in the internal slot order."""
+    key = ("flood", str(device))
+    if key in g.cache:
+        return g.cache[key]
+    ell, mm, T, NB, EB = g.ell, g.mm, g.T, g.NB, g.EB
+    P = ell * mm * T
+    cmask = g.cmask.cpu().numpy()
+    slot_mask = g.slot_mask.cpu().numpy()
+    t, x, y = np.meshgrid(np.arange(T), np.arange(ell), np.arange(mm),
+                          indexing="ij")                  # row order (t,x,y)
+    chk_nbr = np.full((EB, g.m), -1, np.int64)
+    col_chk = np.full((EB, P), -1, np.int64)
+    for e in range(EB):
+        pb, o, cx, cy = g.eb_pb[e], g.eb_o[e], g.eb_cx[e], g.eb_cy[e]
+        live = cmask[e].transpose(2, 0, 1)                # (T, ell, mm)
+        slot = (pb * P + (t - o) * ell * mm + ((x - cx) % ell) * mm
+                + (y - cy) % mm)
+        chk_nbr[e] = np.where(live, slot, -1).reshape(-1)
+        # column position (a, gx, gy) = (t, x, y) grids reused
+        a, gx, gy = t, x, y
+        clive = slot_mask[pb].transpose(2, 0, 1) & (a + o < T)
+        row = (a + o) * ell * mm + ((gx + cx) % ell) * mm + (gy + cy) % mm
+        col_chk[e] = np.where(clive, row, -1).reshape(-1)
+    pb_start = np.zeros(NB + 1, np.int64)
+    for e, pb in enumerate(g.eb_pb):
+        pb_start[pb + 1] = e + 1
+    prior_grid = g.prior_grid.cpu().numpy().transpose(0, 3, 1, 2).reshape(-1)
+    so = g.out_gather.cpu().numpy().astype(np.int64)      # (pb, x, y, t)
+    pb_o, rest = so // P, so % P
+    a_o, gxy = rest % T, rest // T
+    out_k = pb_o * P + a_o * ell * mm + (gxy // mm) * mm + gxy % mm
+
+    def dev32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
+
+    tabs = dict(
+        chk_nbr=dev32(chk_nbr), col_chk=dev32(col_chk),
+        pb_start=dev32(pb_start), out_gather=dev32(out_k),
+        prior_grid=torch.as_tensor(np.ascontiguousarray(prior_grid),
+                                   device=device),
+        residual=g.residual.to(device=device, dtype=torch.uint8),
+        pb_ranges=[(int(pb_start[i]), int(pb_start[i + 1]))
+                   for i in range(NB)],
+        P=P)
+    g.cache[key] = tabs
+    return tabs
+
+
+def _check_inputs(g: LiftedGraph, syndrome, prior, alpha_seq, maxIter):
+    if syndrome.dim() != 2 or syndrome.shape[1] != g.m:
+        raise ValueError(f"syndrome must be (B, {g.m}), got "
+                         f"{tuple(syndrome.shape)}")
+    if prior.shape != (g.n,):
+        raise ValueError(f"prior must be ({g.n},), got {tuple(prior.shape)}")
+    if maxIter < 1 or alpha_seq.shape[0] < maxIter:
+        raise ValueError("need maxIter >= 1 and len(alpha_seq) >= maxIter")
+
+
+def decode_batch_lift_cuda(g: LiftedGraph, syndrome, prior, alpha_seq,
+                           maxIter: int, clip_llr: float = 20.0):
+    """Flooding min-sum BP (damping 1). syndrome (B, m) 0/1 with rows
+    t*ell*mm + x*mm + y; prior (n,) f32; alpha_seq (>= maxIter,) f32.
+
+    Returns dict hard (B, n) int8, converged (B,) bool, values (B, n) f32,
+    iterations (B,) int32. CUDA tensors launch kernel K1; CPU tensors run
+    :func:`decode_batch_lift_plain`. ``decode_batch_lift_cuda.launches``
+    counts the kernel launches."""
+    _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
+    if syndrome.device.type == "cpu":
+        return decode_batch_lift_plain(g, syndrome, prior, alpha_seq,
+                                       maxIter, clip_llr)
+    if syndrome.device.type != "cuda":
+        raise ValueError(f"unsupported device {syndrome.device}")
+    dev = syndrome.device
+    tabs = flood_tables(g, dev)
+    B, m = syndrome.shape
+    n, EB, NB, P = g.n, g.EB, g.NB, tabs["P"]
+    syn = syndrome.to(torch.int8).contiguous()
+    prior = prior.to(device=dev, dtype=torch.float32).contiguous()
+    alpha = alpha_seq.to(device=dev, dtype=torch.float32).contiguous()
+    values = torch.empty((B, n), dtype=torch.float32, device=dev)
+    hard = torch.empty((B, n), dtype=torch.int8, device=dev)
+    conv = torch.empty((B,), dtype=torch.bool, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    state = (EB * m + NB * P) * 4
+    scratch = None
+    if state > _SMEM_LIMIT:  # e.g. [[288]]: per-shot slab in device memory
+        scratch = torch.empty((B, state // 4), dtype=torch.float32,
+                              device=dev)
+    threads = min(1024, max(32, -(-m // 32) * 32))
+    lib = _lib()
+    code = lib.bp_flood_launch(
+        syn.data_ptr(), tabs["prior_grid"].data_ptr(),
+        tabs["chk_nbr"].data_ptr(), tabs["col_chk"].data_ptr(),
+        tabs["pb_start"].data_ptr(), alpha.data_ptr(),
+        tabs["out_gather"].data_ptr(), tabs["residual"].data_ptr(),
+        prior.data_ptr(), values.data_ptr(), hard.data_ptr(),
+        conv.data_ptr(), iters.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        B, m, EB, P, NB, n, maxIter, float(clip_llr), threads,
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "bp_flood_kernel")
+    decode_batch_lift_cuda.launches += 1
+    return dict(hard=hard, converged=conv, values=values, iterations=iters)
+
+
+decode_batch_lift_cuda.launches = 0
+
+
+def _lib():
+    lib = _kernels.load("bp_lift_flood")
+    fn = lib.bp_flood_launch
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        P = ctypes.c_void_p
+        I = ctypes.c_int
+        fn.argtypes = [P] * 14 + [I] * 7 + [ctypes.c_float, I, P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_batch_lift_plain(g: LiftedGraph, syndrome, prior, alpha_seq,
+                            maxIter: int, clip_llr: float = 20.0):
+    """Plain PyTorch version of kernel K1: the same per-element float32
+    arithmetic over the same neighbour tables, vectorized over shots, with
+    per-shot freezing at convergence. One host read per iteration."""
+    _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
+    dev = syndrome.device
+    tabs = flood_tables(g, dev)
+    f32 = torch.float32
+    B, m = syndrome.shape
+    EB, NB, P = g.EB, g.NB, tabs["P"]
+    chk = tabs["chk_nbr"].long()
+    live = chk >= 0                                        # (EB, m)
+    idx = chk.clamp(min=0)
+    col = tabs["col_chk"].long()
+    # flat R index of each (edge, column position); dead -> zero pad slot
+    e_ids = torch.arange(EB, device=dev)[:, None]
+    colR = torch.where(col >= 0, e_ids * m + col, EB * m)  # (EB, P)
+    pg = tabs["prior_grid"]
+    syn = syndrome.to(torch.int32)
+    sgn_syn = 1.0 - 2.0 * syn.to(f32)
+    alpha_seq = alpha_seq.to(device=dev, dtype=f32)
+    big = torch.tensor(_BIG, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+
+    V = pg[None].expand(B, NB * P).clone()
+    R = torch.zeros((B, EB, m), dtype=f32, device=dev)
+    vals = V.clone()
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.full((B,), maxIter - 1, dtype=torch.int32, device=dev)
+    for it in range(maxIter):
+        if bool(done.all()):
+            break
+        Vc = V[:, idx]                                     # (B, EB, m)
+        Q = Vc if it == 0 else torch.clamp(Vc - R, -clip_llr, clip_llr)
+        Q = torch.where(live, Q, big)
+        absQ = Q.abs()
+        m1 = absQ.amin(1)
+        is_min = absQ == m1[:, None]
+        m2d = torch.where(is_min, big, absQ).amin(1)
+        m2 = torch.where(is_min.sum(1) > 1, m1, m2d)
+        neg = Q < 0.0
+        sgn = torch.where((neg.sum(1) & 1) == 1, -1.0, 1.0).to(f32) * sgn_syn
+        mag = torch.where(is_min, m2[:, None], m1[:, None])
+        rpos = (alpha_seq[it] * sgn)[:, None] * mag
+        R = torch.where(live, torch.where(neg, -rpos, rpos), zero)
+        Rf = torch.cat([R.reshape(B, EB * m),
+                        torch.zeros((B, 1), dtype=f32, device=dev)], 1)
+        parts = []
+        for pb, (e0, e1) in enumerate(tabs["pb_ranges"]):
+            acc = torch.zeros((B, P), dtype=f32, device=dev)
+            for e in range(e0, e1):
+                acc = acc + Rf[:, colR[e]]
+            parts.append(pg[pb * P:(pb + 1) * P] + acc)
+        V = torch.cat(parts, 1)
+        par = ((V[:, idx] < 0.0) & live).sum(1) & 1           # (B, m)
+        ok = (par == syn).all(1)
+        vals = torch.where(done[:, None], vals, V)
+        iters = torch.where(ok & ~done, torch.full_like(iters, it), iters)
+        done = done | ok
+    prior = prior.to(device=dev, dtype=f32)
+    values = torch.where(g.residual.to(dev)[None], prior[None],
+                         vals[:, tabs["out_gather"].long()])
+    return dict(hard=(values < 0.0).to(torch.int8), converged=done,
+                values=values, iterations=iters)

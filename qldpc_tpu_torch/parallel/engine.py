@@ -1,0 +1,462 @@
+"""Monte-Carlo logical-error-rate engine on one CUDA device.
+
+Port of the JAX package's ``run_simulation`` main path: dynamical alpha,
+flooding normalized min-sum on the lifted graph (damping 1), pooled,
+residual-sorted OSD with the staged eliminator, logical readout, and exact
+sequential stopping. One decode round = ``batch`` shots: sample gate faults
+-> signature matmul -> BP (kernel K1) -> OSD on the shots BP did not
+converge (kernel K2) -> logical comparison. Stopping reproduces the
+reference's sequential rule exactly: per-shot error flags are read in shot
+order and the run truncates at the trial where the target error count is
+reached.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): alpha modes other than dynamical and ``scopt`` (Queue A item 8),
+``bp_variant`` other than "minsum" (items 7 and 9), damping != 1 and
+non-lifted codes (item 7), a device mesh (item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models import gf2
+from ..models.bb import make_code
+from ..models.builder import build_decoding_matrices, channel_llrs
+from ..models.circuit import SyndromeCircuit
+from ..ops.bp import alpha_schedule
+from ..ops.bp_lift import LiftedGraph
+from ..ops.bp_lift_cuda import decode_batch_lift_cuda
+from ..ops.osd import choose_K, osd_batch
+from ..ops.sampler import (TrialMaps, augmented_bits, fault_bits,
+                           make_trial_maps, sample_gate_randoms)
+
+logger = logging.getLogger(__name__)
+
+_SAMPLER_KEYS = ("z_loc_gate_loc", "z_loc_role", "z_loc_class",
+                 "x_loc_gate_loc", "x_loc_role", "x_loc_class")
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to qldpc_tpu_torch yet (ROADMAP.md Queue A "
+        f"{item}); use the JAX package qldpc_tpu for it")
+
+
+def _check_supported(alpha_mode="dynamical", scopt=False,
+                     bp_variant="minsum", damping=1.0, mesh=None):
+    if alpha_mode != "dynamical":
+        raise _unported(f"alpha_mode={alpha_mode!r}", "item 8 (calibration)")
+    if scopt:
+        raise _unported("scopt", "item 8 (calibration)")
+    if bp_variant == "layered":
+        raise _unported("bp_variant='layered'", "item 9 (layered schedule)")
+    if bp_variant != "minsum":
+        raise _unported(f"bp_variant={bp_variant!r}",
+                        "item 7 (generic padded-CSR BP)")
+    if damping != 1.0:
+        raise _unported("damping != 1", "item 7 (generic padded-CSR BP)")
+    if mesh is not None:
+        raise _unported("a device mesh", "item 11 (multi-device)")
+
+
+def ensure_sampler_metadata(matrices: Dict, circ: SyndromeCircuit, Lx, Lz,
+                            error_rate: float) -> Dict:
+    """Reference-format matrix dicts lack the per-location sampler tables;
+    rebuild them and cross-check the decoding matrices agree."""
+    if all(k in matrices for k in _SAMPLER_KEYS):
+        return matrices
+    rebuilt = build_decoding_matrices(circ, Lx, Lz, error_rate)
+    for key in ("HdecZ", "HdecX"):
+        if key in matrices and not np.array_equal(
+                np.asarray(matrices[key]) % 2, rebuilt[key] % 2):
+            raise ValueError(
+                f"precomputed {key} disagrees with this circuit's fault "
+                "enumeration — wrong code/cycles/schedule for these "
+                "matrices?")
+    merged = dict(rebuilt)
+    merged.update({k: v for k, v in matrices.items() if k not in merged})
+    return merged
+
+
+@dataclasses.dataclass(frozen=True)
+class BasisDecoder:
+    """Static per-basis decode bundle (tensors on one device)."""
+
+    maps: TrialMaps
+    lifted: LiftedGraph   # circulant-structured BP layout (ops/bp_lift.py)
+    H: torch.Tensor            # (m, n) uint8 decoding matrix
+    HT: torch.Tensor           # (n, m) float32
+    H_logical: torch.Tensor    # (n, k) float32 — logical action per column
+    logical_pack: torch.Tensor  # (n,) int32 — the same action bit-packed
+    prior: torch.Tensor        # (n,) float32
+    alpha_seq: torch.Tensor    # (maxIter,) float32
+    basis_cols: torch.Tensor   # (rank,) int64 — fixed rank-completing basis
+    K: int
+    num_test: int
+    rank: int                  # GF(2) rank of H (OSD early-exit target)
+
+
+def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
+                osd_margin: int = 128, osd_order: int = 0,
+                device=None) -> BasisDecoder:
+    """osd_margin: reliability-ordered column budget beyond the row count
+    for the OSD elimination (K = m + margin, rounded); rank deficiency is
+    reported per shot (``rank_deficient``), never silent."""
+    dev = resolve_device(device)
+    b = basis.upper()
+    H = (np.asarray(matrices[f"Hdec{b}"]) != 0).astype(np.uint8)
+    full = np.asarray(matrices[f"H{b}_full"])
+    k = matrices["k"]
+    first = matrices[f"first_logical_row{b}"]
+    H_logical = (full[first:first + k] != 0).astype(np.float32)  # (k, n)
+    prior_np = channel_llrs(matrices[f"channel_probs{b}"], clip_channel)
+    ell = getattr(circ.code, "ell", None)
+    mmm = getattr(circ.code, "m", None)
+    lifted = (LiftedGraph.try_from_dense(H, ell, mmm, prior_np, device=dev)
+              if ell and mmm else None)
+    if lifted is None:
+        raise _unported("a decoding graph that is not a clean lift",
+                        "item 7 (generic padded-CSR BP)")
+    return BasisDecoder(
+        maps=make_trial_maps(circ, matrices, b, device=dev),
+        lifted=lifted,
+        H=torch.as_tensor(H, device=dev),
+        HT=torch.as_tensor(np.ascontiguousarray(H.T, np.float32),
+                           device=dev),
+        H_logical=torch.as_tensor(np.ascontiguousarray(H_logical.T),
+                                  device=dev),
+        logical_pack=torch.as_tensor(
+            (H_logical.astype(np.int64)
+             << np.arange(k, dtype=np.int64)[:, None]).sum(0)
+            .astype(np.int32), device=dev),
+        prior=torch.as_tensor(prior_np, dtype=torch.float32, device=dev),
+        alpha_seq=torch.as_tensor(np.asarray(alpha_seq, np.float32),
+                                  device=dev),
+        basis_cols=torch.as_tensor(gf2.column_basis(H).astype(np.int64),
+                                   device=dev),
+        K=choose_K(*H.shape, margin=osd_margin),
+        num_test=(osd_order + 10) if osd_order > 0 else 0,
+        rank=gf2.rank_fast(H),
+    )
+
+
+def _bp_one_basis(syndrome, dec: BasisDecoder, maxIter: int,
+                  clip_llr: float = 20.0):
+    """BP only: flooding min-sum on the lifted graph, damping 1 (kernel K1
+    on CUDA tensors). Returns the BP dict (values (B, n) f32, hard (B, n)
+    int8, converged (B,) bool, iterations (B,) int32)."""
+    return decode_batch_lift_cuda(dec.lifted, syndrome, dec.prior,
+                                  dec.alpha_seq, maxIter, clip_llr=clip_llr)
+
+
+def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
+                  osd_order: int, chunk: int):
+    """OSD for the BP-failed shots of a (possibly pooled) batch.
+
+    Returns (delta (B,) int32 packed logical delta of the OSD correction
+    relative to the BP hard decision, rank_deficient (B,) bool).
+
+    Shots are sorted unconverged-first and by BP-residual weight
+    (syndrome ^ H@hard) within the unconverged, so shots of similar
+    difficulty share an elimination launch. Only the unconverged shots are
+    decoded (compaction; the JAX package gates fixed chunks instead), in
+    chunks of ``chunk``. Per-shot OSD outputs do not depend on how shots are
+    grouped, so the flags equal the JAX package's."""
+    B, m = syndrome.shape
+    res_wt = (syndrome.to(torch.int32)
+              ^ ((hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
+              ).sum(1)
+    order = torch.sort(torch.where(conv, m + 1, res_wt), stable=True).indices
+    n_fail = int((~conv).sum())        # host read: how many shots need OSD
+    delta = torch.zeros(B, dtype=torch.int32, device=syndrome.device)
+    rdef = torch.zeros(B, dtype=torch.bool, device=syndrome.device)
+    for c0 in range(0, n_fail, chunk):
+        idx = order[c0:min(c0 + chunk, n_fail)]
+        out = osd_batch(dec.H, dec.HT, syndrome[idx], values[idx], hard[idx],
+                        K=dec.K, order=osd_order, num_test=dec.num_test,
+                        rank=dec.rank, basis_cols=dec.basis_cols,
+                        logical_pack=dec.logical_pack, return_solution=False)
+        delta[idx] = out["logical_delta_packed"]
+        rdef[idx] = out["rank_deficient"]
+    return delta, rdef & ~conv
+
+
+def _logical_readout(hard, conv, delta, dec: BasisDecoder):
+    """Decoded logical action (B, k) int32 from the BP hard decision and
+    the packed OSD logical delta (osd_sol@L = hard@L ^ delta over GF(2))."""
+    bp_log = (hard.to(torch.float32) @ dec.H_logical).to(torch.int32) & 1
+    k = bp_log.shape[1]
+    shifts = torch.arange(k, device=delta.device, dtype=torch.int32)
+    delta_bits = (delta[:, None] >> shifts) & 1
+    return bp_log ^ torch.where(conv[:, None], 0, delta_bits)
+
+
+def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
+                     clip_llr=20.0, randoms=None):
+    """One round's sampling + both-basis BP. ``randoms`` = (err, pauli,
+    cat2) replaces the draw from ``gen`` (tests feed both packages the same
+    draws). Returns the [z, x] per-basis state dicts."""
+    if randoms is None:
+        randoms = sample_gate_randoms(gen, batch, n_locs, error_rate)
+    err, pauli, cat2 = randoms
+    per_basis = []
+    for name, dec in (("z", dec_z), ("x", dec_x)):
+        bits = fault_bits(err, pauli, cat2, dec.maps, name.upper())
+        aug = augmented_bits(bits, dec.maps)
+        syndrome = aug[:, :dec.maps.num_syn].contiguous()
+        bp = _bp_one_basis(syndrome, dec, maxIter, clip_llr)
+        per_basis.append(dict(
+            syn=syndrome, true_log=aug[:, dec.maps.num_syn:],
+            values=bp["values"], hard=bp["hard"], conv=bp["converged"]))
+    return per_basis
+
+
+def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None):
+    """Pooled OSD + readout over the flattened multi-round BP state. The
+    default chunk is pool/8 (at least 64), as in the JAX package."""
+    if chunk is None:
+        pool = flat[0]["syn"].shape[0]
+        chunk = pool if pool <= 64 else max(64, pool // 8)
+    out = {}
+    for name, dec, st in (("z", dec_z, flat[0]), ("x", dec_x, flat[1])):
+        delta, rdef = _osd_fallback(st["syn"], st["values"], st["hard"],
+                                    st["conv"], dec, osd_order, chunk)
+        dec_log = _logical_readout(st["hard"], st["conv"], delta, dec)
+        out[f"{name}_err"] = (dec_log != st["true_log"].to(torch.int32)
+                              ).any(1)
+        out[f"{name}_conv"] = st["conv"]
+        out[f"{name}_rankdef"] = rdef
+    out["any_err"] = out["z_err"] | out["x_err"]
+    return out
+
+
+def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
+                         n_locs: int, error_rate: float, batch: int,
+                         maxIter: int, osd_order: int, n_rounds: int,
+                         damping: float = 1.0, clip_llr: float = 20.0,
+                         bp_variant: str = "minsum", osd_chunk: int = None):
+    """``n_rounds`` decode rounds with CROSS-ROUND OSD compaction:
+    sampling + BP per round, then ONE pooled OSD phase over all
+    ``n_rounds * batch`` shots. Returns ``pooled(gen, randoms=None)`` ->
+    flattened (n_rounds * batch,) per-shot flags; ``randoms`` is a list of
+    per-round (err, pauli, cat2) replacing the draws from ``gen``."""
+    _check_supported(bp_variant=bp_variant, damping=damping)
+
+    def pooled(gen, randoms=None):
+        stacked = [_sample_bp_phase(
+            gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, clip_llr,
+            None if randoms is None else randoms[i])
+            for i in range(n_rounds)]
+        flat = [{k: torch.cat([r[b][k] for r in stacked])
+                 for k in stacked[0][b]} for b in (0, 1)]
+        return _pooled_osd_phase(flat, dec_z, dec_x, osd_order,
+                                 chunk=osd_chunk)
+
+    return pooled
+
+
+def make_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder, n_locs: int,
+                  error_rate: float, batch: int, maxIter: int,
+                  osd_order: int, damping: float = 1.0,
+                  clip_llr: float = 20.0, bp_variant: str = "minsum"):
+    """One decode round: ``round_fn(gen, randoms=None)`` -> per-shot flags
+    (the one-round pool of :func:`make_pooled_round_fn`)."""
+    pooled = make_pooled_round_fn(dec_z, dec_x, n_locs, error_rate, batch,
+                                  maxIter, osd_order, 1, damping, clip_llr,
+                                  bp_variant)
+    return lambda gen, randoms=None: pooled(
+        gen, None if randoms is None else [randoms])
+
+
+def _crossing_take(a: np.ndarray, remaining: int) -> int:
+    """The reference's exact sequential stopping rule within one round:
+    number of trials up to AND including the one where the
+    ``remaining``-th logical error occurs."""
+    return int(np.searchsorted(np.cumsum(a), remaining)) + 1
+
+
+_COUNT_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
+
+
+def _drive_stopping_rounds(dispatch, n_streams: int, round_shots: int,
+                           max_trials: int, target_logical_errors,
+                           verbose: bool, names, on_progress=None):
+    """The sequential-stopping round loop. ``dispatch(round_idx)`` -> list
+    of per-stream flag dicts. Trials are accounted in shot order; each
+    stream truncates at the exact trial where its
+    ``target_logical_errors``-th error occurs, and the run ends when every
+    stream is done. Steady rounds read five counts per stream; per-shot
+    flags are read only in a crossing (or truncated final) round.
+
+    Returns dict with lists ``trials``, ``z_errs``, ``x_errs``,
+    ``tot_errs``, ``rankdef``, ``steady_trials`` and scalars ``elapsed``,
+    ``steady_elapsed``."""
+    stop_on_errors = (target_logical_errors is not None
+                      and target_logical_errors > 0)
+    trials = [0] * n_streams
+    z_errs, x_errs, tot = [0] * n_streams, [0] * n_streams, [0] * n_streams
+    rankdef = [0] * n_streams
+    done = [False] * n_streams
+    t_start = time.time()
+    t_steady = None
+    steady = [0] * n_streams
+    round_idx = 0
+    while not all(done):
+        outs = dispatch(round_idx)
+        round_idx += 1
+        for i, o in enumerate(outs):
+            if done[i]:
+                continue
+            take = min(round_shots, max_trials - trials[i])
+            a_cnt, z_inc, x_inc, rz, rx = torch.stack(
+                [o[k].sum() for k in _COUNT_KEYS]).tolist()  # one host read
+            rd = rz + rx
+            crossing = (stop_on_errors
+                        and tot[i] + a_cnt >= target_logical_errors)
+            if crossing or take < round_shots:
+                g = {k: o[k][:take].cpu().numpy() for k in _COUNT_KEYS}
+                a = g["any_err"]
+                if stop_on_errors and a.size and \
+                        tot[i] + int(a.sum()) >= target_logical_errors:
+                    take = _crossing_take(
+                        a, max(0, target_logical_errors - tot[i]))
+                    g = {k: v[:take] for k, v in g.items()}
+                a_cnt = int(g["any_err"].sum())
+                z_inc, x_inc = int(g["z_err"].sum()), int(g["x_err"].sum())
+                rd = int(g["z_rankdef"].sum()) + int(g["x_rankdef"].sum())
+            trials[i] += take
+            z_errs[i] += z_inc
+            x_errs[i] += x_inc
+            tot[i] += a_cnt
+            if rd:
+                rankdef[i] += rd
+                logger.warning(
+                    "OSD rank deficiency on %d shot-bases this round — the "
+                    "K=m+margin column truncation fell short of full rank; "
+                    "re-run with a larger osd_margin for these settings", rd)
+            if (stop_on_errors and tot[i] >= target_logical_errors) or \
+                    trials[i] >= max_trials:
+                done[i] = True
+            if on_progress is not None:
+                on_progress(i, trials[i], tot[i])
+        if t_steady is None:  # the first round carries the kernel builds
+            t_steady = time.time()
+            steady = list(trials)
+        if verbose:
+            logger.info("round %d: %s", round_idx,
+                        {nm: (trials[i], tot[i])
+                         for i, nm in enumerate(names)})
+    elapsed = time.time() - t_start
+    steady_elapsed = (time.time() - t_steady) if t_steady else elapsed
+    return dict(trials=trials, z_errs=z_errs, x_errs=x_errs, tot_errs=tot,
+                rankdef=rankdef, steady_trials=steady, elapsed=elapsed,
+                steady_elapsed=steady_elapsed)
+
+
+def run_simulation(
+    Hx, Hz, Lx, Lz, error_rate, num_trials=1000, num_cycles=12,
+    maxIter=50, osd_order=0, use_dynamic_alpha=True,
+    alpha_mode=None, alvarado_alpha=None,
+    alpha_estimation_trials=None, alpha_estimation_bins=50,
+    precomputed_matrices=None, num_workers=None, base_seed=None,
+    use_jit=True,
+    target_logical_errors=None, max_trials=None, scopt=False,
+    estimation_plot_dir=None,
+    batch_size: Optional[int] = None, mesh=None, damping: float = 1.0,
+    rounds_per_dispatch: Optional[int] = None,
+    verbose: bool = True, bp_variant: str = "minsum",
+    osd_cross_round: Optional[bool] = None,
+    osd_chunk: Optional[int] = None,
+    device=None,
+    **bb_params,
+) -> Dict[str, Any]:
+    """Reference-compatible Monte-Carlo LER estimation with the JAX
+    package's signature and result dict, on one CUDA device (``device``:
+    None = "cuda"; pass "cpu" for the plain PyTorch versions).
+    ``num_workers``, ``use_jit`` and the calibration-only arguments are
+    accepted for compatibility; modes not ported raise
+    NotImplementedError."""
+    del num_workers, use_jit, alvarado_alpha, alpha_estimation_trials
+    del alpha_estimation_bins, estimation_plot_dir
+    dev = resolve_device(device)
+    if alpha_mode is None:
+        alpha_mode = "dynamical" if use_dynamic_alpha else "alvarado"
+    _check_supported(alpha_mode=alpha_mode, scopt=scopt,
+                     bp_variant=bp_variant, damping=damping, mesh=mesh)
+    if base_seed is None:
+        base_seed = int(np.random.randint(0, 2**31))
+
+    code = make_code(Hx, Hz, Lx, Lz, **bb_params)
+    circ = SyndromeCircuit(code, num_cycles=num_cycles)
+    matrices = precomputed_matrices or build_decoding_matrices(
+        circ, code.Lx, code.Lz, error_rate)
+    matrices = ensure_sampler_metadata(matrices, circ, code.Lx, code.Lz,
+                                       error_rate)
+    seq = alpha_schedule("dynamical", maxIter)
+    dec_z = _make_basis(circ, matrices, "Z", seq, osd_order=osd_order,
+                        device=dev)
+    dec_x = _make_basis(circ, matrices, "X", seq, osd_order=osd_order,
+                        device=dev)
+
+    if max_trials is None:
+        max_trials = num_trials if num_trials is not None else 1_000_000
+    stop_on_errors = (target_logical_errors is not None
+                      and target_logical_errors > 0)
+    on_gpu = dev.type == "cuda"
+    if batch_size is None:
+        # larger batches amortize the per-round fixed cost on the GPU; the
+        # CPU keeps smaller rounds for stopping granularity
+        batch_size = min(1024 if on_gpu else 512, max(128, max_trials))
+    if rounds_per_dispatch is None:
+        rounds_per_dispatch = 4 if on_gpu else 1
+        # don't overshoot small trial budgets with a huge pooled dispatch
+        while (rounds_per_dispatch > 1
+               and batch_size * rounds_per_dispatch > max_trials * 2):
+            rounds_per_dispatch //= 2
+    if osd_cross_round is None:
+        osd_cross_round = rounds_per_dispatch > 1
+    n_locs = circ.num_error_locs
+    if osd_cross_round and rounds_per_dispatch > 1:
+        round_fn = make_pooled_round_fn(
+            dec_z, dec_x, n_locs, error_rate, batch_size, maxIter, osd_order,
+            rounds_per_dispatch, damping, bp_variant=bp_variant,
+            osd_chunk=osd_chunk)
+    else:
+        one = make_round_fn(dec_z, dec_x, n_locs, error_rate, batch_size,
+                            maxIter, osd_order, damping,
+                            bp_variant=bp_variant)
+
+        def round_fn(g, rpd=rounds_per_dispatch):
+            outs = [one(g) for _ in range(rpd)]
+            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    round_shots = batch_size * rounds_per_dispatch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(base_seed)
+
+    st = _drive_stopping_rounds(
+        lambda ri: [round_fn(gen)], 1, round_shots, max_trials,
+        target_logical_errors if stop_on_errors else None, verbose,
+        [f"p={error_rate:g}"])
+    trials_run, tot_errs = st["trials"][0], st["tot_errs"][0]
+    elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
+    # steady-state throughput excludes the first round (kernel builds)
+    steady_done = trials_run - st["steady_trials"][0]
+    return {
+        "logical_error_rate": tot_errs / max(1, trials_run),
+        "z_logical_error_rate": st["z_errs"][0] / max(1, trials_run),
+        "x_logical_error_rate": st["x_errs"][0] / max(1, trials_run),
+        "num_trials": trials_run,
+        "logical_errors": tot_errs,
+        "shots_per_sec": (steady_done / steady_elapsed if steady_done
+                          else trials_run / max(elapsed, 1e-9)),
+        "elapsed_sec": elapsed,
+        "num_devices": 1,
+        "osd_rank_deficient_shots": st["rankdef"][0],
+    }

@@ -1,0 +1,154 @@
+"""Where the time of one pooled dispatch goes, on the GPU.
+
+Runs the bench configuration of the port ([[144,12,12]], 12 cycles,
+p=0.004, 1024 shots per round, 4 rounds per dispatch, maxIter 50, OSD
+order 2) and reports, for a few steady dispatches:
+
+* stage times from CUDA events around the pieces a pooled dispatch runs
+  (sampling + signature matmul, BP, pooled OSD, readout), summed over the
+  dispatch;
+* the device's busy share and time per kernel name from ``torch.profiler``
+  over whole dispatches.
+
+Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
+
+    python -m qldpc_tpu_torch.profile_round [--dispatches 3] [--json PATH]
+
+Prints a summary, and the full report as JSON to PATH when given.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from . import build_decoding_matrices, get_code, SyndromeCircuit
+from .ops.bp import alpha_schedule
+from .ops.sampler import augmented_bits, fault_bits, sample_gate_randoms
+from .parallel import engine
+
+
+def _timed_dispatch(decs, n_locs, gen, cfg, acc):
+    """One pooled dispatch with a CUDA-event timer around each stage."""
+    dz, dx = decs
+
+    def timed(name, fn):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        acc.setdefault(name, []).append((s, e))
+        return out
+
+    rounds = []
+    for _ in range(cfg["rpd"]):
+        err, pauli, cat2 = timed("sample", lambda: sample_gate_randoms(
+            gen, cfg["batch"], n_locs, cfg["p"]))
+        per = []
+        for name, dec in (("z", dz), ("x", dx)):
+            aug = timed("sample", lambda: augmented_bits(
+                fault_bits(err, pauli, cat2, dec.maps, name.upper()),
+                dec.maps))
+            syn = aug[:, :dec.maps.num_syn].contiguous()
+            bp = timed("bp", lambda: engine._bp_one_basis(
+                syn, dec, cfg["maxIter"]))
+            per.append(dict(syn=syn, true_log=aug[:, dec.maps.num_syn:],
+                            values=bp["values"], hard=bp["hard"],
+                            conv=bp["converged"]))
+        rounds.append(per)
+    flat = [{k: torch.cat([r[b][k] for r in rounds]) for k in rounds[0][b]}
+            for b in (0, 1)]
+    pool = flat[0]["syn"].shape[0]
+    chunk = max(64, pool // 8)
+    for st, dec in zip(flat, decs):
+        delta, _ = timed("osd", lambda: engine._osd_fallback(
+            st["syn"], st["values"], st["hard"], st["conv"], dec,
+            cfg["osd_order"], chunk))
+        timed("readout", lambda: engine._logical_readout(
+            st["hard"], st["conv"], delta, dec))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dispatches", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=2024)
+    ap.add_argument("--json", help="write the full report here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_round needs a CUDA GPU")
+    dev = torch.device("cuda")
+    cfg = dict(code="[[144, 12, 12]]", cycles=12, p=0.004, batch=1024, rpd=4,
+               maxIter=50, osd_order=2)
+    code = get_code(cfg["code"])
+    circ = SyndromeCircuit(code, num_cycles=cfg["cycles"])
+    M = build_decoding_matrices(circ, code.Lx, code.Lz, cfg["p"])
+    seq = alpha_schedule("dynamical", cfg["maxIter"])
+    decs = [engine._make_basis(circ, M, b, seq, osd_order=cfg["osd_order"],
+                               device=dev) for b in "ZX"]
+    n_locs = circ.num_error_locs
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    fn = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, cfg["p"],
+                                     cfg["batch"], cfg["maxIter"],
+                                     cfg["osd_order"], cfg["rpd"])
+    fn(gen)  # warm-up: kernel builds, allocator
+    torch.cuda.synchronize()
+
+    # stage breakdown
+    acc: dict = {}
+    t0 = time.time()
+    for _ in range(args.dispatches):
+        _timed_dispatch(decs, n_locs, gen, cfg, acc)
+    torch.cuda.synchronize()
+    staged_wall = (time.time() - t0) / args.dispatches
+    stages = {k: sum(s.elapsed_time(e) for s, e in v) / args.dispatches
+              for k, v in acc.items()}
+
+    # profiler over whole dispatches of the engine's own round function
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(args.dispatches):
+            fn(gen)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / args.dispatches
+    kernels = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if dt and ev.device_type is not None and \
+                str(ev.device_type).endswith("CUDA"):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
+    busy_ms = sum(kernels.values()) / args.dispatches
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    shots = cfg["batch"] * cfg["rpd"]
+    report = dict(
+        card=smi, config=cfg, dispatches=args.dispatches,
+        dispatch_ms=wall * 1e3, shots_per_s=shots / wall,
+        staged_dispatch_ms=staged_wall * 1e3, stage_ms=stages,
+        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
+        kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top})
+    print(f"card: {smi}")
+    print(f"dispatch {wall * 1e3:.1f} ms ({shots / wall:.0f} shots/s); "
+          f"device busy {busy_ms:.1f} ms, idle share "
+          f"{report['device_idle_share']:.3f}")
+    print("stages (ms per dispatch, CUDA events): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items())
+        + f"; staged dispatch wall {staged_wall * 1e3:.1f} ms")
+    for k, v in top:
+        print(f"  {v / args.dispatches:9.3f} ms  {k[:90]}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,111 @@
+"""Kernels K1 and K2 against their plain PyTorch versions on the GPU.
+
+Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
+on first use); every test skips without a card. Imports neither jax nor the
+JAX package, so it runs on a machine that has only PyTorch:
+``python -m pytest tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import qldpc_tpu_torch as qt
+from qldpc_tpu_torch.ops import bp_lift_cuda, osd_cuda
+from qldpc_tpu_torch.ops.bp import alpha_schedule
+from qldpc_tpu_torch.ops.osd import _gather_pack
+from qldpc_tpu_torch.parallel import engine
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def bundles(cuda):
+    code = qt.get_code("[[72, 12, 6]]")
+    circ = qt.SyndromeCircuit(code, num_cycles=6)
+    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.006)
+    seq = alpha_schedule("dynamical", 50)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = [engine._make_basis(circ, M, b, seq, osd_order=2,
+                                            device=dev) for b in "ZX"]
+    return circ, M, out
+
+
+def _syndromes(M, basis, B, seed):
+    H = (M[f"Hdec{basis}"] != 0).astype(np.uint8)
+    rng = np.random.default_rng(seed)
+    errs = (rng.random((B, H.shape[1])) < M[f"channel_probs{basis}"])
+    return H, ((errs.astype(np.int8) @ H.T) % 2).astype(np.int8)
+
+
+@pytest.mark.parametrize("basis", ["Z", "X"])
+def test_bp_kernel_matches_plain(cuda, bundles, basis):
+    circ, M, decs = bundles
+    dec = decs[str(cuda)]["ZX".index(basis)]
+    _, syn = _syndromes(M, basis, 256, 1)
+    syn = torch.as_tensor(syn, device=cuda)
+    before = bp_lift_cuda.decode_batch_lift_cuda.launches
+    a = bp_lift_cuda.decode_batch_lift_cuda(dec.lifted, syn, dec.prior,
+                                            dec.alpha_seq, 50)
+    torch.cuda.synchronize()
+    assert bp_lift_cuda.decode_batch_lift_cuda.launches == before + 1
+    b = bp_lift_cuda.decode_batch_lift_plain(dec.lifted, syn, dec.prior,
+                                             dec.alpha_seq, 50)
+    for k in ("hard", "converged", "iterations", "values"):
+        assert torch.equal(a[k], b[k]), k
+    assert a["converged"].any() and not a["converged"].all()
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("full_jordan", [False, True])
+def test_elim_kernel_matches_plain(cuda, bundles, exit_on_valid,
+                                   full_jordan):
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    H, syn = _syndromes(M, "Z", 64, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    llr = torch.randn((64, H.shape[1]), generator=gen, device=cuda)
+    cols = torch.sort(llr.abs(), dim=1, stable=True).indices[:, :dec.K]
+    Hp = _gather_pack(dec.H.T.contiguous(), cols, dec.K, words_major=True)
+    s = torch.as_tensor(syn, device=cuda).to(torch.int32)
+    before = osd_cuda.eliminate_blocks.launches
+    a = osd_cuda.eliminate_blocks(Hp, s, dec.K, H.shape[0], rank=dec.rank,
+                                  full_jordan=full_jordan,
+                                  exit_on_valid=exit_on_valid,
+                                  return_steps=True)
+    torch.cuda.synchronize()
+    assert osd_cuda.eliminate_blocks.launches == before + 1
+    b = osd_cuda.eliminate_blocks_plain(Hp, s, dec.K, H.shape[0],
+                                        rank=dec.rank,
+                                        full_jordan=full_jordan,
+                                        exit_on_valid=exit_on_valid,
+                                        return_steps=True)
+    for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
+                          a, b):
+        assert torch.equal(x, y), name
+
+
+def test_pooled_round_gpu_matches_cpu(cuda, bundles):
+    """The same randoms through the kernels on the card and the plain
+    versions on the CPU give identical per-shot flags."""
+    circ, M, decs = bundles
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    randoms = [sample_gate_randoms(gen, 128, circ.num_error_locs, 0.006)
+               for _ in range(2)]
+    outs = {}
+    for dev in ("cpu", str(cuda)):
+        dz, dx = decs[dev]
+        fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
+                                         128, 50, 2, 2)
+        outs[dev] = fn(None, randoms=[tuple(x.to(dev) for x in r)
+                                      for r in randoms])
+    for k, v in outs["cpu"].items():
+        assert torch.equal(v, outs[str(cuda)][k].cpu()), k
