@@ -3,20 +3,27 @@
 
 Builds the hand-written CUDA kernels from qldpc_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card at the [[144,12,12]] shapes
-of the main path, drives the port's main path (pooled BP+OSD Monte-Carlo
-rounds and run_simulation at the bench configuration: [[144,12,12]],
-12 cycles, p=0.004, 1024 shots per round, 4 rounds per dispatch, maxIter 50,
-OSD order 2), and prints one JSON result line last.
+of the main path, drives the port's paths (pooled BP+OSD Monte-Carlo rounds
+and run_simulation at the bench configuration: [[144,12,12]], 12 cycles,
+p=0.004, 1024 shots per round, 4 rounds per dispatch, maxIter 50, OSD
+order 2) with the flooding and the layered BP schedule and under each
+eliminator generation, and prints one JSON result line last.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and the CUDA
 toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build, (2) BP kernel K1 vs its plain version,
-(3) GF(2) elimination kernel K2 vs its plain version, (4) main path. Exits
-non-zero, and prints no result, without a GPU, outside a checkout, or when
-any phase fails.
+Phases: (1) device and build of all five kernels, (2) flooding BP kernel
+K1 vs its plain version, (3) GF(2) elimination kernel K2 vs its plain
+version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
+plain version and vs K1 on the same syndromes, (6) eliminator kernels K4
+(fused 4-column) and K5 (two shots per block) vs their plain versions and
+K2's, (7) layered path (K3 + K2), (8) the main path (a pooled dispatch and
+run_simulation) under QLDPC_OSD_KERNEL=2 and 3 (K1 + K4, K1 + K5). Each
+path runs with every launch count set to 0 just before it and read just
+after. Exits non-zero, and prints no result, without a GPU, outside a
+checkout, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -38,6 +45,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 K1_OPS_PER_EDGE_ITER = 17   # float32 ops per live edge per iteration
 K2_OPS_PER_ROW_STEP = 5     # int ops per row per column step (scan only)
+# float32 ops per live edge per sweep: one check update (~14), two
+# posterior rebuilds (2 adds) and one parity test (2)
+K3_OPS_PER_EDGE_SWEEP = 18
 # [[144,12,12]] p=0.004 dynamical, the reference's archived LER
 ARCHIVE_LER, ARCHIVE_TRIALS = 200 / 1135, 1135
 
@@ -80,7 +90,8 @@ def main():
 
         import qldpc_tpu_torch as qt
         from qldpc_tpu_torch import _kernels
-        from qldpc_tpu_torch.ops import bp_lift_cuda, osd, osd_cuda
+        from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda,
+                                         osd, osd_cuda)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
                                                  sample_gate_randoms)
@@ -121,14 +132,28 @@ def main():
     n_locs = circ.num_error_locs
     gen = torch.Generator(device=dev).manual_seed(SEED)
     err, pauli, cat2 = sample_gate_randoms(gen, BATCH, n_locs, P)
+    wrappers = dict(k1=bp_lift_cuda.decode_batch_lift_cuda,
+                    k2=osd_cuda.eliminate_blocks_v1,
+                    k3=bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
+                    k4=osd_cuda.eliminate_blocks_fused,
+                    k5=osd_cuda.eliminate_blocks_pair)
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict:
+        return {k: w.launches for k, w in wrappers.items()}
 
     # ---- phase 2: K1 against its plain version ----
     k1 = {}
     failed = {}
+    syns = {}
     for basis, dec in zip("ZX", decs):
         aug = augmented_bits(fault_bits(err, pauli, cat2, dec.maps, basis),
                              dec.maps)
         syn = aug[:, :dec.maps.num_syn].contiguous()
+        syns[basis] = syn
         args = (dec.lifted, syn, dec.prior, dec.alpha_seq, MAXITER)
         a = bp_lift_cuda.decode_batch_lift_cuda(*args)
         torch.cuda.synchronize()
@@ -192,7 +217,7 @@ def main():
         for exit_on_valid in (False, True):
             kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid,
                       return_steps=True)
-            a = osd_cuda.eliminate_blocks(Hp, residual, Kw, m, **kw)
+            a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, **kw)
             torch.cuda.synchronize()
             b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, **kw)
             for nm, x, y in zip(names, a, b):
@@ -201,13 +226,13 @@ def main():
                          f"({width}, exit_on_valid={exit_on_valid})")
             k2_err = max(k2_err, max(float((x.long() - y.long()).abs().max())
                                      for x, y in zip(a, b)))
-        ms = cuda_ms(lambda: osd_cuda.eliminate_blocks(Hp, residual, Kw, m,
-                                                       rank=dec.rank), 5)
+        ms = cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(Hp, residual, Kw,
+                                                          m, rank=dec.rank), 5)
         steps = a[5]
         kb, bb = bound(2 * nbytes(Hp, residual) + nbytes(a[4], steps),
                        K2_OPS_PER_ROW_STEP * m * int(steps.long().sum()))
         k2[width] = dict(ms=ms, words=Hp.shape[1], shots=len(Hp),
-                         bound_ms=kb, bound_by=bb,
+                         bound_ms=kb, bound_by=bb, steps=steps,
                          mean_steps=float(steps.float().mean()),
                          max_steps=int(steps.max()))
         print(f"phase 3: K2 {width} ({Hp.shape[1]} words, {len(Hp)} shots):"
@@ -220,8 +245,8 @@ def main():
         lambda: osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
                                                 rank=dec.rank), 1)
     Hp, Kw = widths["full"]
-    a = osd_cuda.eliminate_blocks(Hp, residual, Kw, m, rank=dec.rank,
-                                  full_jordan=True)
+    a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
+                                     full_jordan=True)
     b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, rank=dec.rank,
                                         full_jordan=True)
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
@@ -230,29 +255,33 @@ def main():
           f"{k2['stage1']['plain_ms']:.1f} ms", flush=True)
 
     # ---- phase 4: main path ----
+    osd_cuda._KERNEL_VERSION = 1  # the main path's eliminator, K2
     randoms = [sample_gate_randoms(gen, BATCH, n_locs, P)
                for _ in range(RPD)]
     fn = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, P, BATCH,
                                      MAXITER, OSD_ORDER, RPD)
-    bp_lift_cuda.decode_batch_lift_cuda.launches = 0
-    osd_cuda.eliminate_blocks.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     out_k = fn(None, randoms=randoms)
     torch.cuda.synchronize()
     dispatch_s = time.time() - t0
-    per_dispatch = dict(k1=bp_lift_cuda.decode_batch_lift_cuda.launches,
-                        k2=osd_cuda.eliminate_blocks.launches)
+    per_dispatch = counts()
 
     @contextlib.contextmanager
     def plain_versions():
-        saved = engine.decode_batch_lift_cuda, osd.eliminate_blocks
+        saved = (engine.decode_batch_lift_cuda,
+                 engine.decode_batch_lift_layered_cuda, osd.eliminate_blocks)
         engine.decode_batch_lift_cuda = bp_lift_cuda.decode_batch_lift_plain
+        engine.decode_batch_lift_layered_cuda = \
+            bp_lift_layered_cuda.decode_batch_lift_layered_plain
         osd.eliminate_blocks = osd_cuda.eliminate_blocks_plain
         try:
             yield
         finally:
-            engine.decode_batch_lift_cuda, osd.eliminate_blocks = saved
+            (engine.decode_batch_lift_cuda,
+             engine.decode_batch_lift_layered_cuda,
+             osd.eliminate_blocks) = saved
 
     t0 = time.time()
     with plain_versions():
@@ -273,16 +302,14 @@ def main():
     bb_params = dict(ell=code.ell, m=code.m, a_x_powers=code.a_x_powers,
                      a_y_powers=code.a_y_powers, b_y_powers=code.b_y_powers,
                      b_x_powers=code.b_x_powers)
-    bp_lift_cuda.decode_batch_lift_cuda.launches = 0
-    osd_cuda.eliminate_blocks.launches = 0
+    reset_counts()
     res = qt.run_simulation(
         code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
         maxIter=MAXITER, osd_order=OSD_ORDER, max_trials=MAX_TRIALS,
         batch_size=BATCH, rounds_per_dispatch=RPD, base_seed=SEED,
         precomputed_matrices=M, verbose=False, **bb_params)
     torch.cuda.synchronize()
-    launches = dict(k1=bp_lift_cuda.decode_batch_lift_cuda.launches,
-                    k2=osd_cuda.eliminate_blocks.launches)
+    launches = counts()
     ler = res["logical_error_rate"]
     n = res["num_trials"]
     sig = np.sqrt(ler * (1 - ler) / max(n, 1)
@@ -295,8 +322,234 @@ def main():
           flush=True)
     if launches["k1"] <= 0 or launches["k2"] <= 0:
         fail(f"phase 4: main path did not launch every kernel: {launches}")
+    if launches["k3"] or launches["k4"] or launches["k5"]:
+        fail(f"phase 4: main path launched another path's kernel: "
+             f"{launches}")
     if n != MAX_TRIALS or not (0.0 < ler < 0.5):
         fail(f"phase 4: implausible result {res}")
+
+    # ---- phase 5: K3 against its plain version, beside K1 ----
+    k3 = {}
+    for basis, dec in zip("ZX", decs):
+        args = (dec.lifted, syns[basis], dec.prior, dec.alpha_seq, MAXITER)
+        a = bp_lift_layered_cuda.decode_batch_lift_layered_cuda(*args)
+        torch.cuda.synchronize()
+        b = bp_lift_layered_cuda.decode_batch_lift_layered_plain(*args)
+        for key in ("hard", "converged", "iterations"):
+            if not torch.equal(a[key], b[key]):
+                fail(f"phase 5: K3 {key} differs from the plain version "
+                     f"(basis {basis})")
+        unconv = ~b["converged"]
+        if not torch.equal(a["values"][unconv], b["values"][unconv]):
+            fail(f"phase 5: K3 values of unconverged shots differ "
+                 f"(basis {basis})")
+        if not bool(a["converged"].any()):
+            fail(f"phase 5: K3 converged no shot (basis {basis})")
+        err_abs = float((a["values"] - b["values"]).abs().max())
+        ms = cuda_ms(lambda: bp_lift_layered_cuda
+                     .decode_batch_lift_layered_cuda(*args), 5)
+        plain_ms = cuda_ms(lambda: bp_lift_layered_cuda
+                           .decode_batch_lift_layered_plain(*args), 1)
+        tabs = bp_lift_cuda.flood_tables(dec.lifted, dev)
+        shot_sweeps = int((a["iterations"].long() + 1).sum())
+        kb, bb = bound(
+            nbytes(syns[basis], a["values"], a["hard"], a["converged"],
+                   a["iterations"], dec.prior, dec.alpha_seq,
+                   tabs["chk_nbr"], tabs["col_chk"], tabs["prior_grid"],
+                   tabs["out_gather"], tabs["residual"]),
+            K3_OPS_PER_EDGE_SWEEP * k1[basis]["edges"] * shot_sweeps)
+        k3[basis] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_abs,
+                         bound_ms=kb, bound_by=bb,
+                         converged=int(a["converged"].sum()),
+                         mean_sweeps=shot_sweeps / BATCH)
+        print(f"phase 5: K3 basis {basis}: exact; {ms:.3f} ms (plain "
+              f"{plain_ms:.1f} ms, bound {kb:.4f} ms by {bb}); "
+              f"{k3[basis]['converged']}/{BATCH} converged, mean "
+              f"{k3[basis]['mean_sweeps']:.2f} sweeps; K1 on the same "
+              f"syndromes: {k1[basis]['converged']}/{BATCH} converged, mean "
+              f"{k1[basis]['mean_iters']:.2f} iterations, {k1[basis]['ms']:.3f}"
+              f" ms", flush=True)
+
+    # ---- phase 6: K4 and K5 against their plain versions and K2's ----
+    dec = decs[0]  # phase 3's inputs are Z-basis shots
+    def osd0_bits(out):
+        """OSD-0 correction bit of every pivot column slot."""
+        s_red, prow = out[1], out[2]
+        return torch.where(prow >= 0,
+                           s_red.gather(1, prow.clamp(min=0).long()), 0)
+
+    def is_valid(out):
+        return torch.where(out[3], 0, out[1]).sum(1) == 0
+
+    def max_diff(xs, ys):
+        return max(float((x.long() - y.long()).abs().max())
+                   for x, y in zip(xs, ys))
+
+    k45 = dict(k4={}, k5={})
+    k45_err = dict(k4=0.0, k5=0.0)
+    for width, (Hp, Kw) in widths.items():
+        for exit_on_valid in (False, True):
+            kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid,
+                      return_steps=True)
+            a4 = osd_cuda.eliminate_blocks_fused(Hp, residual, Kw, m, **kw)
+            a5 = osd_cuda.eliminate_blocks_pair(Hp, residual, Kw, m, **kw)
+            torch.cuda.synchronize()
+            p4 = osd_cuda.eliminate_blocks_fused_plain(Hp, residual, Kw, m,
+                                                       **kw)
+            p2 = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, **kw)
+            where = f"({width}, exit_on_valid={exit_on_valid})"
+            for nm, x, y in zip(names, a4, p4):
+                if not torch.equal(x, y):
+                    fail(f"phase 6: K4 {nm} differs from its plain version "
+                         f"{where}")
+            for nm, x, y in zip(names, a5, p2):
+                if not torch.equal(x, y):
+                    fail(f"phase 6: K5 {nm} differs from K2's plain version "
+                         f"{where}")
+            if exit_on_valid:  # K4 may stop up to 3 columns after K2
+                for nm, x, y in (("s_red", a4[1], p2[1]),
+                                 ("OSD-0 bits", osd0_bits(a4), osd0_bits(p2)),
+                                 ("validity", is_valid(a4), is_valid(p2))):
+                    if not torch.equal(x, y):
+                        fail(f"phase 6: K4 {nm} differs from K2's plain "
+                             f"version {where}")
+            else:  # only the rank stop remains; its step count is grouped
+                for nm, x, y in zip(names[:5], a4[:5], p2[:5]):
+                    if not torch.equal(x, y):
+                        fail(f"phase 6: K4 {nm} differs from K2's plain "
+                             f"version {where}")
+            k45_err["k4"] = max(k45_err["k4"], max_diff(a4, p4))
+            k45_err["k5"] = max(k45_err["k5"], max_diff(a5, p2))
+        # timed as the main path calls it (validity exit on); both do K2's
+        # work, so the bound is K2's at this width
+        for key, fn_k, out in (("k4", osd_cuda.eliminate_blocks_fused, a4),
+                               ("k5", osd_cuda.eliminate_blocks_pair, a5)):
+            ms = cuda_ms(lambda: fn_k(Hp, residual, Kw, m, rank=dec.rank), 5)
+            k45[key][width] = dict(
+                ms=ms, bound_ms=k2[width]["bound_ms"],
+                bound_by=k2[width]["bound_by"],
+                mean_steps=float(out[5].float().mean()))
+        print(f"phase 6: {width} ({Hp.shape[1]} words): K4 and K5 exact "
+              f"against their plain versions and K2's, with and without the "
+              f"validity exit; K4 {k45['k4'][width]['ms']:.3f} ms, K5 "
+              f"{k45['k5'][width]['ms']:.3f} ms, K2 {k2[width]['ms']:.3f} ms "
+              f"(bound {k2[width]['bound_ms']:.4f} ms by "
+              f"{k2[width]['bound_by']}); steps mean K4 "
+              f"{k45['k4'][width]['mean_steps']:.1f}, K5 "
+              f"{k45['k5'][width]['mean_steps']:.1f}, K2 "
+              f"{k2[width]['mean_steps']:.1f}", flush=True)
+    Hp, Kw = widths["full"]
+    for key, fn_k, plain in (
+            ("k4", osd_cuda.eliminate_blocks_fused,
+             osd_cuda.eliminate_blocks_fused_plain),
+            ("k5", osd_cuda.eliminate_blocks_pair,
+             osd_cuda.eliminate_blocks_plain)):
+        a = fn_k(Hp, residual, Kw, m, rank=dec.rank, full_jordan=True)
+        b = plain(Hp, residual, Kw, m, rank=dec.rank, full_jordan=True)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"phase 6: {key.upper()} full_jordan differs from its plain "
+                 "version")
+    Hp, Kw = widths["stage1"]
+    k45["k4"]["stage1"]["plain_ms"] = cuda_ms(
+        lambda: osd_cuda.eliminate_blocks_fused_plain(Hp, residual, Kw, m,
+                                                      rank=dec.rank), 1)
+    k45["k5"]["stage1"]["plain_ms"] = cuda_ms(
+        lambda: osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
+                                                rank=dec.rank), 1)
+    print(f"phase 6: K4 and K5 full_jordan at full width exact; stage-1 "
+          f"plain K4 {k45['k4']['stage1']['plain_ms']:.1f} ms, K5 (K2's "
+          f"plain version) {k45['k5']['stage1']['plain_ms']:.1f} ms",
+          flush=True)
+
+    # ---- phase 7: layered path (K3 + K2) ----
+    fn_l = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, P, BATCH,
+                                       MAXITER, OSD_ORDER, RPD,
+                                       bp_variant="layered")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_l = fn_l(None, randoms=randoms)
+    torch.cuda.synchronize()
+    dispatch_l_s = time.time() - t0
+    per_dispatch_l = counts()
+    with plain_versions():
+        out_lp = fn_l(None, randoms=randoms)
+    torch.cuda.synchronize()
+    for key, v in out_l.items():
+        if v.shape != (RPD * BATCH,) or not torch.equal(v, out_lp[key]):
+            fail(f"phase 7: layered pooled dispatch flag {key} differs "
+                 "between the kernels and the plain versions")
+    print(f"phase 7: layered pooled dispatch ({RPD}x{BATCH} shots) identical "
+          f"through kernels ({dispatch_l_s:.2f} s) and plain versions; "
+          f"launches per dispatch K3 {per_dispatch_l['k3']} K2 "
+          f"{per_dispatch_l['k2']}; BP converged z "
+          f"{int(out_l['z_conv'].sum())} x {int(out_l['x_conv'].sum())} "
+          f"(flooding z {int(out_k['z_conv'].sum())} x "
+          f"{int(out_k['x_conv'].sum())}) of {RPD * BATCH}", flush=True)
+    reset_counts()
+    res_l = qt.run_simulation(
+        code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
+        maxIter=MAXITER, osd_order=OSD_ORDER, max_trials=MAX_TRIALS,
+        batch_size=BATCH, rounds_per_dispatch=RPD, base_seed=SEED,
+        precomputed_matrices=M, verbose=False, bp_variant="layered",
+        **bb_params)
+    torch.cuda.synchronize()
+    launches_l = counts()
+    ler_l, n_l = res_l["logical_error_rate"], res_l["num_trials"]
+    print(f"phase 7: run_simulation(bp_variant='layered') {n_l} shots: LER "
+          f"{ler_l:.5f}, {res_l['shots_per_sec']:.1f} shots/s, "
+          f"{res_l['osd_rank_deficient_shots']} rank-deficient shot-bases; "
+          f"launches K3 {launches_l['k3']} K2 {launches_l['k2']}; flooding "
+          f"(phase 4): LER {ler:.5f}, {res['shots_per_sec']:.1f} shots/s, "
+          f"{res['osd_rank_deficient_shots']} rank-deficient, launches K1 "
+          f"{launches['k1']} K2 {launches['k2']}", flush=True)
+    if launches_l["k3"] <= 0 or launches_l["k2"] <= 0 or launches_l["k1"]:
+        fail(f"phase 7: the layered path ran other kernels than K3 and K2: "
+             f"{launches_l}")
+    if n_l != MAX_TRIALS or not (0.0 < ler_l < 0.5) \
+            or res_l["osd_rank_deficient_shots"]:
+        fail(f"phase 7: implausible result {res_l}")
+
+    # ---- phase 8: the main path under each eliminator generation ----
+    launches_v = {}
+    for version, key in ((2, "k4"), (3, "k5")):
+        osd_cuda._KERNEL_VERSION = version
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_v = fn(None, randoms=randoms)
+        torch.cuda.synchronize()
+        dispatch_v_s = time.time() - t0
+        c = counts()
+        for flag, v in out_v.items():
+            if not torch.equal(v, out_k[flag]):
+                fail(f"phase 8: flag {flag} under QLDPC_OSD_KERNEL={version} "
+                     "differs from the K2 dispatch")
+        reset_counts()
+        res_v = qt.run_simulation(
+            code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
+            maxIter=MAXITER, osd_order=OSD_ORDER, max_trials=MAX_TRIALS,
+            batch_size=BATCH, rounds_per_dispatch=RPD, base_seed=SEED,
+            precomputed_matrices=M, verbose=False, **bb_params)
+        torch.cuda.synchronize()
+        launches_v[key] = counts()
+        osd_cuda._KERNEL_VERSION = 1
+        lv = launches_v[key]
+        for cnt in (c, lv):
+            if cnt[key] <= 0 or cnt["k1"] <= 0 or cnt["k2"]:
+                fail(f"phase 8: QLDPC_OSD_KERNEL={version} did not run K1 "
+                     f"and {key.upper()} alone: {cnt}")
+        if (res_v["logical_errors"], res_v["num_trials"]) != \
+                (res["logical_errors"], res["num_trials"]):
+            fail(f"phase 8: run_simulation under QLDPC_OSD_KERNEL={version} "
+                 f"differs from phase 4: {res_v}")
+        print(f"phase 8: QLDPC_OSD_KERNEL={version}: pooled dispatch "
+              f"identical to the K2 dispatch ({dispatch_v_s:.2f} s vs "
+              f"{dispatch_s:.2f} s), launches K1 {c['k1']} {key.upper()} "
+              f"{c[key]}; run_simulation {res_v['num_trials']} shots: LER "
+              f"{res_v['logical_error_rate']:.5f} (phase 4's, exactly), "
+              f"{res_v['shots_per_sec']:.1f} shots/s, launches K1 {lv['k1']} "
+              f"{key.upper()} {lv[key]}", flush=True)
 
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
@@ -313,7 +566,24 @@ def main():
              ms=k2["stage1"]["ms"], plain_ms=k2["stage1"]["plain_ms"],
              bound_ms=k2["stage1"]["bound_ms"],
              bound_by=k2["stage1"]["bound_by"], library_ms=None),
+        dict(name="bp_layered_kernel", route="cuda",
+             source="qldpc_tpu_torch/csrc/bp_lift_layered.cu",
+             replaces="qldpc_tpu/ops/bp_lift_pallas.py:255",
+             launches=launches_l["k3"], max_abs_err=k3["Z"]["max_abs_err"],
+             ms=k3["Z"]["ms"], plain_ms=k3["Z"]["plain_ms"],
+             bound_ms=k3["Z"]["bound_ms"], bound_by=k3["Z"]["bound_by"],
+             library_ms=None),
     ]
+    for key, name, src, line in (
+            ("k4", "gf2_elim_fused_kernel", "gf2_elim_fused.cu", 158),
+            ("k5", "gf2_elim_pair_kernel", "gf2_elim_pair.cu", 272)):
+        st = k45[key]["stage1"]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"qldpc_tpu_torch/csrc/{src}",
+            replaces=f"qldpc_tpu/ops/osd_pallas.py:{line}",
+            launches=launches_v[key][key], max_abs_err=k45_err[key],
+            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=None))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("bp_lift_flood", "gf2_elim")
+SOURCES = ("bp_lift_flood", "bp_lift_layered", "gf2_elim", "gf2_elim_fused",
+           "gf2_elim_pair")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -14,10 +14,12 @@ never assumed; see ``LiftedGraph.try_from_dense``.
 An edge slot eb = (base pattern pb, offset o, rep-check (cx, cy)) connects
 column (pb, gx, gy, a) to check (gx+cx, gy+cy, a+o).
 
-``decode_batch_lift`` is the roll-based PyTorch twin of the JAX package's
-XLA lift; the CUDA flooding kernel and its gather-based plain version live
-in ops/bp_lift_cuda.py. Algorithm: normalized min-sum, flooding schedule,
-per-iteration syndrome check, per-shot convergence freezing, magnitude
+``decode_batch_lift`` (flooding) and ``decode_batch_lift_layered`` (the
+time-layered schedule) are the roll-based PyTorch twins of the JAX
+package's XLA lifts; the CUDA kernels and their gather-based plain versions
+live in ops/bp_lift_cuda.py (flooding) and ops/bp_lift_layered_cuda.py
+(layered). Algorithm: normalized min-sum, per-iteration (per-sweep)
+syndrome check, per-shot convergence freezing, magnitude
 select by ``|Q| == min1`` (at ties min1 == min2, so every edge receives the
 same magnitude as with first-argmin), posterior summed per column in base
 slot order, then the prior added.
@@ -314,9 +316,101 @@ def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
         done = done | ok
         it += 1
 
-    flat = vals.reshape(NB * ell * mm * T, B)
+    return _epilogue(g, vals, prior, done, iters)
+
+
+def _epilogue(g: LiftedGraph, vals, prior, done, iters):
+    """Grid posteriors (NB, ell, mm, T, B) -> the decode dict in original
+    column order; edge-free columns keep the prior."""
+    B = vals.shape[-1]
+    flat = vals.reshape(g.NB * g.ell * g.mm * g.T, B)
     vals_n = flat.index_select(0, g.out_gather)              # (n, B)
     vals_n = torch.where(g.residual[:, None], prior[:, None], vals_n)
     hard = (vals_n < 0.0).to(torch.int8)
     return dict(hard=hard.T.contiguous(), converged=done,
                 values=vals_n.T.contiguous(), iterations=iters)
+
+
+def decode_batch_lift_layered(g: LiftedGraph, syndrome, prior, alpha_seq,
+                              maxIter: int, clip_llr: float = 20.0):
+    """Roll-based float32 time-layered min-sum on a LiftedGraph (the twin of
+    the JAX package's ``decode_batch_lift_layered``; damping 1).
+
+    Each iteration is one SWEEP of two half-updates: first every check at an
+    even time slice t = row // (ell*mm), then every check at an odd one,
+    with the posteriors rebuilt from all committed messages between the
+    halves. A half computes Q = clip(V - R) at every check and commits the
+    new R on its layer's checks only (so the very first half already
+    clips). ``alpha_seq`` is indexed by sweep; convergence is checked once
+    per sweep on the post-sweep posteriors, and ``iterations`` counts
+    sweeps. Same arguments and outputs as :func:`decode_batch_lift`; values
+    are frozen at each shot's converging sweep."""
+    B = syndrome.shape[0]
+    dev = syndrome.device
+    ell, mm, T, NB, EB = g.ell, g.mm, g.T, g.NB, g.EB
+    f32 = torch.float32
+    big = torch.tensor(_BIG, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    pb_start = [0] * (NB + 1)
+    for e, pb in enumerate(g.eb_pb):
+        pb_start[pb + 1] = e + 1
+
+    syn = syndrome.T.reshape(T, ell, mm, B).permute(1, 2, 0, 3)
+    syn = syn.to(torch.int32)
+    sgn_syn = 1.0 - 2.0 * syn.to(f32)
+    prior = prior.to(f32)
+    alpha_seq = alpha_seq.to(f32)
+
+    cmask = g.cmask[..., None]                            # (EB,ell,mm,T,1)
+    pg = g.prior_grid[..., None]                          # (NB,ell,mm,T,1)
+    t_even = torch.arange(T, device=dev) % 2 == 0
+    lmasks = [t_even[None, None, :, None], ~t_even[None, None, :, None]]
+
+    def half(V, R, alpha, lm):
+        Q = torch.stack([
+            torch.where(cmask[e],
+                        torch.clamp(_to_check(V[g.eb_pb[e]], e, g, _BIG)
+                                    - R[e], -clip_llr, clip_llr), big)
+            for e in range(EB)])
+        absQ = Q.abs()
+        m1 = absQ.amin(0)
+        is_min = absQ == m1[None]
+        nmin = is_min.sum(0)
+        m2d = torch.where(is_min, big, absQ).amin(0)
+        m2 = torch.where(nmin > 1, m1, m2d)
+        neg = Q < 0.0
+        negtot = neg.sum(0) & 1
+        sgn = torch.where(negtot == 1, -1.0, 1.0).to(f32) * sgn_syn
+        mag = torch.where(is_min, m2[None], m1[None])
+        sq = torch.where(neg, -1.0, 1.0).to(f32)
+        Rl = torch.where(cmask, alpha * sgn[None] * sq * mag, zero)
+        R = torch.where(lm[None], Rl, R)                  # commit the layer
+        Rcol = [_to_col(R[e], e, g, 0.0) for e in range(EB)]
+        V = torch.stack([
+            pg[pb] + sum(Rcol[e] for e in range(pb_start[pb],
+                                                pb_start[pb + 1]))
+            for pb in range(NB)])
+        return V, R
+
+    V = pg.expand(NB, ell, mm, T, B).clone()
+    R = torch.zeros((EB, ell, mm, T, B), dtype=f32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    vals = torch.zeros((NB, ell, mm, T, B), dtype=f32, device=dev)
+    iters = torch.full((B,), maxIter - 1, dtype=torch.int32, device=dev)
+    it = 0
+    while it < maxIter and not bool(done.all()):
+        alpha = alpha_seq[it]
+        V, R = half(V, R, alpha, lmasks[0])
+        V, R = half(V, R, alpha, lmasks[1])
+        par = torch.zeros((ell, mm, T, B), dtype=torch.int32, device=dev)
+        for e in range(EB):
+            vhc = _to_check(V[g.eb_pb[e]], e, g, _BIG)
+            par = par + (cmask[e] & (vhc < 0.0)).to(torch.int32)
+        ok = ((par & 1) == syn).reshape(-1, B).all(0)
+        vals = torch.where(done[None, None, None, None, :], vals, V)
+        iters = torch.where(ok & ~done, it, iters)
+        done = done | ok
+        it += 1
+    # shots still unconverged report their final posteriors
+    vals = torch.where(done[None, None, None, None, :], vals, V)
+    return _epilogue(g, vals, prior, done, iters)

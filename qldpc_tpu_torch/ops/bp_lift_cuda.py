@@ -113,6 +113,18 @@ def decode_batch_lift_cuda(g: LiftedGraph, syndrome, prior, alpha_seq,
     if syndrome.device.type == "cpu":
         return decode_batch_lift_plain(g, syndrome, prior, alpha_seq,
                                        maxIter, clip_llr)
+    return _launch(decode_batch_lift_cuda, "bp_lift_flood", "bp_flood_launch",
+                   g, syndrome, prior, alpha_seq, maxIter, clip_llr, ())
+
+
+decode_batch_lift_cuda.launches = 0
+
+
+def _launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph, syndrome,
+            prior, alpha_seq, maxIter: int, clip_llr: float, extra: tuple):
+    """One launch of a lifted-BP kernel (``csrc/<lib_name>.cu``), counted on
+    ``wrapper``. The kernels share one C signature; ``extra`` holds the int
+    arguments a kernel takes after maxIter."""
     if syndrome.device.type != "cuda":
         raise ValueError(f"unsupported device {syndrome.device}")
     dev = syndrome.device
@@ -132,8 +144,13 @@ def decode_batch_lift_cuda(g: LiftedGraph, syndrome, prior, alpha_seq,
         scratch = torch.empty((B, state // 4), dtype=torch.float32,
                               device=dev)
     threads = min(1024, max(32, -(-m // 32) * 32))
-    lib = _lib()
-    code = lib.bp_flood_launch(
+    fn = getattr(_kernels.load(lib_name), fn_name)
+    if not fn.argtypes:
+        Pt, It = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([Pt] * 14 + [It] * (7 + len(extra))
+                       + [ctypes.c_float, It, Pt])
+        fn.restype = ctypes.c_int
+    code = fn(
         syn.data_ptr(), tabs["prior_grid"].data_ptr(),
         tabs["chk_nbr"].data_ptr(), tabs["col_chk"].data_ptr(),
         tabs["pb_start"].data_ptr(), alpha.data_ptr(),
@@ -141,25 +158,80 @@ def decode_batch_lift_cuda(g: LiftedGraph, syndrome, prior, alpha_seq,
         prior.data_ptr(), values.data_ptr(), hard.data_ptr(),
         conv.data_ptr(), iters.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        B, m, EB, P, NB, n, maxIter, float(clip_llr), threads,
+        B, m, EB, P, NB, n, maxIter, *extra, float(clip_llr), threads,
         _kernels.stream_ptr(dev))
-    _kernels.check(code, "bp_flood_kernel")
-    decode_batch_lift_cuda.launches += 1
+    _kernels.check(code, fn_name)
+    wrapper.launches += 1
     return dict(hard=hard, converged=conv, values=values, iterations=iters)
 
 
-decode_batch_lift_cuda.launches = 0
+class _PlainGraph:
+    """What the plain versions of the lifted-BP kernels share: the gather
+    indices of ``flood_tables`` as int64 tensors, the syndrome signs, and
+    the kernels' min-sum message rule and posterior sum."""
 
+    def __init__(self, g: LiftedGraph, syndrome):
+        dev = syndrome.device
+        self.g, self.dev = g, dev
+        self.tabs = tabs = flood_tables(g, dev)
+        self.B, self.m = syndrome.shape
+        chk = tabs["chk_nbr"].long()
+        self.live = chk >= 0                                  # (EB, m)
+        self.idx = chk.clamp(min=0)
+        col = tabs["col_chk"].long()
+        # flat R index of each (edge, column position); dead -> zero pad
+        e_ids = torch.arange(g.EB, device=dev)[:, None]
+        self.colR = torch.where(col >= 0, e_ids * self.m + col,
+                                g.EB * self.m)                # (EB, P)
+        self.syn = syndrome.to(torch.int32)
+        self.sgn_syn = 1.0 - 2.0 * self.syn.to(torch.float32)
+        self.big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
 
-def _lib():
-    lib = _kernels.load("bp_lift_flood")
-    fn = lib.bp_flood_launch
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        fn.argtypes = [P] * 14 + [I] * 7 + [ctypes.c_float, I, P]
-        fn.restype = ctypes.c_int
-    return lib
+    def messages(self, Q, alpha):
+        """New R (B, EB, m) from Q (dead edges at +_BIG): min1/min2 and
+        sign parity per check, R = (alpha*sgn)*mag with the edge sign as a
+        select, dead edges 0."""
+        absQ = Q.abs()
+        m1 = absQ.amin(1)
+        is_min = absQ == m1[:, None]
+        m2d = torch.where(is_min, self.big, absQ).amin(1)
+        m2 = torch.where(is_min.sum(1) > 1, m1, m2d)
+        neg = Q < 0.0
+        sgn = (torch.where((neg.sum(1) & 1) == 1, -1.0, 1.0)
+               .to(torch.float32) * self.sgn_syn)
+        mag = torch.where(is_min, m2[:, None], m1[:, None])
+        rpos = (alpha * sgn)[:, None] * mag
+        return torch.where(self.live, torch.where(neg, -rpos, rpos), 0.0)
+
+    def posteriors(self, R):
+        """V (B, NB*P): per column slot, R summed in edge-slot order from
+        zero, then the prior added."""
+        B, P = self.B, self.tabs["P"]
+        Rf = torch.cat([R.reshape(B, -1),
+                        torch.zeros((B, 1), dtype=torch.float32,
+                                    device=self.dev)], 1)
+        pg = self.tabs["prior_grid"]
+        parts = []
+        for pb, (e0, e1) in enumerate(self.tabs["pb_ranges"]):
+            acc = torch.zeros((B, P), dtype=torch.float32, device=self.dev)
+            for e in range(e0, e1):
+                acc = acc + Rf[:, self.colR[e]]
+            parts.append(pg[pb * P:(pb + 1) * P] + acc)
+        return torch.cat(parts, 1)
+
+    def satisfied(self, V):
+        """(B,) whether the hard decision of V meets the syndrome."""
+        par = ((V[:, self.idx] < 0.0) & self.live).sum(1) & 1    # (B, m)
+        return (par == self.syn).all(1)
+
+    def output(self, vals, prior, done, iters):
+        """The decode dict in original column order; edge-free columns keep
+        the prior."""
+        prior = prior.to(device=self.dev, dtype=torch.float32)
+        values = torch.where(self.g.residual.to(self.dev)[None], prior[None],
+                             vals[:, self.tabs["out_gather"].long()])
+        return dict(hard=(values < 0.0).to(torch.int8), converged=done,
+                    values=values, iterations=iters)
 
 
 def decode_batch_lift_plain(g: LiftedGraph, syndrome, prior, alpha_seq,
@@ -168,62 +240,24 @@ def decode_batch_lift_plain(g: LiftedGraph, syndrome, prior, alpha_seq,
     arithmetic over the same neighbour tables, vectorized over shots, with
     per-shot freezing at convergence. One host read per iteration."""
     _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
-    dev = syndrome.device
-    tabs = flood_tables(g, dev)
-    f32 = torch.float32
-    B, m = syndrome.shape
-    EB, NB, P = g.EB, g.NB, tabs["P"]
-    chk = tabs["chk_nbr"].long()
-    live = chk >= 0                                        # (EB, m)
-    idx = chk.clamp(min=0)
-    col = tabs["col_chk"].long()
-    # flat R index of each (edge, column position); dead -> zero pad slot
-    e_ids = torch.arange(EB, device=dev)[:, None]
-    colR = torch.where(col >= 0, e_ids * m + col, EB * m)  # (EB, P)
-    pg = tabs["prior_grid"]
-    syn = syndrome.to(torch.int32)
-    sgn_syn = 1.0 - 2.0 * syn.to(f32)
-    alpha_seq = alpha_seq.to(device=dev, dtype=f32)
-    big = torch.tensor(_BIG, dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-
-    V = pg[None].expand(B, NB * P).clone()
-    R = torch.zeros((B, EB, m), dtype=f32, device=dev)
+    ctx = _PlainGraph(g, syndrome)
+    B, dev = ctx.B, ctx.dev
+    alpha_seq = alpha_seq.to(device=dev, dtype=torch.float32)
+    V = ctx.tabs["prior_grid"][None].expand(B, -1).clone()
+    R = torch.zeros((B, g.EB, ctx.m), dtype=torch.float32, device=dev)
     vals = V.clone()
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.full((B,), maxIter - 1, dtype=torch.int32, device=dev)
     for it in range(maxIter):
         if bool(done.all()):
             break
-        Vc = V[:, idx]                                     # (B, EB, m)
+        Vc = V[:, ctx.idx]                                 # (B, EB, m)
+        # iteration 0 sends the prior itself, unclipped
         Q = Vc if it == 0 else torch.clamp(Vc - R, -clip_llr, clip_llr)
-        Q = torch.where(live, Q, big)
-        absQ = Q.abs()
-        m1 = absQ.amin(1)
-        is_min = absQ == m1[:, None]
-        m2d = torch.where(is_min, big, absQ).amin(1)
-        m2 = torch.where(is_min.sum(1) > 1, m1, m2d)
-        neg = Q < 0.0
-        sgn = torch.where((neg.sum(1) & 1) == 1, -1.0, 1.0).to(f32) * sgn_syn
-        mag = torch.where(is_min, m2[:, None], m1[:, None])
-        rpos = (alpha_seq[it] * sgn)[:, None] * mag
-        R = torch.where(live, torch.where(neg, -rpos, rpos), zero)
-        Rf = torch.cat([R.reshape(B, EB * m),
-                        torch.zeros((B, 1), dtype=f32, device=dev)], 1)
-        parts = []
-        for pb, (e0, e1) in enumerate(tabs["pb_ranges"]):
-            acc = torch.zeros((B, P), dtype=f32, device=dev)
-            for e in range(e0, e1):
-                acc = acc + Rf[:, colR[e]]
-            parts.append(pg[pb * P:(pb + 1) * P] + acc)
-        V = torch.cat(parts, 1)
-        par = ((V[:, idx] < 0.0) & live).sum(1) & 1           # (B, m)
-        ok = (par == syn).all(1)
+        R = ctx.messages(torch.where(ctx.live, Q, ctx.big), alpha_seq[it])
+        V = ctx.posteriors(R)
+        ok = ctx.satisfied(V)
         vals = torch.where(done[:, None], vals, V)
         iters = torch.where(ok & ~done, torch.full_like(iters, it), iters)
         done = done | ok
-    prior = prior.to(device=dev, dtype=f32)
-    values = torch.where(g.residual.to(dev)[None], prior[None],
-                         vals[:, tabs["out_gather"].long()])
-    return dict(hard=(values < 0.0).to(torch.int8), converged=done,
-                values=values, iterations=iters)
+    return ctx.output(vals, prior, done, iters)

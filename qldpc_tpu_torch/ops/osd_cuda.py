@@ -1,10 +1,24 @@
-"""Batched bit-packed GF(2) elimination: CUDA kernel K2 and its plain twin.
+"""Batched bit-packed GF(2) elimination: CUDA kernels K2, K4, K5 and their
+plain twins.
 
 ``eliminate_blocks`` has the signature and outputs of the JAX package's
-``osd_pallas.eliminate_blocks`` without its TPU block sizing: every shot is
-one CUDA thread block (``csrc/gf2_elim.cu``) and exits on its own. On a CUDA
-tensor it launches the kernel or raises; on a CPU tensor it runs
-``eliminate_blocks_plain``.
+``osd_pallas.eliminate_blocks`` without its TPU block sizing. It dispatches
+on ``_KERNEL_VERSION``, read from ``QLDPC_OSD_KERNEL`` (default 1) as the JAX
+package reads it, and set on this module to switch at run time:
+
+  1 -> ``eliminate_blocks_v1``: kernel K2 (``csrc/gf2_elim.cu``), one shot
+       per thread block, exit tested after every column.
+  2 -> ``eliminate_blocks_fused``: kernel K4 (``csrc/gf2_elim_fused.cu``),
+       four pivots chosen per fused tail update, exit tested once per
+       4-column group.
+  3 -> ``eliminate_blocks_pair``: kernel K5 (``csrc/gf2_elim_pair.cu``),
+       two shots per thread block advancing through one column loop, each
+       exiting on its own.
+
+Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
+plain version on a CPU tensor: ``eliminate_blocks_plain`` for K2 and K5
+(K5 computes exactly K2's per-shot function), ``eliminate_blocks_fused_plain``
+for K4.
 
 Words travel as int32 (bit c of word w = column 32w + c): PyTorch's uint32
 support is thin, and ``(w >> b) & 1`` is exact after an arithmetic shift.
@@ -12,20 +26,27 @@ support is thin, and ``(w >> b) & 1`` is exact after an arithmetic shift.
 Exit points: with ``exit_on_valid=True`` a shot stops once its residual
 syndrome lies in its pivot span, so ``prow_of_col``, ``used``, ``colofrow``
 and the reduced matrix depend on where it stopped; ``s_red``, the OSD-0
-bits, validity and the logical delta do not. With ``exit_on_valid=False``
-every output equals the full scan. The kernel and the plain version exit at
-the same column for every shot, so they agree on every output either way.
+bits, validity and the logical delta do not. K4 tests the exit once per
+4-column group, so it may stop up to 3 columns after K2; with
+``exit_on_valid=False`` all three versions give every output of the full
+scan. Each kernel exits at the same column as its plain version for every
+shot, so the two agree on every output either way.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from .. import _kernels
 
 _SMEM_LIMIT = 232448 - 1024  # dynamic shared bytes a block may take
-_MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim.cu
+_MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim*.cu
+_FUSED_GROUP = 4             # columns per K4 group (GF2_GROUP)
+
+# Eliminator generation, as osd_pallas._KERNEL_VERSION in the JAX package.
+_KERNEL_VERSION = int(os.environ.get("QLDPC_OSD_KERNEL", "1"))
 
 
 def _check_inputs(Hp, s, K: int, m: int):
@@ -63,11 +84,23 @@ def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
     full_jordan=False skips already-passed words: s_reduced, prow_of_col,
     used and all pivot columns equal full Gauss-Jordan; dependent columns
     left of a pivot's word stay stale. full_jordan=True reduces them too.
-    ``eliminate_blocks.launches`` counts the kernel launches."""
+    Runs the eliminator ``_KERNEL_VERSION`` selects (module docstring)."""
+    fn = _ELIMINATORS.get(_KERNEL_VERSION)
+    if fn is None:
+        raise ValueError(f"QLDPC_OSD_KERNEL={_KERNEL_VERSION}: the "
+                         f"eliminator versions are {sorted(_ELIMINATORS)}")
+    return fn(Hp, s, K, m, rank, full_jordan, exit_on_valid, return_steps)
+
+
+def _launch(wrapper, lib_name: str, fn_name: str, plain, Hp, s, K, m, rank,
+            full_jordan, exit_on_valid, return_steps):
+    """Shared body of the three eliminator wrappers: the plain version on a
+    CPU tensor, else one launch of ``fn_name`` from ``csrc/<lib_name>.cu``
+    (same C signature for all three kernels), counted on ``wrapper``."""
     _check_inputs(Hp, s, K, m)
     if Hp.device.type == "cpu":
-        return eliminate_blocks_plain(Hp, s, K, m, rank, full_jordan,
-                                      exit_on_valid, return_steps)
+        return plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
+                     return_steps)
     if Hp.device.type != "cuda":
         raise ValueError(f"unsupported device {Hp.device}")
     B, W, M = Hp.shape
@@ -79,23 +112,65 @@ def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
     out_s = s.to(device=Hp.device, dtype=torch.int32).contiguous().clone()
     cf = torch.empty((B, M), dtype=torch.int32, device=Hp.device)
     steps = torch.empty((B,), dtype=torch.int32, device=Hp.device)
-    code = _lib().gf2_elim_launch(
+    code = getattr(_lib(lib_name), fn_name)(
         out_hp.data_ptr(), out_s.data_ptr(), cf.data_ptr(), steps.data_ptr(),
         B, W, M, m, K, m if rank is None else rank, int(full_jordan),
         int(exit_on_valid), threads, _SMEM_LIMIT,
         _kernels.stream_ptr(Hp.device))
-    _kernels.check(code, "gf2_elim_kernel")
-    eliminate_blocks.launches += 1
+    _kernels.check(code, fn_name)
+    wrapper.launches += 1
     out = (out_hp, out_s, prow_of_col_from(cf, K), cf >= 0, cf)
     return out + (steps,) if return_steps else out
 
 
-eliminate_blocks.launches = 0
+def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
+                        full_jordan: bool = False, exit_on_valid: bool = True,
+                        return_steps: bool = False):
+    """Kernel K2 (``csrc/gf2_elim.cu``); arguments and outputs as
+    :func:`eliminate_blocks`. ``eliminate_blocks_v1.launches`` counts the
+    kernel launches."""
+    return _launch(eliminate_blocks_v1, "gf2_elim", "gf2_elim_launch",
+                   eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
+                   exit_on_valid, return_steps)
 
 
-def _lib():
-    lib = _kernels.load("gf2_elim")
-    fn = lib.gf2_elim_launch
+def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,
+                           full_jordan: bool = False,
+                           exit_on_valid: bool = True,
+                           return_steps: bool = False):
+    """Kernel K4 (``csrc/gf2_elim_fused.cu``): K2's function with the
+    pivots of each 4-column group chosen one after another on their word
+    and applied to the remaining words in one fused pass, the exit tested
+    once per group. ``eliminate_blocks_fused.launches`` counts the kernel
+    launches."""
+    return _launch(eliminate_blocks_fused, "gf2_elim_fused",
+                   "gf2_elim_fused_launch", eliminate_blocks_fused_plain,
+                   Hp, s, K, m, rank, full_jordan, exit_on_valid,
+                   return_steps)
+
+
+def eliminate_blocks_pair(Hp, s, K: int, m: int, rank: int = None,
+                          full_jordan: bool = False,
+                          exit_on_valid: bool = True,
+                          return_steps: bool = False):
+    """Kernel K5 (``csrc/gf2_elim_pair.cu``): K2's per-shot function with
+    two shots per thread block; every output equals K2's.
+    ``eliminate_blocks_pair.launches`` counts the kernel launches."""
+    return _launch(eliminate_blocks_pair, "gf2_elim_pair",
+                   "gf2_elim_pair_launch", eliminate_blocks_plain, Hp, s, K,
+                   m, rank, full_jordan, exit_on_valid, return_steps)
+
+
+for _fn in (eliminate_blocks_v1, eliminate_blocks_fused,
+            eliminate_blocks_pair):
+    _fn.launches = 0
+_ELIMINATORS = {1: eliminate_blocks_v1, 2: eliminate_blocks_fused,
+                3: eliminate_blocks_pair}
+
+
+def _lib(name: str):
+    lib = _kernels.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if not fn.argtypes:
         P = ctypes.c_void_p
         fn.argtypes = [P] * 4 + [ctypes.c_int] * 10 + [P]
@@ -107,9 +182,28 @@ def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
                            full_jordan: bool = False,
                            exit_on_valid: bool = True,
                            return_steps: bool = False):
-    """Plain PyTorch version of kernel K2: the same per-shot column steps,
-    vectorized over shots, each shot frozen once it is done. One host read
-    per column step."""
+    """Plain PyTorch version of kernels K2 and K5: the same per-shot column
+    steps, vectorized over shots, each shot frozen once it is done. One
+    host read per column step."""
+    return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
+                            return_steps, group=1)
+
+
+def eliminate_blocks_fused_plain(Hp, s, K: int, m: int, rank: int = None,
+                                 full_jordan: bool = False,
+                                 exit_on_valid: bool = True,
+                                 return_steps: bool = False):
+    """Plain PyTorch version of kernel K4: K2's column steps, with the exit
+    (rank reached, or residual inside the pivot span) tested only at the
+    end of each 4-column group, and the columns of the last group at or
+    beyond K never pivoting. ``steps`` counts the columns of the groups a
+    shot ran, at most K."""
+    return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
+                            return_steps, group=_FUSED_GROUP)
+
+
+def _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
+                     return_steps, group: int):
     _check_inputs(Hp, s, K, m)
     B, W, M = Hp.shape
     dev = Hp.device
@@ -123,32 +217,37 @@ def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     if exit_on_valid:
         done = ~((s != 0) & valid).any(1)
+    active = ~done
     npiv = torch.zeros(B, dtype=torch.int32, device=dev)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
-    for col in range(K):
-        if bool(done.all()):
-            break
-        steps += (~done).to(torch.int32)
-        w, bit = col // 32, col % 32
-        colbits = ((Hp[:, w, :] >> bit) & 1) == 1               # (B, M)
-        cand = colbits & (cf < 0) & valid & ~done[:, None]
-        piv = torch.where(cand, lane, M).amin(1)                # (B,)
-        has = piv < M
-        pivc = piv.clamp(max=M - 1)
-        pivmask = (lane == piv[:, None]) & has[:, None]
-        w0 = 0 if full_jordan else w
-        tail = Hp[:, w0:, :]
-        prow = tail[bidx, :, pivc]                              # (B, W-w0)
-        ps = s[bidx, pivc]
-        elim = colbits & ~pivmask & has[:, None]
-        Hp[:, w0:, :] = torch.where(elim[:, None, :], tail ^ prow[:, :, None],
-                                    tail)
-        s = torch.where(elim, s ^ ps[:, None], s)
-        cf = torch.where(pivmask, col, cf)
-        npiv += has.to(torch.int32)
-        shot_done = npiv >= rank
-        if exit_on_valid:
-            shot_done |= ~((cf < 0) & valid & (s != 0)).any(1)
-        done = done | shot_done
+    for col in range(-(-K // group) * group):
+        if col % group == 0:
+            if bool(done.all()):
+                break
+            active = ~done
+            steps += active.to(torch.int32) * min(group, K - col)
+        if col < K:
+            w, bit = col // 32, col % 32
+            colbits = ((Hp[:, w, :] >> bit) & 1) == 1           # (B, M)
+            cand = colbits & (cf < 0) & valid & active[:, None]
+            piv = torch.where(cand, lane, M).amin(1)            # (B,)
+            has = piv < M
+            pivc = piv.clamp(max=M - 1)
+            pivmask = (lane == piv[:, None]) & has[:, None]
+            w0 = 0 if full_jordan else w
+            tail = Hp[:, w0:, :]
+            prow = tail[bidx, :, pivc]                          # (B, W-w0)
+            ps = s[bidx, pivc]
+            elim = colbits & ~pivmask & has[:, None]
+            Hp[:, w0:, :] = torch.where(elim[:, None, :],
+                                        tail ^ prow[:, :, None], tail)
+            s = torch.where(elim, s ^ ps[:, None], s)
+            cf = torch.where(pivmask, col, cf)
+            npiv += has.to(torch.int32)
+        if (col + 1) % group == 0:
+            shot_done = npiv >= rank
+            if exit_on_valid:
+                shot_done |= ~((cf < 0) & valid & (s != 0)).any(1)
+            done = done | shot_done
     out = (Hp, s, prow_of_col_from(cf, K), cf >= 0, cf)
     return out + (steps,) if return_steps else out

@@ -1,19 +1,21 @@
 """Monte-Carlo logical-error-rate engine on one CUDA device.
 
 Port of the JAX package's ``run_simulation`` main path: dynamical alpha,
-flooding normalized min-sum on the lifted graph (damping 1), pooled,
-residual-sorted OSD with the staged eliminator, logical readout, and exact
-sequential stopping. One decode round = ``batch`` shots: sample gate faults
--> signature matmul -> BP (kernel K1) -> OSD on the shots BP did not
-converge (kernel K2) -> logical comparison. Stopping reproduces the
-reference's sequential rule exactly: per-shot error flags are read in shot
-order and the run truncates at the trial where the target error count is
-reached.
+normalized min-sum on the lifted graph (damping 1) with the flooding
+(``bp_variant="minsum"``) or the time-layered (``bp_variant="layered"``)
+schedule, pooled, residual-sorted OSD with the staged eliminator, logical
+readout, and exact sequential stopping. One decode round = ``batch`` shots:
+sample gate faults -> signature matmul -> BP (kernel K1 flooding, K3
+layered) -> OSD on the shots BP did not converge (kernel K2, or K4 / K5
+under ``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical
+comparison. Stopping reproduces the reference's sequential rule exactly:
+per-shot error flags are read in shot order and the run truncates at the
+trial where the target error count is reached.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 item): alpha modes other than dynamical and ``scopt`` (Queue A item 8),
-``bp_variant`` other than "minsum" (items 7 and 9), damping != 1 and
-non-lifted codes (item 7), a device mesh (item 11).
+``bp_variant="tanh"``, damping != 1 and non-lifted codes (item 7), a device
+mesh (item 11).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from ..models.circuit import SyndromeCircuit
 from ..ops.bp import alpha_schedule
 from ..ops.bp_lift import LiftedGraph
 from ..ops.bp_lift_cuda import decode_batch_lift_cuda
+from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops.osd import choose_K, osd_batch
 from ..ops.sampler import (TrialMaps, augmented_bits, fault_bits,
                            make_trial_maps, sample_gate_randoms)
@@ -55,9 +58,7 @@ def _check_supported(alpha_mode="dynamical", scopt=False,
         raise _unported(f"alpha_mode={alpha_mode!r}", "item 8 (calibration)")
     if scopt:
         raise _unported("scopt", "item 8 (calibration)")
-    if bp_variant == "layered":
-        raise _unported("bp_variant='layered'", "item 9 (layered schedule)")
-    if bp_variant != "minsum":
+    if bp_variant not in ("minsum", "layered"):
         raise _unported(f"bp_variant={bp_variant!r}",
                         "item 7 (generic padded-CSR BP)")
     if damping != 1.0:
@@ -148,12 +149,16 @@ def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
 
 
 def _bp_one_basis(syndrome, dec: BasisDecoder, maxIter: int,
-                  clip_llr: float = 20.0):
-    """BP only: flooding min-sum on the lifted graph, damping 1 (kernel K1
-    on CUDA tensors). Returns the BP dict (values (B, n) f32, hard (B, n)
-    int8, converged (B,) bool, iterations (B,) int32)."""
-    return decode_batch_lift_cuda(dec.lifted, syndrome, dec.prior,
-                                  dec.alpha_seq, maxIter, clip_llr=clip_llr)
+                  clip_llr: float = 20.0, bp_variant: str = "minsum"):
+    """BP only: min-sum on the lifted graph, damping 1 — the flooding
+    schedule for ``bp_variant="minsum"`` (kernel K1 on CUDA tensors), the
+    time-layered one for ``"layered"`` (kernel K3; ``maxIter`` counts
+    sweeps). Returns the BP dict (values (B, n) f32, hard (B, n) int8,
+    converged (B,) bool, iterations (B,) int32)."""
+    decode = {"minsum": decode_batch_lift_cuda,
+              "layered": decode_batch_lift_layered_cuda}[bp_variant]
+    return decode(dec.lifted, syndrome, dec.prior, dec.alpha_seq, maxIter,
+                  clip_llr=clip_llr)
 
 
 def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
@@ -199,7 +204,7 @@ def _logical_readout(hard, conv, delta, dec: BasisDecoder):
 
 
 def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
-                     clip_llr=20.0, randoms=None):
+                     clip_llr=20.0, randoms=None, bp_variant="minsum"):
     """One round's sampling + both-basis BP. ``randoms`` = (err, pauli,
     cat2) replaces the draw from ``gen`` (tests feed both packages the same
     draws). Returns the [z, x] per-basis state dicts."""
@@ -211,7 +216,7 @@ def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
         bits = fault_bits(err, pauli, cat2, dec.maps, name.upper())
         aug = augmented_bits(bits, dec.maps)
         syndrome = aug[:, :dec.maps.num_syn].contiguous()
-        bp = _bp_one_basis(syndrome, dec, maxIter, clip_llr)
+        bp = _bp_one_basis(syndrome, dec, maxIter, clip_llr, bp_variant)
         per_basis.append(dict(
             syn=syndrome, true_log=aug[:, dec.maps.num_syn:],
             values=bp["values"], hard=bp["hard"], conv=bp["converged"]))
@@ -252,7 +257,7 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
     def pooled(gen, randoms=None):
         stacked = [_sample_bp_phase(
             gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, clip_llr,
-            None if randoms is None else randoms[i])
+            None if randoms is None else randoms[i], bp_variant)
             for i in range(n_rounds)]
         flat = [{k: torch.cat([r[b][k] for r in stacked])
                  for k in stacked[0][b]} for b in (0, 1)]

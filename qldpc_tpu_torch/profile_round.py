@@ -13,8 +13,12 @@ order 2) and reports, for a few steady dispatches:
 Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
     python -m qldpc_tpu_torch.profile_round [--dispatches 3] [--json PATH]
+        [--bp-variant minsum|layered] [--osd-kernel 1|2|3]
 
-Prints a summary, and the full report as JSON to PATH when given.
+``--bp-variant`` picks the BP schedule (flooding K1, layered K3) and
+``--osd-kernel`` the eliminator generation (K2, K4, K5), as
+``run_simulation(bp_variant=...)`` and ``QLDPC_OSD_KERNEL`` do. Prints a
+summary, and the full report as JSON to PATH when given.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import time
 import torch
 
 from . import build_decoding_matrices, get_code, SyndromeCircuit
+from .ops import osd_cuda
 from .ops.bp import alpha_schedule
 from .ops.sampler import augmented_bits, fault_bits, sample_gate_randoms
 from .parallel import engine
@@ -55,7 +60,7 @@ def _timed_dispatch(decs, n_locs, gen, cfg, acc):
                 dec.maps))
             syn = aug[:, :dec.maps.num_syn].contiguous()
             bp = timed("bp", lambda: engine._bp_one_basis(
-                syn, dec, cfg["maxIter"]))
+                syn, dec, cfg["maxIter"], bp_variant=cfg["bp_variant"]))
             per.append(dict(syn=syn, true_log=aug[:, dec.maps.num_syn:],
                             values=bp["values"], hard=bp["hard"],
                             conv=bp["converged"]))
@@ -77,12 +82,17 @@ def main(argv=None):
     ap.add_argument("--dispatches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--json", help="write the full report here")
+    ap.add_argument("--bp-variant", default="minsum",
+                    choices=("minsum", "layered"))
+    ap.add_argument("--osd-kernel", type=int, default=1, choices=(1, 2, 3))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA GPU")
     dev = torch.device("cuda")
     cfg = dict(code="[[144, 12, 12]]", cycles=12, p=0.004, batch=1024, rpd=4,
-               maxIter=50, osd_order=2)
+               maxIter=50, osd_order=2, bp_variant=args.bp_variant,
+               osd_kernel=args.osd_kernel)
+    osd_cuda._KERNEL_VERSION = args.osd_kernel
     code = get_code(cfg["code"])
     circ = SyndromeCircuit(code, num_cycles=cfg["cycles"])
     M = build_decoding_matrices(circ, code.Lx, code.Lz, cfg["p"])
@@ -93,7 +103,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     fn = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, cfg["p"],
                                      cfg["batch"], cfg["maxIter"],
-                                     cfg["osd_order"], cfg["rpd"])
+                                     cfg["osd_order"], cfg["rpd"],
+                                     bp_variant=cfg["bp_variant"])
     fn(gen)  # warm-up: kernel builds, allocator
     torch.cuda.synchronize()
 

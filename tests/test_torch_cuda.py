@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on the GPU.
+"""Kernels K1-K5 against their plain PyTorch versions on the GPU.
 
 Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
 on first use); every test skips without a card. Imports neither jax nor the
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import qldpc_tpu_torch as qt
-from qldpc_tpu_torch.ops import bp_lift_cuda, osd_cuda
+from qldpc_tpu_torch.ops import bp_lift_cuda, bp_lift_layered_cuda, osd_cuda
 from qldpc_tpu_torch.ops.bp import alpha_schedule
 from qldpc_tpu_torch.ops.osd import _gather_pack
 from qldpc_tpu_torch.parallel import engine
@@ -75,13 +75,13 @@ def test_elim_kernel_matches_plain(cuda, bundles, exit_on_valid,
     cols = torch.sort(llr.abs(), dim=1, stable=True).indices[:, :dec.K]
     Hp = _gather_pack(dec.H.T.contiguous(), cols, dec.K, words_major=True)
     s = torch.as_tensor(syn, device=cuda).to(torch.int32)
-    before = osd_cuda.eliminate_blocks.launches
-    a = osd_cuda.eliminate_blocks(Hp, s, dec.K, H.shape[0], rank=dec.rank,
-                                  full_jordan=full_jordan,
-                                  exit_on_valid=exit_on_valid,
-                                  return_steps=True)
+    before = osd_cuda.eliminate_blocks_v1.launches
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, dec.K, H.shape[0], rank=dec.rank,
+                                     full_jordan=full_jordan,
+                                     exit_on_valid=exit_on_valid,
+                                     return_steps=True)
     torch.cuda.synchronize()
-    assert osd_cuda.eliminate_blocks.launches == before + 1
+    assert osd_cuda.eliminate_blocks_v1.launches == before + 1
     b = osd_cuda.eliminate_blocks_plain(Hp, s, dec.K, H.shape[0],
                                         rank=dec.rank,
                                         full_jordan=full_jordan,
@@ -105,6 +105,79 @@ def test_pooled_round_gpu_matches_cpu(cuda, bundles):
         dz, dx = decs[dev]
         fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
                                          128, 50, 2, 2)
+        outs[dev] = fn(None, randoms=[tuple(x.to(dev) for x in r)
+                                      for r in randoms])
+    for k, v in outs["cpu"].items():
+        assert torch.equal(v, outs[str(cuda)][k].cpu()), k
+
+
+@pytest.mark.parametrize("basis", ["Z", "X"])
+def test_layered_kernel_matches_plain(cuda, bundles, basis):
+    circ, M, decs = bundles
+    dec = decs[str(cuda)]["ZX".index(basis)]
+    _, syn = _syndromes(M, basis, 256, 3)
+    syn = torch.as_tensor(syn, device=cuda)
+    fn = bp_lift_layered_cuda.decode_batch_lift_layered_cuda
+    before = fn.launches
+    a = fn(dec.lifted, syn, dec.prior, dec.alpha_seq, 50)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    b = bp_lift_layered_cuda.decode_batch_lift_layered_plain(
+        dec.lifted, syn, dec.prior, dec.alpha_seq, 50)
+    for k in ("hard", "converged", "iterations", "values"):
+        assert torch.equal(a[k], b[k]), k
+    assert a["converged"].any() and not a["converged"].all()
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("full_jordan", [False, True])
+@pytest.mark.parametrize("kernel", ["fused", "pair"])
+def test_alternative_elim_kernels_match_plain(cuda, bundles, kernel,
+                                              exit_on_valid, full_jordan):
+    """K4 against its plain version, K5 against K2's, every output; an odd
+    batch leaves K5's last block one shot."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    H, syn = _syndromes(M, "Z", 63, 4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    llr = torch.randn((63, H.shape[1]), generator=gen, device=cuda)
+    cols = torch.sort(llr.abs(), dim=1, stable=True).indices[:, :dec.K]
+    Hp = _gather_pack(dec.H.T.contiguous(), cols, dec.K, words_major=True)
+    s = torch.as_tensor(syn, device=cuda).to(torch.int32)
+    fn, plain = {
+        "fused": (osd_cuda.eliminate_blocks_fused,
+                  osd_cuda.eliminate_blocks_fused_plain),
+        "pair": (osd_cuda.eliminate_blocks_pair,
+                 osd_cuda.eliminate_blocks_plain)}[kernel]
+    kw = dict(rank=dec.rank, full_jordan=full_jordan,
+              exit_on_valid=exit_on_valid, return_steps=True)
+    before = fn.launches
+    a = fn(Hp, s, dec.K, H.shape[0], **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    b = plain(Hp, s, dec.K, H.shape[0], **kw)
+    for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
+                          a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("bp_variant, version", [
+    ("layered", 1), ("minsum", 2), ("minsum", 3)])
+def test_pooled_round_variants_gpu_matches_cpu(cuda, bundles, monkeypatch,
+                                               bp_variant, version):
+    """The layered path (K3) and the eliminator generations (K4, K5) give
+    the CPU plain versions' flags on the same randoms."""
+    circ, M, decs = bundles
+    monkeypatch.setattr(osd_cuda, "_KERNEL_VERSION", version)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    randoms = [sample_gate_randoms(gen, 128, circ.num_error_locs, 0.006)
+               for _ in range(2)]
+    outs = {}
+    for dev in ("cpu", str(cuda)):
+        dz, dx = decs[dev]
+        fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
+                                         128, 50, 2, 2, bp_variant=bp_variant)
         outs[dev] = fn(None, randoms=[tuple(x.to(dev) for x in r)
                                       for r in randoms])
     for k, v in outs["cpu"].items():

@@ -2,9 +2,11 @@
 
 One pooled dispatch of the port (sample -> BP -> pooled OSD -> readout),
 fed the gate randoms JAX draws, must give the per-shot flags of the JAX
-pooled round with both Pallas kernels in interpret mode. The port's
-run_simulation on the CPU must agree statistically with the recorded
-[[72,12,6]] p=0.006 logical error rate, and stop exactly at its target.
+pooled round with both Pallas kernels in interpret mode (the layered
+schedule and the other eliminator generations: test_torch_engine_variants.py).
+The port's run_simulation on the CPU must agree statistically with the
+recorded [[72,12,6]] p=0.006 logical error rate, and stop exactly at its
+target.
 """
 import numpy as np
 import pytest
@@ -128,7 +130,6 @@ def test_crossing_take():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(alpha_mode="alvarado", alvarado_alpha=0.8), "item 8"),
     (dict(scopt=True), "item 8"),
-    (dict(bp_variant="layered"), "item 9"),
     (dict(bp_variant="tanh"), "item 7"),
     (dict(damping=0.9), "item 7"),
     (dict(mesh=object()), "item 11"),

@@ -135,6 +135,8 @@ def test_port_imports_without_jax():
         "import qldpc_tpu_torch, qldpc_tpu_torch.convert\n"
         "import qldpc_tpu_torch.parallel.engine\n"
         "import qldpc_tpu_torch.ops.osd, qldpc_tpu_torch.ops.bp_lift_cuda\n"
+        "import qldpc_tpu_torch.ops.bp_lift_layered_cuda\n"
+        "import qldpc_tpu_torch.ops.osd_cuda, qldpc_tpu_torch._kernels\n"
         "assert qldpc_tpu_torch.run_simulation is not None\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
