@@ -14,16 +14,22 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all five kernels, (2) flooding BP kernel
+Phases: (1) device and build of all seven kernels, (2) flooding BP kernel
 K1 vs its plain version, (3) GF(2) elimination kernel K2 vs its plain
 version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
-plain version and vs K1 on the same syndromes, (6) eliminator kernels K4
-(fused 4-column) and K5 (two shots per block) vs their plain versions and
-K2's, (7) layered path (K3 + K2), (8) the main path (a pooled dispatch and
-run_simulation) under QLDPC_OSD_KERNEL=2 and 3 (K1 + K4, K1 + K5). Each
-path runs with every launch count set to 0 just before it and read just
-after. Exits non-zero, and prints no result, without a GPU, outside a
-checkout, or when any phase fails.
+plain version and vs K1 on the same syndromes, then K1's and K3's
+device-memory branch (the one [[288]] takes) vs their shared-memory
+launches, (6) eliminator kernels K4 (fused 4-column) and K5 (two shots per
+block) vs their plain versions and K2's, (7) layered path (K3 + K2), (8) the
+main path (a pooled dispatch and run_simulation) under QLDPC_OSD_KERNEL=2
+and 3 (K1 + K4, K1 + K5), (9) the gather_bench entry point (P1, the
+iterated on-chip gather) and P1 vs its plain version at every case of its
+ladder, (10) the gather_probe entry point (P2, take-along-axis) and P2 vs
+its plain version and torch.take_along_dim at every probe case, (11) the
+bp_breakdown entry point at [[144,12,12]], B=1024 (K1). Each path runs with
+every launch count set to 0 just before it and read just after. Exits
+non-zero, and prints no result, without a GPU, outside a checkout, or when
+any phase fails.
 """
 from __future__ import annotations
 
@@ -44,7 +50,9 @@ MAX_TRIALS = 16384
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 K1_OPS_PER_EDGE_ITER = 17   # float32 ops per live edge per iteration
-K2_OPS_PER_ROW_STEP = 5     # int ops per row per column step (scan only)
+K2_OPS_PER_ROW_STEP = 5     # int ops per row per column step (the scan)
+K2_OPS_PER_XOR_WORD = 1     # int ops per word a pivot row is XORed into
+SMEM_BYTES_PER_CLK_SM = 128  # H100 shared-memory bandwidth per SM
 # float32 ops per live edge per sweep: one check update (~14), two
 # posterior rebuilds (2 adds) and one parity test (2)
 K3_OPS_PER_EDGE_SWEEP = 18
@@ -55,20 +63,6 @@ ARCHIVE_LER, ARCHIVE_TRIALS = 200 / 1135, 1135
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -91,23 +85,34 @@ def main():
         import qldpc_tpu_torch as qt
         from qldpc_tpu_torch import _kernels
         from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda,
-                                         osd, osd_cuda)
+                                         gather, osd, osd_cuda)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
                                                  sample_gate_randoms)
         from qldpc_tpu_torch.parallel import engine
+        from qldpc_tpu_torch.scripts import (bp_breakdown, device_ms,
+                                             gather_bench, gather_probe)
+        from qldpc_tpu_torch.utils.caching import (compute_cache_key,
+                                                   save_matrices)
     except ImportError as e:
         fail(f"run from the root of a checkout: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    def cuda_ms(fn, reps: int) -> float:
+        """Mean ms per call over ``reps`` calls after one warm-up call."""
+        return device_ms(fn, reps, dev)
+
     # ---- phase 1: device and build ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0].strip() if smi else "unknown"
+    def smi(query: str) -> str:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        return out[0].strip() if out else "unknown"
+
+    card = smi("name,power.limit")
+    sm_clock = smi("clocks.max.sm")  # e.g. "1980 MHz"
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -136,7 +141,8 @@ def main():
                     k2=osd_cuda.eliminate_blocks_v1,
                     k3=bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
                     k4=osd_cuda.eliminate_blocks_fused,
-                    k5=osd_cuda.eliminate_blocks_pair)
+                    k5=osd_cuda.eliminate_blocks_pair,
+                    p1=gather.gather_iterate, p2=gather.take_along)
 
     def reset_counts():
         for w in wrappers.values():
@@ -185,6 +191,7 @@ def main():
                          mean_iters=shot_iters / BATCH)
         failed[basis] = (syn[unconv], b["values"][unconv],
                          b["hard"][unconv])
+        k1[basis]["out"] = a
         print(f"phase 2: K1 basis {basis}: exact; {ms:.3f} ms "
               f"(plain {plain_ms:.1f} ms, bound {kb:.4f} ms by {bb}); "
               f"{k1[basis]['converged']}/{BATCH} converged, mean "
@@ -219,7 +226,9 @@ def main():
                       return_steps=True)
             a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, **kw)
             torch.cuda.synchronize()
-            b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, **kw)
+            b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
+                                                count_xor_words=True, **kw)
+            xor_words = int(b[6].sum())  # data-dependent work of the run
             for nm, x, y in zip(names, a, b):
                 if not torch.equal(x, y):
                     fail(f"phase 3: K2 {nm} differs from the plain version "
@@ -229,17 +238,21 @@ def main():
         ms = cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(Hp, residual, Kw,
                                                           m, rank=dec.rank), 5)
         steps = a[5]
-        kb, bb = bound(2 * nbytes(Hp, residual) + nbytes(a[4], steps),
-                       K2_OPS_PER_ROW_STEP * m * int(steps.long().sum()))
+        k2_bytes = 2 * nbytes(Hp, residual) + nbytes(a[4], steps)
+        scan_ops = K2_OPS_PER_ROW_STEP * m * int(steps.long().sum())
+        scan_kb, _ = bound(k2_bytes, scan_ops)
+        kb, bb = bound(k2_bytes, scan_ops + K2_OPS_PER_XOR_WORD * xor_words)
         k2[width] = dict(ms=ms, words=Hp.shape[1], shots=len(Hp),
-                         bound_ms=kb, bound_by=bb, steps=steps,
+                         bound_ms=kb, bound_by=bb, scan_bound_ms=scan_kb,
+                         xor_words=xor_words, steps=steps,
                          mean_steps=float(steps.float().mean()),
                          max_steps=int(steps.max()))
         print(f"phase 3: K2 {width} ({Hp.shape[1]} words, {len(Hp)} shots):"
               f" exact with and without the validity exit; {ms:.3f} ms "
-              f"(bound {kb:.4f} ms by {bb}); steps mean "
-              f"{k2[width]['mean_steps']:.1f} max {k2[width]['max_steps']}",
-              flush=True)
+              f"(bound {kb:.4f} ms by {bb}: row scans {scan_ops} ops + "
+              f"{xor_words} word XORs; scan alone {scan_kb:.4f} ms); steps "
+              f"mean {k2[width]['mean_steps']:.1f} max "
+              f"{k2[width]['max_steps']}", flush=True)
     Hp, Kw = widths["stage1"]
     k2["stage1"]["plain_ms"] = cuda_ms(
         lambda: osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
@@ -361,7 +374,7 @@ def main():
         k3[basis] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_abs,
                          bound_ms=kb, bound_by=bb,
                          converged=int(a["converged"].sum()),
-                         mean_sweeps=shot_sweeps / BATCH)
+                         mean_sweeps=shot_sweeps / BATCH, out=a)
         print(f"phase 5: K3 basis {basis}: exact; {ms:.3f} ms (plain "
               f"{plain_ms:.1f} ms, bound {kb:.4f} ms by {bb}); "
               f"{k3[basis]['converged']}/{BATCH} converged, mean "
@@ -369,6 +382,32 @@ def main():
               f"syndromes: {k1[basis]['converged']}/{BATCH} converged, mean "
               f"{k1[basis]['mean_iters']:.2f} iterations, {k1[basis]['ms']:.3f}"
               f" ms", flush=True)
+
+    # K1's and K3's device-memory branch: a per-shot state slab in device
+    # memory instead of shared memory, as [[288]] (403 KB a shot) takes it
+    dec = decs[0]
+    args = (dec.lifted, syns["Z"], dec.prior, dec.alpha_seq, MAXITER)
+    saved_limit = bp_lift_cuda._SMEM_LIMIT
+    bp_lift_cuda._SMEM_LIMIT = 0
+    try:
+        for key, fn_k, ref in (
+                ("K1", bp_lift_cuda.decode_batch_lift_cuda, k1["Z"]["out"]),
+                ("K3", bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
+                 k3["Z"]["out"])):
+            a = fn_k(*args)
+            torch.cuda.synchronize()
+            for name in ("hard", "converged", "iterations", "values"):
+                if not torch.equal(a[name], ref[name]):
+                    fail(f"phase 5: {key}'s device-memory branch {name} "
+                         "differs from its shared-memory launch")
+            dm_ms = cuda_ms(lambda: fn_k(*args), 3)
+            smem_ms = (k1 if key == "K1" else k3)["Z"]["ms"]
+            print(f"phase 5: {key} device-memory branch (basis Z): every "
+                  f"output identical to the shared-memory launch; "
+                  f"{dm_ms:.3f} ms (shared memory {smem_ms:.3f} ms)",
+                  flush=True)
+    finally:
+        bp_lift_cuda._SMEM_LIMIT = saved_limit
 
     # ---- phase 6: K4 and K5 against their plain versions and K2's ----
     dec = decs[0]  # phase 3's inputs are Z-basis shots
@@ -551,6 +590,116 @@ def main():
               f"{res_v['shots_per_sec']:.1f} shots/s, launches K1 {lv['k1']} "
               f"{key.upper()} {lv[key]}", flush=True)
 
+    # ---- phase 9: P1, the iterated on-chip gather ----
+    reset_counts()
+    bench = gather_bench.main([])  # the entry point, at its whole ladder
+    torch.cuda.synchronize()
+    c = counts()
+    if c["p1"] <= 0 or any(v for k, v in c.items() if k != "p1"):
+        fail(f"phase 9: gather_bench did not run P1 alone: {c}")
+    p1_launches = c["p1"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_bytes_per_s = (SMEM_BYTES_PER_CLK_SM * sms
+                        * float(sm_clock.split()[0]) * 1e6)
+    p1 = {}
+    for (dtype, x, idx), row in zip(gather_bench.ladder_inputs(device=dev),
+                                    bench):
+        it = gather_bench.ITERS
+        total, tile = gather.gather_iterate(x, idx, it)
+        torch.cuda.synchronize()
+        p_total, p_tile = gather.gather_iterate_plain(x, idx, it)
+        where = f"({row['rows']}, {row['lanes']}) {row['dtype']}"
+        if not torch.equal(tile, p_tile):
+            fail(f"phase 9: P1 tile differs from its plain version {where}")
+        rtol = 1e-5 if dtype == torch.float32 else 1e-2
+        if total.shape != (1, x.shape[1]) or not torch.allclose(
+                total.float(), p_total.float(), rtol=rtol, atol=0.0):
+            fail(f"phase 9: P1 column sums differ from the plain version "
+                 f"beyond rtol {rtol} {where}")
+        index = idx.long()
+
+        def gathers():
+            acc = x
+            for _ in range(it):
+                acc = torch.gather(acc, 0, index)
+            return acc
+
+        t_dev = nbytes(x, idx, total, tile) / HBM_BYTES_PER_S
+        t_smem = 2 * x.numel() * x.element_size() * it / smem_bytes_per_s
+        # the rounds alone: the same launch with no round (load, sum, store)
+        zero_ms = cuda_ms(lambda: gather.gather_iterate(x, idx, 0), 10)
+        p1[where] = dict(
+            ms=row["P1_ms"], plain_ms=row["gather_ms"],
+            round_ms=(row["P1_ms"] - zero_ms) / it,
+            round_bound_ms=t_smem / it * 1e3,
+            library_ms=cuda_ms(gathers, 10),
+            bound_ms=max(t_dev, t_smem) * 1e3, bound_by="bytes",
+            bound_from="shared memory" if t_smem > t_dev else "device memory",
+            max_abs_err=float((total.float() - p_total.float()).abs().max()))
+        r = p1[where]
+        print(f"phase 9: P1 {where}: tile exact, sums within rtol {rtol} "
+              f"(max abs err {r['max_abs_err']:.3g}); {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.3f} ms, {it} torch.gather calls "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_from']} bytes at {sm_clock}); one round "
+              f"{r['round_ms'] * 1e3:.2f} us (bound "
+              f"{r['round_bound_ms'] * 1e3:.2f} us)", flush=True)
+    p1_top = p1["(35280, 128) float32"]
+
+    # ---- phase 10: P2, take-along-axis ----
+    reset_counts()
+    gather_probe.main([])  # exits non-zero on a mismatch
+    torch.cuda.synchronize()
+    c = counts()
+    if c["p2"] <= 0 or any(v for k, v in c.items() if k != "p2"):
+        fail(f"phase 10: gather_probe did not run P2 alone: {c}")
+    p2_launches = c["p2"]
+    p2 = {}
+    for name, shape, dtype, axis in gather_probe.cases():
+        x, idx = gather_probe.probe_inputs(shape, dtype, axis, dev)
+        out = gather.take_along(x, idx, axis)
+        torch.cuda.synchronize()
+        if not torch.equal(out, gather.take_along_plain(x, idx, axis)) or \
+                not torch.equal(out, torch.take_along_dim(x, idx.long(),
+                                                          axis)):
+            fail(f"phase 10: P2 differs from its plain version or "
+                 f"torch.take_along_dim ({name})")
+        if shape == (1024, 128) and dtype == torch.float32:
+            index = idx.long()
+            p2[axis] = dict(
+                ms=cuda_ms(lambda: gather.take_along(x, idx, axis), 50),
+                plain_ms=cuda_ms(
+                    lambda: gather.take_along_plain(x, idx, axis), 50),
+                library_ms=cuda_ms(
+                    lambda: torch.take_along_dim(x, index, axis), 50),
+                bound_ms=nbytes(x, idx, out) / HBM_BYTES_PER_S * 1e3)
+    print(f"phase 10: P2 equals its plain version and torch.take_along_dim "
+          f"at all {len(list(gather_probe.cases()))} probe cases; "
+          f"(1024, 128) float32: " + "; ".join(
+              f"axis {ax} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+              f"take_along_dim {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ms by bytes)" for ax, r in p2.items()),
+          flush=True)
+
+    # ---- phase 11: the bp_breakdown entry point (K1) at B=1024 ----
+    save_matrices(str(bp_breakdown.CACHE_DIR),
+                  compute_cache_key(code.Hx, code.Hz, code.Lx, code.Lz,
+                                    CYCLES, P), M)  # its cycles: d = 12
+    reset_counts()
+    brk = bp_breakdown.main(["--batch", str(BATCH), "--reps", "50"])
+    torch.cuda.synchronize()
+    c = counts()
+    if c["k1"] <= 0 or any(v for k, v in c.items() if k != "k1"):
+        fail(f"phase 11: bp_breakdown did not run K1 alone: {c}")
+    times = [v for k, v in brk.items() if k.endswith("_ms")]
+    if not all(np.isfinite(times)) or brk["kernel20_ms"] <= 0 \
+            or brk["converged20"] <= 0:
+        fail(f"phase 11: implausible breakdown {brk}")
+    print(f"phase 11: bp_breakdown [[144,12,12]] B={BATCH}: K1 launches "
+          f"{c['k1']}; kernel per-iteration {brk['kernel_per_iter_ms']:.4f} "
+          f"ms, full per-iteration {brk['full_per_iter_ms']:.4f} ms, wrapper "
+          f"postprocess {brk['postprocess_ms']:.3f} ms", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -584,6 +733,22 @@ def main():
             launches=launches_v[key][key], max_abs_err=k45_err[key],
             ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=None))
+    kernels += [
+        dict(name="gather_iter_kernel", route="cuda",
+             source="qldpc_tpu_torch/csrc/gather_iter.cu",
+             replaces="scripts/pallas_gather_bench.py:35",
+             launches=p1_launches, max_abs_err=p1_top["max_abs_err"],
+             ms=p1_top["ms"], plain_ms=p1_top["plain_ms"],
+             bound_ms=p1_top["bound_ms"], bound_by=p1_top["bound_by"],
+             library_ms=p1_top["library_ms"]),
+        dict(name="take_along_kernel", route="cuda",
+             source="qldpc_tpu_torch/csrc/take_along.cu",
+             replaces="scripts/pallas_gather_probe.py:26",
+             launches=p2_launches, max_abs_err=0.0, ms=p2[0]["ms"],
+             plain_ms=p2[0]["plain_ms"], bound_ms=p2[0]["bound_ms"],
+             bound_by="bytes", library_ms=p2[0]["library_ms"]),
+    ]
+    print(f"max SM clock {sm_clock}, {sms} SMs")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

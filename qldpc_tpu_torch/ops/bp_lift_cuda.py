@@ -30,7 +30,7 @@ from .. import _kernels
 from .bp import _BIG
 from .bp_lift import LiftedGraph
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_SMEM_LIMIT = _kernels.SMEM_PER_BLOCK
 
 
 def flood_tables(g: LiftedGraph, device) -> dict:
@@ -113,18 +113,34 @@ def decode_batch_lift_cuda(g: LiftedGraph, syndrome, prior, alpha_seq,
     if syndrome.device.type == "cpu":
         return decode_batch_lift_plain(g, syndrome, prior, alpha_seq,
                                        maxIter, clip_llr)
-    return _launch(decode_batch_lift_cuda, "bp_lift_flood", "bp_flood_launch",
-                   g, syndrome, prior, alpha_seq, maxIter, clip_llr, ())
+    launch, out = prepare_flood_launch(g, syndrome, prior, alpha_seq,
+                                       maxIter, clip_llr)
+    launch()
+    return out
 
 
 decode_batch_lift_cuda.launches = 0
 
 
-def _launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph, syndrome,
-            prior, alpha_seq, maxIter: int, clip_llr: float, extra: tuple):
-    """One launch of a lifted-BP kernel (``csrc/<lib_name>.cu``), counted on
-    ``wrapper``. The kernels share one C signature; ``extra`` holds the int
-    arguments a kernel takes after maxIter."""
+def prepare_flood_launch(g: LiftedGraph, syndrome, prior, alpha_seq,
+                         maxIter: int, clip_llr: float = 20.0):
+    """K1 on CUDA tensors, prepared but not launched: (launch, outputs) as
+    :func:`prepare_launch`, counted on ``decode_batch_lift_cuda``."""
+    _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
+    return prepare_launch(decode_batch_lift_cuda, "bp_lift_flood",
+                          "bp_flood_launch", g, syndrome, prior, alpha_seq,
+                          maxIter, clip_llr)
+
+
+def prepare_launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph,
+                   syndrome, prior, alpha_seq, maxIter: int, clip_llr: float,
+                   extra: tuple = ()):
+    """A lifted-BP kernel (``csrc/<lib_name>.cu``) made ready to launch:
+    input casts, tables, output and scratch allocation, library load.
+    The kernels share one C signature; ``extra`` holds the int arguments a
+    kernel takes after maxIter. Returns (launch, outputs): each
+    ``launch()`` runs the kernel once into ``outputs`` and counts it on
+    ``wrapper``, so a caller can also time the kernel alone."""
     if syndrome.device.type != "cuda":
         raise ValueError(f"unsupported device {syndrome.device}")
     dev = syndrome.device
@@ -150,19 +166,24 @@ def _launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph, syndrome,
         fn.argtypes = ([Pt] * 14 + [It] * (7 + len(extra))
                        + [ctypes.c_float, It, Pt])
         fn.restype = ctypes.c_int
-    code = fn(
-        syn.data_ptr(), tabs["prior_grid"].data_ptr(),
-        tabs["chk_nbr"].data_ptr(), tabs["col_chk"].data_ptr(),
-        tabs["pb_start"].data_ptr(), alpha.data_ptr(),
-        tabs["out_gather"].data_ptr(), tabs["residual"].data_ptr(),
-        prior.data_ptr(), values.data_ptr(), hard.data_ptr(),
-        conv.data_ptr(), iters.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        B, m, EB, P, NB, n, maxIter, *extra, float(clip_llr), threads,
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, fn_name)
-    wrapper.launches += 1
-    return dict(hard=hard, converged=conv, values=values, iterations=iters)
+
+    def launch():
+        # syn, prior, alpha and scratch stay referenced by this closure
+        code = fn(
+            syn.data_ptr(), tabs["prior_grid"].data_ptr(),
+            tabs["chk_nbr"].data_ptr(), tabs["col_chk"].data_ptr(),
+            tabs["pb_start"].data_ptr(), alpha.data_ptr(),
+            tabs["out_gather"].data_ptr(), tabs["residual"].data_ptr(),
+            prior.data_ptr(), values.data_ptr(), hard.data_ptr(),
+            conv.data_ptr(), iters.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, m, EB, P, NB, n, maxIter, *extra, float(clip_llr), threads,
+            _kernels.stream_ptr(dev))
+        _kernels.check(code, fn_name)
+        wrapper.launches += 1
+
+    return launch, dict(hard=hard, converged=conv, values=values,
+                        iterations=iters)
 
 
 class _PlainGraph:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .bp_lift import LiftedGraph
-from .bp_lift_cuda import _PlainGraph, _check_inputs, _launch
+from .bp_lift_cuda import _PlainGraph, _check_inputs, prepare_launch
 
 
 def decode_batch_lift_layered_cuda(g: LiftedGraph, syndrome, prior,
@@ -41,9 +41,12 @@ def decode_batch_lift_layered_cuda(g: LiftedGraph, syndrome, prior,
     if syndrome.device.type == "cpu":
         return decode_batch_lift_layered_plain(g, syndrome, prior, alpha_seq,
                                                maxIter, clip_llr)
-    return _launch(decode_batch_lift_layered_cuda, "bp_lift_layered",
-                   "bp_layered_launch", g, syndrome, prior, alpha_seq,
-                   maxIter, clip_llr, (g.ell * g.mm,))
+    launch, out = prepare_launch(decode_batch_lift_layered_cuda,
+                                 "bp_lift_layered", "bp_layered_launch", g,
+                                 syndrome, prior, alpha_seq, maxIter,
+                                 clip_llr, (g.ell * g.mm,))
+    launch()
+    return out
 
 
 decode_batch_lift_layered_cuda.launches = 0

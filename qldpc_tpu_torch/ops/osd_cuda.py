@@ -41,7 +41,7 @@ import torch
 
 from .. import _kernels
 
-_SMEM_LIMIT = 232448 - 1024  # dynamic shared bytes a block may take
+_SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024  # dynamic bytes a block takes
 _MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim*.cu
 _FUSED_GROUP = 4             # columns per K4 group (GF2_GROUP)
 
@@ -181,12 +181,20 @@ def _lib(name: str):
 def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
                            full_jordan: bool = False,
                            exit_on_valid: bool = True,
-                           return_steps: bool = False):
+                           return_steps: bool = False,
+                           count_xor_words: bool = False):
     """Plain PyTorch version of kernels K2 and K5: the same per-shot column
     steps, vectorized over shots, each shot frozen once it is done. One
-    host read per column step."""
+    host read per column step.
+
+    ``count_xor_words`` appends a (B,) int64 count of the word XORs the
+    steps did: per step, the rows the pivot row was XORed into times the
+    words it updated (those from the pivot's word on, or all of them under
+    ``full_jordan``). It measures the elimination's data-dependent work for
+    the kernels' operation bound; the decode path never asks for it."""
     return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
-                            return_steps, group=1)
+                            return_steps, group=1,
+                            count_xor_words=count_xor_words)
 
 
 def eliminate_blocks_fused_plain(Hp, s, K: int, m: int, rank: int = None,
@@ -203,7 +211,7 @@ def eliminate_blocks_fused_plain(Hp, s, K: int, m: int, rank: int = None,
 
 
 def _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
-                     return_steps, group: int):
+                     return_steps, group: int, count_xor_words: bool = False):
     _check_inputs(Hp, s, K, m)
     B, W, M = Hp.shape
     dev = Hp.device
@@ -220,6 +228,7 @@ def _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
     active = ~done
     npiv = torch.zeros(B, dtype=torch.int32, device=dev)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    xor_words = torch.zeros(B, dtype=torch.int64, device=dev)
     for col in range(-(-K // group) * group):
         if col % group == 0:
             if bool(done.all()):
@@ -242,6 +251,8 @@ def _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
             Hp[:, w0:, :] = torch.where(elim[:, None, :],
                                         tail ^ prow[:, :, None], tail)
             s = torch.where(elim, s ^ ps[:, None], s)
+            if count_xor_words:
+                xor_words += elim.sum(1) * (W - w0)
             cf = torch.where(pivmask, col, cf)
             npiv += has.to(torch.int32)
         if (col + 1) % group == 0:
@@ -250,4 +261,6 @@ def _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
                 shot_done |= ~((cf < 0) & valid & (s != 0)).any(1)
             done = done | shot_done
     out = (Hp, s, prow_of_col_from(cf, K), cf >= 0, cf)
-    return out + (steps,) if return_steps else out
+    if return_steps:
+        out += (steps,)
+    return out + (xor_words,) if count_xor_words else out

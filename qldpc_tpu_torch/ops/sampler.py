@@ -146,3 +146,24 @@ def augmented_bits(bits_T: torch.Tensor, maps: TrialMaps) -> torch.Tensor:
     float32 (see module docstring)."""
     counts = maps.A_loc_T @ bits_T.to(torch.float32)          # (R, B)
     return (counts.to(torch.int32) & 1).to(torch.int8).T.contiguous()
+
+
+def trial_batch(gen: torch.Generator, error_rate, maps_z: TrialMaps,
+                maps_x: TrialMaps, n_locs: int, batch: int,
+                randoms: tuple = None) -> dict:
+    """One batch of Monte-Carlo trials up to (but excluding) decoding.
+
+    Returns syndrome_z (B, num_syn) and true_z (B, k) int8 from the Z-frame
+    (decoded against HdecZ), and their X counterparts. Both frames derive
+    from the same gate randoms, so Y errors and two-qubit Paulis stay
+    correlated exactly. ``randoms=(err, pauli, cat2)`` replaces the draws
+    from ``gen`` (which may then be None)."""
+    if randoms is None:
+        randoms = sample_gate_randoms(gen, batch, n_locs, error_rate)
+    err, pauli, cat2 = randoms
+    out = {}
+    for basis, maps in (("z", maps_z), ("x", maps_x)):
+        aug = augmented_bits(fault_bits(err, pauli, cat2, maps, basis), maps)
+        out[f"syndrome_{basis}"] = aug[:, :maps.num_syn].contiguous()
+        out[f"true_{basis}"] = aug[:, maps.num_syn:].contiguous()
+    return out

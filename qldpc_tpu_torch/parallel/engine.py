@@ -37,8 +37,7 @@ from ..ops.bp_lift import LiftedGraph
 from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops.osd import choose_K, osd_batch
-from ..ops.sampler import (TrialMaps, augmented_bits, fault_bits,
-                           make_trial_maps, sample_gate_randoms)
+from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
 
 logger = logging.getLogger(__name__)
 
@@ -208,17 +207,14 @@ def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
     """One round's sampling + both-basis BP. ``randoms`` = (err, pauli,
     cat2) replaces the draw from ``gen`` (tests feed both packages the same
     draws). Returns the [z, x] per-basis state dicts."""
-    if randoms is None:
-        randoms = sample_gate_randoms(gen, batch, n_locs, error_rate)
-    err, pauli, cat2 = randoms
+    trials = trial_batch(gen, error_rate, dec_z.maps, dec_x.maps, n_locs,
+                         batch, randoms)
     per_basis = []
     for name, dec in (("z", dec_z), ("x", dec_x)):
-        bits = fault_bits(err, pauli, cat2, dec.maps, name.upper())
-        aug = augmented_bits(bits, dec.maps)
-        syndrome = aug[:, :dec.maps.num_syn].contiguous()
+        syndrome = trials[f"syndrome_{name}"]
         bp = _bp_one_basis(syndrome, dec, maxIter, clip_llr, bp_variant)
         per_basis.append(dict(
-            syn=syndrome, true_log=aug[:, dec.maps.num_syn:],
+            syn=syndrome, true_log=trials[f"true_{name}"],
             values=bp["values"], hard=bp["hard"], conv=bp["converged"]))
     return per_basis
 

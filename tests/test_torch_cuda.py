@@ -1,4 +1,4 @@
-"""Kernels K1-K5 against their plain PyTorch versions on the GPU.
+"""Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU.
 
 Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
 on first use); every test skips without a card. Imports neither jax nor the
@@ -10,7 +10,8 @@ import pytest
 import torch
 
 import qldpc_tpu_torch as qt
-from qldpc_tpu_torch.ops import bp_lift_cuda, bp_lift_layered_cuda, osd_cuda
+from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda, gather,
+                                 osd_cuda)
 from qldpc_tpu_torch.ops.bp import alpha_schedule
 from qldpc_tpu_torch.ops.osd import _gather_pack
 from qldpc_tpu_torch.parallel import engine
@@ -182,3 +183,51 @@ def test_pooled_round_variants_gpu_matches_cpu(cuda, bundles, monkeypatch,
                                       for r in randoms])
     for k, v in outs["cpu"].items():
         assert torch.equal(v, outs[str(cuda)][k].cpu()), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, lanes", [
+    (1024, 128), (35280, 128), (8192, 512), (1000, 400), (37, 5)])
+def test_gather_iter_kernel_matches_plain(cuda, dtype, rows, lanes):
+    """P1 with indices that differ per lane, blocks of one and of several
+    lanes, and a ragged last block: the tile exact, the sums within the
+    summation-order tolerance."""
+    rng = np.random.default_rng(rows + lanes)
+    x = torch.as_tensor(rng.standard_normal((rows, lanes)),
+                        device=cuda).to(dtype)
+    idx = torch.as_tensor(rng.integers(0, rows, (rows, lanes)),
+                          dtype=torch.int32, device=cuda)
+    before = gather.gather_iterate.launches
+    total, tile = gather.gather_iterate(x, idx, 30)
+    torch.cuda.synchronize()
+    assert gather.gather_iterate.launches == before + 1
+    p_total, p_tile = gather.gather_iterate_plain(x, idx, 30)
+    assert torch.equal(tile, p_tile)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert total.dtype == dtype and total.shape == (1, lanes)
+    assert torch.allclose(total.float(), p_total.float(), rtol=rtol, atol=0)
+
+
+def test_gather_iter_kernel_refuses_a_column_too_tall(cuda):
+    x = torch.zeros((40000, 8), device=cuda)
+    idx = torch.zeros((40000, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        gather.gather_iterate(x, idx, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shape", [(8, 128), (1024, 128), (64, 256),
+                                   (33, 70)])
+def test_take_along_kernel_matches_plain(cuda, dtype, axis, shape):
+    rng = np.random.default_rng(shape[0] * 7 + axis)
+    x = torch.as_tensor(rng.integers(-1000, 1000, shape),
+                        device=cuda).to(dtype)
+    idx = torch.as_tensor(rng.integers(0, shape[axis], shape),
+                          dtype=torch.int32, device=cuda)
+    before = gather.take_along.launches
+    out = gather.take_along(x, idx, axis)
+    torch.cuda.synchronize()
+    assert gather.take_along.launches == before + 1
+    assert torch.equal(out, gather.take_along_plain(x, idx, axis))
+    assert torch.equal(out, torch.take_along_dim(x, idx.long(), axis))

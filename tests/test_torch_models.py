@@ -5,6 +5,7 @@ layer; here it must reproduce the JAX package's arrays byte for byte, and a
 JAX decode bundle carried across with ``basis_from_jax`` must equal the
 port's own.
 """
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -127,23 +128,40 @@ def test_basis_from_jax_round_trip(built, basis):
 
 
 def test_port_imports_without_jax():
-    """qldpc_tpu_torch imports with jax and the JAX package blocked."""
+    """Every module of qldpc_tpu_torch imports with jax and the JAX package
+    blocked, and chip_smoke.py imports neither."""
+    root = Path(__file__).resolve().parent.parent
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['qldpc_tpu'] = None\n"
-        "import qldpc_tpu_torch, qldpc_tpu_torch.convert\n"
-        "import qldpc_tpu_torch.parallel.engine\n"
-        "import qldpc_tpu_torch.ops.osd, qldpc_tpu_torch.ops.bp_lift_cuda\n"
-        "import qldpc_tpu_torch.ops.bp_lift_layered_cuda\n"
-        "import qldpc_tpu_torch.ops.osd_cuda, qldpc_tpu_torch._kernels\n"
+        "import qldpc_tpu_torch\n"
+        "def fail(name):\n"
+        "    raise ImportError(name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    qldpc_tpu_torch.__path__, 'qldpc_tpu_torch.', onerror=fail)]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "assert qldpc_tpu_torch.run_simulation is not None\n"
-        "print('ok')\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         cwd=Path(__file__).resolve().parent.parent)
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    names = set(out.stdout.split())
+    for name in ("parallel.engine", "ops.osd_cuda", "ops.gather",
+                 "models.builder", "profile_round", "utils.caching",
+                 "scripts.bp_breakdown", "scripts.gather_bench",
+                 "scripts.gather_probe", "_kernels", "convert"):
+        assert f"qldpc_tpu_torch.{name}" in names, name
+    tree = ast.parse((root / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module.split(".")[0])
+    assert "qldpc_tpu_torch" in imported
+    assert not imported & {"jax", "jaxlib", "qldpc_tpu"}, imported
 
 
 def test_device_rule():
