@@ -15,11 +15,13 @@ toolkit:
     python3 chip_smoke.py
 
 Phases: (1) device and build of all seven kernels, (2) flooding BP kernel
-K1 vs its plain version, (3) GF(2) elimination kernel K2 vs its plain
+K1 vs its plain version, with its registers, state bytes and shots per SM,
+(3) GF(2) elimination kernel K2 vs its plain
 version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
 plain version and vs K1 on the same syndromes, then K1's and K3's
-device-memory branch (the one [[288]] takes) vs their shared-memory
-launches, (6) eliminator kernels K4 (fused 4-column) and K5 (two shots per
+device-memory branch (the one K3 takes at [[288]]) vs their shared-memory
+launches, and K1 at [[288,12,18]] (state in shared memory, one block per
+SM) vs its plain version, (6) eliminator kernels K4 (fused 4-column) and K5 (two shots per
 block) vs their plain versions and K2's, (7) layered path (K3 + K2), (8) the
 main path (a pooled dispatch and run_simulation) under QLDPC_OSD_KERNEL=2
 and 3 (K1 + K4, K1 + K5), (9) the gather_bench entry point (P1, the
@@ -46,10 +48,18 @@ SEED = 2024
 CODE, CYCLES, P = "[[144, 12, 12]]", 12, 0.004
 BATCH, RPD, MAXITER, OSD_ORDER = 1024, 4, 50, 2
 MAX_TRIALS = 16384
+# the largest code K1 runs from shared memory, checked on a small batch
+CODE_288, CYCLES_288, BATCH_288 = "[[288, 12, 18]]", 18, 37
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 K1_OPS_PER_EDGE_ITER = 17   # float32 ops per live edge per iteration
+# K1's first design (one 1024-thread block per shot, R stored in shared
+# memory, neighbour tables read from L2), timed by this script at B=1024,
+# maxIter 50 (ms per basis call) and by bp_breakdown (ms per iteration) on
+# NVIDIA H100 80GB HBM3, 700.00 W
+K1_EARLIER_MS = {"Z": 7.105, "X": 7.368}
+K1_EARLIER_PER_ITER_MS = 0.1847
 K2_OPS_PER_ROW_STEP = 5     # int ops per row per column step (the scan)
 K2_OPS_PER_XOR_WORD = 1     # int ops per word a pivot row is XORed into
 SMEM_BYTES_PER_CLK_SM = 128  # H100 shared-memory bandwidth per SM
@@ -87,6 +97,7 @@ def main():
         from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda,
                                          gather, osd, osd_cuda)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
+        from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
         from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
                                                  sample_gate_randoms)
         from qldpc_tpu_torch.parallel import engine
@@ -155,6 +166,15 @@ def main():
     k1 = {}
     failed = {}
     syns = {}
+    shape = bp_lift_cuda.flood_launch_info(decs[0].lifted, dev)
+    print(f"phase 2: K1 shape at {CODE}: {shape['registers']} registers and "
+          f"{shape['local_bytes']} spilled bytes a thread, {shape['threads']} "
+          f"threads a block (one shot), {shape['state_bytes']} state bytes a "
+          f"shot in {shape['state_in']}, {shape['smem_bytes']} bytes of "
+          f"shared memory a block, {shape['blocks_per_sm']} blocks (shots) "
+          f"per SM", flush=True)
+    if shape["blocks_per_sm"] < 1:
+        fail(f"phase 2: K1 cannot be resident: {shape}")
     for basis, dec in zip("ZX", decs):
         aug = augmented_bits(fault_bits(err, pauli, cat2, dec.maps, basis),
                              dec.maps)
@@ -177,12 +197,13 @@ def main():
         plain_ms = cuda_ms(
             lambda: bp_lift_cuda.decode_batch_lift_plain(*args), 1)
         tabs = bp_lift_cuda.flood_tables(dec.lifted, dev)
+        geo = bp_lift_cuda.flood_geometry(dec.lifted, dev)
         edges = int(dec.H.sum())
         shot_iters = int((a["iterations"].long() + 1).sum())
         kb, bb = bound(
             nbytes(syn, a["values"], a["hard"], a["converged"],
                    a["iterations"], dec.prior, dec.alpha_seq,
-                   tabs["chk_nbr"], tabs["col_chk"], tabs["prior_grid"],
+                   geo["pos_info"], geo["wrap_words"], tabs["prior_grid"],
                    tabs["out_gather"], tabs["residual"]),
             K1_OPS_PER_EDGE_ITER * edges * shot_iters)
         k1[basis] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_abs,
@@ -192,8 +213,9 @@ def main():
         failed[basis] = (syn[unconv], b["values"][unconv],
                          b["hard"][unconv])
         k1[basis]["out"] = a
-        print(f"phase 2: K1 basis {basis}: exact; {ms:.3f} ms "
-              f"(plain {plain_ms:.1f} ms, bound {kb:.4f} ms by {bb}); "
+        print(f"phase 2: K1 basis {basis}: exact; {ms:.3f} ms (first "
+              f"design {K1_EARLIER_MS[basis]} ms, plain {plain_ms:.1f} ms, "
+              f"bound {kb:.4f} ms by {bb}); "
               f"{k1[basis]['converged']}/{BATCH} converged, mean "
               f"{k1[basis]['mean_iters']:.2f} iterations", flush=True)
 
@@ -384,7 +406,8 @@ def main():
               f" ms", flush=True)
 
     # K1's and K3's device-memory branch: a per-shot state slab in device
-    # memory instead of shared memory, as [[288]] (403 KB a shot) takes it
+    # memory instead of shared memory, as K3 takes it at [[288]] (403 KB a
+    # shot; K1's compressed state, 172 KB there, fits shared memory)
     dec = decs[0]
     args = (dec.lifted, syns["Z"], dec.prior, dec.alpha_seq, MAXITER)
     saved_limit = bp_lift_cuda._SMEM_LIMIT
@@ -408,6 +431,42 @@ def main():
                   flush=True)
     finally:
         bp_lift_cuda._SMEM_LIMIT = saved_limit
+
+    # K1 at [[288,12,18]]: its compressed state fits shared memory there, at
+    # one block per SM, a regime [[144]] does not reach
+    t0 = time.time()
+    code288 = qt.get_code(CODE_288)
+    circ288 = qt.SyndromeCircuit(code288, num_cycles=CYCLES_288)
+    M288 = qt.build_decoding_matrices(circ288, code288.Lx, code288.Lz, P)
+    H288 = (np.asarray(M288["HdecZ"]) != 0).astype(np.uint8)
+    prior288 = qt.channel_llrs(M288["channel_probsZ"]).astype(np.float32)
+    g288 = LiftedGraph.try_from_dense(H288, code288.ell, code288.m,
+                                      prior288, device=dev)
+    if g288 is None:
+        fail(f"phase 5: {CODE_288} has no lifted structure")
+    rng = np.random.default_rng(SEED)
+    errs = rng.random((BATCH_288, H288.shape[1])) < M288["channel_probsZ"]
+    syn288 = ((torch.as_tensor(errs, dtype=torch.float32, device=dev)
+               @ torch.as_tensor(H288.T, dtype=torch.float32, device=dev))
+              % 2).to(torch.int8)
+    args = (g288, syn288, torch.as_tensor(prior288, device=dev),
+            decs[0].alpha_seq, MAXITER)
+    shape288 = bp_lift_cuda.flood_launch_info(g288, dev)
+    a = bp_lift_cuda.decode_batch_lift_cuda(*args)
+    torch.cuda.synchronize()
+    b = bp_lift_cuda.decode_batch_lift_plain(*args)
+    for name in ("hard", "converged", "iterations", "values"):
+        if not torch.equal(a[name], b[name]):
+            fail(f"phase 5: K1 {name} at {CODE_288} differs from the plain "
+                 "version")
+    print(f"phase 5: K1 at {CODE_288} (basis Z, B={BATCH_288}, maxIter "
+          f"{MAXITER}): every output identical to the plain version; "
+          f"{int(a['converged'].sum())}/{BATCH_288} converged; "
+          f"{shape288['state_bytes']} state bytes a shot in "
+          f"{shape288['state_in']}, {shape288['smem_bytes']} bytes of shared "
+          f"memory a block, {shape288['blocks_per_sm']} blocks per SM "
+          f"({time.time() - t0:.1f} s with the build of the matrices)",
+          flush=True)
 
     # ---- phase 6: K4 and K5 against their plain versions and K2's ----
     dec = decs[0]  # phase 3's inputs are Z-basis shots
@@ -697,7 +756,8 @@ def main():
         fail(f"phase 11: implausible breakdown {brk}")
     print(f"phase 11: bp_breakdown [[144,12,12]] B={BATCH}: K1 launches "
           f"{c['k1']}; kernel per-iteration {brk['kernel_per_iter_ms']:.4f} "
-          f"ms, full per-iteration {brk['full_per_iter_ms']:.4f} ms, wrapper "
+          f"ms (first design {K1_EARLIER_PER_ITER_MS} ms), full "
+          f"per-iteration {brk['full_per_iter_ms']:.4f} ms, wrapper "
           f"postprocess {brk['postprocess_ms']:.3f} ms", flush=True)
 
     kernels = [

@@ -5,9 +5,11 @@
 arguments and outputs, including the ``out_gather`` / ``residual`` epilogue
 (edge-free columns keep the prior and decide ``prior < 0``). On a CUDA
 tensor it launches ``csrc/bp_lift_flood.cu`` (one thread block per shot,
-all iterations, per-shot exit) or raises; on a CPU tensor it runs
-``decode_batch_lift_plain``, the same algorithm in PyTorch over the same
-neighbour tables.
+several per SM, all iterations, per-shot exit) or raises; on a CPU tensor
+it runs ``decode_batch_lift_plain``, the same algorithm in PyTorch over the
+neighbour tables of :func:`flood_tables`. The kernel reads no table: it
+computes its neighbours from :func:`flood_geometry` and keeps each check's
+messages compressed (two products, sign bits and the argmin slot).
 
 Output note: each shot's ``values`` are frozen at its converging iteration
 (the kernel stops the shot there), so converged shots' values equal the
@@ -22,6 +24,7 @@ threads touch neighbouring shared-memory words in both passes.
 from __future__ import annotations
 
 import ctypes
+import re
 
 import numpy as np
 import torch
@@ -31,6 +34,25 @@ from .bp import _BIG
 from .bp_lift import LiftedGraph
 
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK
+
+
+def _flood_define(name: str) -> int:
+    """An integer ``#define`` of csrc/bp_lift_flood.cu, the one place K1's
+    layout constants are set."""
+    src = (_kernels.SRC_DIR / "bp_lift_flood.cu").read_text()
+    return int(re.search(rf"^#define {name} (\d+)\b", src, re.M).group(1))
+
+
+_MAX_EB = _flood_define("MAX_EB")
+_FLOOD_THREADS = _flood_define("FLOOD_THREADS")
+
+
+class _FloodGraph(ctypes.Structure):
+    """csrc/bp_lift_flood.cu's ``FloodGraph``: the lift's per-edge
+    constants (offsets in bytes), passed to K1 by value."""
+    _fields_ = ([(f, ctypes.c_int * _MAX_EB) for f in
+                 ("chk_off", "col_off", "pb_off", "pb_last")]
+                + [(f, ctypes.c_int) for f in ("EB", "NB", "P", "L")])
 
 
 def flood_tables(g: LiftedGraph, device) -> dict:
@@ -90,6 +112,93 @@ def flood_tables(g: LiftedGraph, device) -> dict:
     return tabs
 
 
+def flood_geometry(g: LiftedGraph, device) -> dict:
+    """What kernel K1 computes its neighbours from, cached on the graph per
+    device.
+
+    graph: the kernel's ``FloodGraph`` parameter: per edge slot e =
+      (pb, o, cx, cy), chk_off = 4 (pb*P - o*ell*mm - cx*mm - cy), col_off =
+      16 (o*ell*mm + cx*mm + cy), pb_off = 4*pb*P and pb_last (1 on each
+      pattern's last slot; slots are sorted by pattern).
+    wrap (2, ell*mm, 36) uint8 (36 = the kernel's MAX_EB): at (x, y),
+      wrap[0, x*mm + y, e] = ell*mm*(x < cx) + mm*(y < cy) and
+      wrap[1, x*mm + y, e] = ell*mm*(x >= ell - cx) + mm*(y >= mm - cy).
+      Check row r = (t, x, y) meets edge slot e at column slot
+      r + chk_off/4 + wrap[0, x*mm + y, e]; column position q = (a, x, y)
+      meets it at check row q + col_off/16 - wrap[1, x*mm + y, e].
+    pos_info (m, 8) int32: per position p = (t, x, y), the live bits of
+      edge slots 0-31 and 32-35 at check row p (slot 32w + i at bit 31 - i
+      of word w), x*mm + y, 0; the same at column position p (live iff the
+      slot is live and t + o < T).
+    The sizes of the kernel's state come from the kernel itself
+    (:func:`_flood_sizes`)."""
+    key = ("flood_geometry", str(device))
+    if key in g.cache:
+        return g.cache[key]
+    ell, mm, T, NB, EB, m = g.ell, g.mm, g.T, g.NB, g.EB, g.m
+    L = ell * mm
+    if EB > _MAX_EB or L + mm > 255:
+        raise ValueError(f"K1 takes at most {_MAX_EB} edge slots and "
+                         f"ell*mm + mm < 256; got EB={EB}, ell={ell}, "
+                         f"mm={mm}")
+    P = L * T
+    pb, o, cx, cy = (np.asarray(v, np.int64)
+                     for v in (g.eb_pb, g.eb_o, g.eb_cx, g.eb_cy))
+    graph = _FloodGraph(EB=EB, NB=NB, P=P, L=L)
+    for name, vals in dict(
+            chk_off=4 * (pb * P - o * L - cx * mm - cy),
+            col_off=16 * (o * L + cx * mm + cy), pb_off=4 * pb * P,
+            pb_last=np.append(pb[1:] != pb[:-1], True)).items():
+        padded = [int(v) for v in vals] + [0] * (_MAX_EB - EB)
+        getattr(graph, name)[:] = padded
+    gx, gy = np.divmod(np.arange(L), mm)
+    wrap = np.zeros((2, L, _MAX_EB), np.uint8)
+    wrap[0, :, :EB] = (L * (gx[:, None] < cx) + mm * (gy[:, None] < cy))
+    wrap[1, :, :EB] = (L * (gx[:, None] >= ell - cx)
+                       + mm * (gy[:, None] >= mm - cy))
+    t, xy = np.divmod(np.arange(m), L)
+
+    def bits(live):  # (EB, m) bool -> two (m,) words, first slot highest
+        e = np.arange(EB)
+        at = (31 - e % 32).astype(np.uint64)[:, None]
+        return [(live[e // 32 == w].astype(np.uint64)
+                 << at[e // 32 == w]).sum(0) for w in (0, 1)]
+
+    def rows(mask):  # (k, ell, mm, T) -> (k, m) in row order (t, x, y)
+        return mask.cpu().numpy().transpose(0, 3, 1, 2).reshape(len(mask), m)
+
+    chk_live = rows(g.cmask)
+    col_live = rows(g.slot_mask)[pb] & (t[None] + o[:, None] < T)
+    tail = [xy.astype(np.uint64), np.zeros(m, np.uint64)]
+    pos = np.stack(bits(chk_live) + tail + bits(col_live) + tail, 1)
+    wrap_flat = np.zeros(-(-wrap.size // 16) * 16, np.uint8)
+    wrap_flat[:wrap.size] = wrap.reshape(-1)
+    geo = dict(graph=graph,
+               pos_info=torch.as_tensor(pos.astype(np.uint32).view(np.int32),
+                                        device=device).contiguous(),
+               wrap_words=torch.as_tensor(wrap_flat.view(np.int32),
+                                          device=device))
+    g.cache[key] = geo
+    return geo
+
+
+def _flood_sizes(geo: dict) -> tuple:
+    """(state bytes a shot, shared memory a block with the state in it), as
+    csrc/bp_lift_flood.cu lays them out, cached in ``geo``. The kernel
+    reports them, so the device-memory slab it indexes is sized by the same
+    formula."""
+    if "sizes" not in geo:
+        out = (ctypes.c_longlong * 3)()
+        _kernels.check(_flood_lib().bp_flood_sizes(
+            ctypes.byref(geo["graph"]), out), "bp_flood_sizes")
+        if geo["wrap_words"].numel() * 4 < out[1]:
+            raise RuntimeError(f"K1 reads {out[1]} bytes of wrap tables; "
+                               f"flood_geometry holds "
+                               f"{geo['wrap_words'].numel() * 4}")
+        geo["sizes"] = (out[0], out[2])
+    return geo["sizes"]
+
+
 def _check_inputs(g: LiftedGraph, syndrome, prior, alpha_seq, maxIter):
     if syndrome.dim() != 2 or syndrome.shape[1] != g.m:
         raise ValueError(f"syndrome must be (B, {g.m}), got "
@@ -124,23 +233,97 @@ decode_batch_lift_cuda.launches = 0
 
 def prepare_flood_launch(g: LiftedGraph, syndrome, prior, alpha_seq,
                          maxIter: int, clip_llr: float = 20.0):
-    """K1 on CUDA tensors, prepared but not launched: (launch, outputs) as
-    :func:`prepare_launch`, counted on ``decode_batch_lift_cuda``."""
+    """K1 on CUDA tensors, prepared but not launched: input casts, geometry
+    and tables, output and scratch allocation, library load. Returns
+    (launch, outputs): each ``launch()`` runs the kernel once into
+    ``outputs`` and counts it on ``decode_batch_lift_cuda``, so a caller can
+    also time the kernel alone."""
     _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
-    return prepare_launch(decode_batch_lift_cuda, "bp_lift_flood",
-                          "bp_flood_launch", g, syndrome, prior, alpha_seq,
-                          maxIter, clip_llr)
+    if syndrome.device.type != "cuda":
+        raise ValueError(f"unsupported device {syndrome.device}")
+    dev = syndrome.device
+    geo = flood_geometry(g, dev)
+    tabs = flood_tables(g, dev)
+    B, n = syndrome.shape[0], g.n
+    syn = syndrome.to(torch.int8).contiguous()
+    prior = prior.to(device=dev, dtype=torch.float32).contiguous()
+    alpha = alpha_seq.to(device=dev, dtype=torch.float32).contiguous()
+    values = torch.empty((B, n), dtype=torch.float32, device=dev)
+    hard = torch.empty((B, n), dtype=torch.int8, device=dev)
+    conv = torch.empty((B,), dtype=torch.bool, device=dev)
+    iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    state, smem = _flood_sizes(geo)
+    scratch = None
+    if smem > _SMEM_LIMIT:  # per-shot slab in device memory
+        scratch = torch.empty((B, state), dtype=torch.uint8, device=dev)
+    threads = _flood_threads(g)
+    fn = _flood_lib().bp_flood_launch
+
+    def launch():
+        # syn, prior, alpha and scratch stay referenced by this closure
+        code = fn(
+            ctypes.byref(geo["graph"]), syn.data_ptr(),
+            tabs["prior_grid"].data_ptr(), geo["pos_info"].data_ptr(),
+            geo["wrap_words"].data_ptr(), alpha.data_ptr(),
+            tabs["out_gather"].data_ptr(), tabs["residual"].data_ptr(),
+            prior.data_ptr(), values.data_ptr(),
+            hard.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, n, maxIter, float(clip_llr), threads, _kernels.stream_ptr(dev))
+        _kernels.check(code, "bp_flood_launch")
+        decode_batch_lift_cuda.launches += 1
+
+    return launch, dict(hard=hard, converged=conv, values=values,
+                        iterations=iters)
+
+
+def _flood_threads(g: LiftedGraph) -> int:
+    return min(_FLOOD_THREADS, -(-g.m // 32) * 32)
+
+
+def _flood_lib():
+    lib = _kernels.load("bp_lift_flood")
+    if not lib.bp_flood_launch.argtypes:
+        Pt, It = ctypes.c_void_p, ctypes.c_int
+        lib.bp_flood_launch.argtypes = ([Pt] * 14 + [It] * 3
+                                        + [ctypes.c_float, It, Pt])
+        lib.bp_flood_launch.restype = ctypes.c_int
+        lib.bp_flood_info.argtypes = [Pt, It, It, Pt]
+        lib.bp_flood_info.restype = ctypes.c_int
+        lib.bp_flood_sizes.argtypes = [Pt, Pt]
+        lib.bp_flood_sizes.restype = ctypes.c_int
+    return lib
+
+
+def flood_launch_info(g: LiftedGraph, device) -> dict:
+    """K1's shape on the card for graph ``g``: registers and spilled bytes
+    a thread, threads a block (one shot), state bytes a shot and where they
+    live, shared memory a block, and blocks (shots) resident per SM."""
+    geo = flood_geometry(g, device)
+    threads = _flood_threads(g)
+    state, smem = _flood_sizes(geo)
+    in_smem = smem <= _SMEM_LIMIT
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _kernels.check(_flood_lib().bp_flood_info(
+            ctypes.byref(geo["graph"]), threads, int(not in_smem), out),
+            "bp_flood_info")
+    return dict(registers=out[0], local_bytes=out[1], threads=threads,
+                state_bytes=state,
+                state_in="shared memory" if in_smem else "device memory",
+                smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 def prepare_launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph,
                    syndrome, prior, alpha_seq, maxIter: int, clip_llr: float,
                    extra: tuple = ()):
-    """A lifted-BP kernel (``csrc/<lib_name>.cu``) made ready to launch:
-    input casts, tables, output and scratch allocation, library load.
-    The kernels share one C signature; ``extra`` holds the int arguments a
-    kernel takes after maxIter. Returns (launch, outputs): each
-    ``launch()`` runs the kernel once into ``outputs`` and counts it on
-    ``wrapper``, so a caller can also time the kernel alone."""
+    """Kernel K3 (``csrc/<lib_name>.cu``) made ready to launch: input
+    casts, tables, output and scratch allocation, library load. It takes
+    the C signature of K1's first design, which read the neighbour tables;
+    ``extra`` holds the int arguments it takes after maxIter. Returns
+    (launch, outputs): each ``launch()`` runs the kernel once into
+    ``outputs`` and counts it on ``wrapper``, so a caller can also time the
+    kernel alone."""
     if syndrome.device.type != "cuda":
         raise ValueError(f"unsupported device {syndrome.device}")
     dev = syndrome.device

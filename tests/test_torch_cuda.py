@@ -46,11 +46,15 @@ def _syndromes(M, basis, B, seed):
     return H, ((errs.astype(np.int8) @ H.T) % 2).astype(np.int8)
 
 
+@pytest.mark.parametrize("B", [256, 37, 1])
 @pytest.mark.parametrize("basis", ["Z", "X"])
-def test_bp_kernel_matches_plain(cuda, bundles, basis):
+def test_bp_kernel_matches_plain(cuda, bundles, basis, B):
+    """K1 against its plain version on every output, at a batch that is not
+    a multiple of the shots an SM holds (37) and at one shot; the larger
+    batches hold converged and unconverged shots side by side."""
     circ, M, decs = bundles
     dec = decs[str(cuda)]["ZX".index(basis)]
-    _, syn = _syndromes(M, basis, 256, 1)
+    _, syn = _syndromes(M, basis, B, 1)
     syn = torch.as_tensor(syn, device=cuda)
     before = bp_lift_cuda.decode_batch_lift_cuda.launches
     a = bp_lift_cuda.decode_batch_lift_cuda(dec.lifted, syn, dec.prior,
@@ -61,7 +65,33 @@ def test_bp_kernel_matches_plain(cuda, bundles, basis):
                                              dec.alpha_seq, 50)
     for k in ("hard", "converged", "iterations", "values"):
         assert torch.equal(a[k], b[k]), k
-    assert a["converged"].any() and not a["converged"].all()
+    if B > 1:
+        assert a["converged"].any() and not a["converged"].all()
+
+
+def test_bp_kernel_device_memory_branch(cuda, bundles, monkeypatch):
+    """K1 with its per-shot state in device memory (the branch a graph
+    larger than a block's shared memory takes) equals the plain version."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    _, syn = _syndromes(M, "Z", 37, 2)
+    syn = torch.as_tensor(syn, device=cuda)
+    monkeypatch.setattr(bp_lift_cuda, "_SMEM_LIMIT", 0)
+    a = bp_lift_cuda.decode_batch_lift_cuda(dec.lifted, syn, dec.prior,
+                                            dec.alpha_seq, 50)
+    torch.cuda.synchronize()
+    b = bp_lift_cuda.decode_batch_lift_plain(dec.lifted, syn, dec.prior,
+                                             dec.alpha_seq, 50)
+    for k in ("hard", "converged", "iterations", "values"):
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_bp_kernel_launch_info(cuda, bundles):
+    """K1's shape: no spills, and the shots an SM holds at [[72]]."""
+    circ, M, decs = bundles
+    info = bp_lift_cuda.flood_launch_info(decs[str(cuda)][0].lifted, cuda)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+    assert info["state_in"] == "shared memory"
 
 
 @pytest.mark.parametrize("exit_on_valid", [False, True])
