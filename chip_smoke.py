@@ -17,6 +17,10 @@ toolkit:
 Phases: (1) device and build of all seven kernels, (2) flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
 (3) GF(2) elimination kernel K2 vs its plain
+version at the stage-1, prefix and full widths, with its launch shape, its
+time per column step and the share of its layout transposes, its
+device-memory branch forced at stage 1 vs its shared-memory launch, and K2
+at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
 version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
 plain version and vs K1 on the same syndromes, then K1's and K3's
 device-memory branch (the one K3 takes at [[288]]) vs their shared-memory
@@ -242,19 +246,52 @@ def main():
     k2 = {}
     k2_err = 0.0
     names = ("Hp", "s_red", "prow_of_col", "used", "colofrow", "steps")
+
+    def k2_exact(Hp, s, Kw, m, where, **kw):
+        """K2 against its plain version on every output; returns both."""
+        a = osd_cuda.eliminate_blocks_v1(Hp, s, Kw, m, return_steps=True,
+                                         **kw)
+        torch.cuda.synchronize()
+        b = osd_cuda.eliminate_blocks_plain(Hp, s, Kw, m, return_steps=True,
+                                            count_xor_words=True, **kw)
+        for nm, x, y in zip(names, a, b):
+            if not torch.equal(x, y):
+                fail(f"phase 3: K2 {nm} differs from the plain version "
+                     f"({where}, {kw})")
+        return a, b
+
+    def k2_shape(Hp, s, Kw, m, steps, **kw):
+        """K2's launch shape and kernel-only times: the whole launch, the
+        layout in and out alone (the same launch with no column), and per
+        column step of the longest shot."""
+        info = osd_cuda.elim_launch_info(*Hp.shape, dev)
+        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, Kw, m, **kw)
+        kernel_ms = cuda_ms(launch, 5)
+        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, 0, m, **kw)
+        layout_ms = cuda_ms(launch, 5)
+        info.update(kernel_ms=kernel_ms, layout_ms=layout_ms,
+                    us_per_step=kernel_ms * 1e3 / max(int(steps.max()), 1))
+        return info
+
+    def shape_line(info) -> str:
+        return (f"{info['registers']} registers, {info['local_bytes']} "
+                f"spilled bytes; {info['shot_bytes']} column bytes a shot "
+                f"({info['words_per_lane']} row words a lane) in "
+                f"{info['columns_in']}, {info['warps_per_shot']} warps a "
+                f"shot, {info['shots_per_block']} shots a "
+                f"block, {info['smem_bytes']} bytes of shared memory a block, "
+                f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks "
+                f"({info['shots_per_sm']} shots) per SM; kernel "
+                f"{info['kernel_ms']:.4f} ms, layout in and out "
+                f"{info['layout_ms']:.4f} ms (share "
+                f"{info['layout_ms'] / info['kernel_ms']:.3f}), "
+                f"{info['us_per_step']:.3f} us per step of the longest shot")
+
     for width, (Hp, Kw) in widths.items():
         for exit_on_valid in (False, True):
-            kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid,
-                      return_steps=True)
-            a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, **kw)
-            torch.cuda.synchronize()
-            b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
-                                                count_xor_words=True, **kw)
+            a, b = k2_exact(Hp, residual, Kw, m, width, rank=dec.rank,
+                            exit_on_valid=exit_on_valid)
             xor_words = int(b[6].sum())  # data-dependent work of the run
-            for nm, x, y in zip(names, a, b):
-                if not torch.equal(x, y):
-                    fail(f"phase 3: K2 {nm} differs from the plain version "
-                         f"({width}, exit_on_valid={exit_on_valid})")
             k2_err = max(k2_err, max(float((x.long() - y.long()).abs().max())
                                      for x, y in zip(a, b)))
         ms = cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(Hp, residual, Kw,
@@ -268,26 +305,89 @@ def main():
                          bound_ms=kb, bound_by=bb, scan_bound_ms=scan_kb,
                          xor_words=xor_words, steps=steps,
                          mean_steps=float(steps.float().mean()),
-                         max_steps=int(steps.max()))
+                         max_steps=int(steps.max()),
+                         shape=k2_shape(Hp, residual, Kw, m, steps,
+                                        rank=dec.rank))
         print(f"phase 3: K2 {width} ({Hp.shape[1]} words, {len(Hp)} shots):"
               f" exact with and without the validity exit; {ms:.3f} ms "
-              f"(bound {kb:.4f} ms by {bb}: row scans {scan_ops} ops + "
-              f"{xor_words} word XORs; scan alone {scan_kb:.4f} ms); steps "
-              f"mean {k2[width]['mean_steps']:.1f} max "
-              f"{k2[width]['max_steps']}", flush=True)
+              f"through the wrapper (bound {kb:.4f} ms by {bb}: row scans "
+              f"{scan_ops} ops + {xor_words} word XORs; scan alone "
+              f"{scan_kb:.4f} ms); steps mean {k2[width]['mean_steps']:.1f} "
+              f"max {k2[width]['max_steps']}; "
+              + shape_line(k2[width]["shape"]), flush=True)
     Hp, Kw = widths["stage1"]
     k2["stage1"]["plain_ms"] = cuda_ms(
         lambda: osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
                                                 rank=dec.rank), 1)
-    Hp, Kw = widths["full"]
-    a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
-                                     full_jordan=True)
-    b = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, rank=dec.rank,
-                                        full_jordan=True)
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        fail("phase 3: K2 full_jordan differs from the plain version")
+    k2_exact(widths["full"][0], residual, widths["full"][1], m, "full",
+             rank=dec.rank, full_jordan=True)
     print(f"phase 3: K2 full_jordan at full width exact; stage-1 plain "
           f"{k2['stage1']['plain_ms']:.1f} ms", flush=True)
+
+    # the device-memory branch (the one wider matrices take), forced at
+    # stage-1 width: bit-identical to the shared-memory launch
+    ref = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
+                                       return_steps=True)
+    saved_limit = osd_cuda._SMEM_LIMIT
+    osd_cuda._SMEM_LIMIT = 0
+    try:
+        a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
+                                         return_steps=True)
+        torch.cuda.synchronize()
+        for nm, x, y in zip(names, a, ref):
+            if not torch.equal(x, y):
+                fail(f"phase 3: K2's device-memory branch {nm} differs from "
+                     "its shared-memory launch (stage1)")
+        dm = k2_shape(Hp, residual, Kw, m, a[5], rank=dec.rank)
+    finally:
+        osd_cuda._SMEM_LIMIT = saved_limit
+    print(f"phase 3: K2 device-memory branch forced at stage1: every output "
+          f"identical to the shared-memory launch; " + shape_line(dm),
+          flush=True)
+
+    # K2 at [[288,12,18]], B=37: 2880 rows, three row words a lane, every
+    # width on the device-memory branch, a regime [[144]] does not reach.
+    # Sampled errors, columns in |prior| order with a little noise; no BP,
+    # so the residual is the syndrome. rank=None: the rank exit (m pivots)
+    # cannot fire, the validity exit and the last column stop the shots.
+    t0 = time.time()
+    code288 = qt.get_code(CODE_288)
+    circ288 = qt.SyndromeCircuit(code288, num_cycles=CYCLES_288)
+    M288 = qt.build_decoding_matrices(circ288, code288.Lx, code288.Lz, P)
+    H288 = (np.asarray(M288["HdecZ"]) != 0).astype(np.uint8)
+    prior288 = qt.channel_llrs(M288["channel_probsZ"]).astype(np.float32)
+    rng = np.random.default_rng(SEED)
+    errs = rng.random((BATCH_288, H288.shape[1])) < M288["channel_probsZ"]
+    syn288 = ((torch.as_tensor(errs, dtype=torch.float32, device=dev)
+               @ torch.as_tensor(H288.T, dtype=torch.float32, device=dev))
+              % 2).to(torch.int8)
+    build288_s = time.time() - t0
+    m288, n288 = H288.shape
+    K288 = osd.choose_K(m288, n288)
+    noise = torch.as_tensor(rng.standard_normal((BATCH_288, n288)),
+                            dtype=torch.float32, device=dev)
+    llr288 = torch.as_tensor(prior288, device=dev) * (1 + 0.1 * noise)
+    cols288 = torch.sort(llr288.abs(), dim=1, stable=True).indices
+    HT288 = torch.as_tensor(H288.T.copy(), device=dev)
+    res288 = syn288.to(torch.int32)
+    for width, Kw in (("stage1", 768), ("prefix", K288)):
+        Hp = osd._gather_pack(HT288, cols288[:, :Kw], Kw, words_major=True)
+        for exit_on_valid in (False, True):
+            a, _ = k2_exact(Hp, res288, Kw, m288, f"{CODE_288} {width}",
+                            exit_on_valid=exit_on_valid)
+        info = k2_shape(Hp, res288, Kw, m288, a[5])
+        if info["columns_in"] != "device memory" or \
+                info["words_per_lane"] != 3:
+            fail(f"phase 3: K2 at {CODE_288} {width} took another branch: "
+                 f"{info}")
+        print(f"phase 3: K2 at {CODE_288} {width} ({Hp.shape[1]} words, "
+              f"B={BATCH_288}): exact with and without the validity exit; "
+              f"steps mean {float(a[5].float().mean()):.1f} max "
+              f"{int(a[5].max())}; " + shape_line(info), flush=True)
+        del Hp
+    del HT288
+    print(f"phase 3: {CODE_288} matrices built in {build288_s:.1f} s",
+          flush=True)
 
     # ---- phase 4: main path ----
     osd_cuda._KERNEL_VERSION = 1  # the main path's eliminator, K2
@@ -432,23 +532,14 @@ def main():
     finally:
         bp_lift_cuda._SMEM_LIMIT = saved_limit
 
-    # K1 at [[288,12,18]]: its compressed state fits shared memory there, at
-    # one block per SM, a regime [[144]] does not reach
+    # K1 at [[288,12,18]] (the matrices and syndromes of phase 3): its
+    # compressed state fits shared memory there, at one block per SM, a
+    # regime [[144]] does not reach
     t0 = time.time()
-    code288 = qt.get_code(CODE_288)
-    circ288 = qt.SyndromeCircuit(code288, num_cycles=CYCLES_288)
-    M288 = qt.build_decoding_matrices(circ288, code288.Lx, code288.Lz, P)
-    H288 = (np.asarray(M288["HdecZ"]) != 0).astype(np.uint8)
-    prior288 = qt.channel_llrs(M288["channel_probsZ"]).astype(np.float32)
     g288 = LiftedGraph.try_from_dense(H288, code288.ell, code288.m,
                                       prior288, device=dev)
     if g288 is None:
         fail(f"phase 5: {CODE_288} has no lifted structure")
-    rng = np.random.default_rng(SEED)
-    errs = rng.random((BATCH_288, H288.shape[1])) < M288["channel_probsZ"]
-    syn288 = ((torch.as_tensor(errs, dtype=torch.float32, device=dev)
-               @ torch.as_tensor(H288.T, dtype=torch.float32, device=dev))
-              % 2).to(torch.int8)
     args = (g288, syn288, torch.as_tensor(prior288, device=dev),
             decs[0].alpha_seq, MAXITER)
     shape288 = bp_lift_cuda.flood_launch_info(g288, dev)
@@ -465,7 +556,7 @@ def main():
           f"{shape288['state_bytes']} state bytes a shot in "
           f"{shape288['state_in']}, {shape288['smem_bytes']} bytes of shared "
           f"memory a block, {shape288['blocks_per_sm']} blocks per SM "
-          f"({time.time() - t0:.1f} s with the build of the matrices)",
+          f"({time.time() - t0:.1f} s with the lifted graph)",
           flush=True)
 
     # ---- phase 6: K4 and K5 against their plain versions and K2's ----
@@ -772,7 +863,9 @@ def main():
              source="qldpc_tpu_torch/csrc/gf2_elim.cu",
              replaces="qldpc_tpu/ops/osd_pallas.py:54",
              launches=launches["k2"], max_abs_err=k2_err,
-             ms=k2["stage1"]["ms"], plain_ms=k2["stage1"]["plain_ms"],
+             ms=k2["stage1"]["ms"],
+             kernel_ms=k2["stage1"]["shape"]["kernel_ms"],
+             plain_ms=k2["stage1"]["plain_ms"],
              bound_ms=k2["stage1"]["bound_ms"],
              bound_by=k2["stage1"]["bound_by"], library_ms=None),
         dict(name="bp_layered_kernel", route="cuda",

@@ -6,8 +6,9 @@ plain twins.
 on ``_KERNEL_VERSION``, read from ``QLDPC_OSD_KERNEL`` (default 1) as the JAX
 package reads it, and set on this module to switch at run time:
 
-  1 -> ``eliminate_blocks_v1``: kernel K2 (``csrc/gf2_elim.cu``), one shot
-       per thread block, exit tested after every column.
+  1 -> ``eliminate_blocks_v1``: kernel K2 (``csrc/gf2_elim.cu``), a team
+       of warps per shot over column bitsets, exit tested after every
+       column.
   2 -> ``eliminate_blocks_fused``: kernel K4 (``csrc/gf2_elim_fused.cu``),
        four pivots chosen per fused tail update, exit tested once per
        4-column group.
@@ -42,8 +43,10 @@ import torch
 from .. import _kernels
 
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024  # dynamic bytes a block takes
-_MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim*.cu
+_MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim_{fused,pair}.cu
+_K2_MAX_ROWS = 32 * 32 * 4   # 32 lanes x GF2_MAXR words of 32 rows (K2)
 _FUSED_GROUP = 4             # columns per K4 group (GF2_GROUP)
+K2_RANGE = "K2 launch"       # profiler range of each K2 launch, by width
 
 # Eliminator generation, as osd_pallas._KERNEL_VERSION in the JAX package.
 _KERNEL_VERSION = int(os.environ.get("QLDPC_OSD_KERNEL", "1"))
@@ -94,9 +97,9 @@ def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
 
 def _launch(wrapper, lib_name: str, fn_name: str, plain, Hp, s, K, m, rank,
             full_jordan, exit_on_valid, return_steps):
-    """Shared body of the three eliminator wrappers: the plain version on a
-    CPU tensor, else one launch of ``fn_name`` from ``csrc/<lib_name>.cu``
-    (same C signature for all three kernels), counted on ``wrapper``."""
+    """Shared body of the K4 and K5 wrappers: the plain version on a CPU
+    tensor, else one launch of ``fn_name`` from ``csrc/<lib_name>.cu``
+    (same C signature for both kernels), counted on ``wrapper``."""
     _check_inputs(Hp, s, K, m)
     if Hp.device.type == "cpu":
         return plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
@@ -126,12 +129,111 @@ def _launch(wrapper, lib_name: str, fn_name: str, plain, Hp, s, K, m, rank,
 def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False, exit_on_valid: bool = True,
                         return_steps: bool = False):
-    """Kernel K2 (``csrc/gf2_elim.cu``); arguments and outputs as
-    :func:`eliminate_blocks`. ``eliminate_blocks_v1.launches`` counts the
-    kernel launches."""
-    return _launch(eliminate_blocks_v1, "gf2_elim", "gf2_elim_launch",
-                   eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
-                   exit_on_valid, return_steps)
+    """Kernel K2 (``csrc/gf2_elim.cu``: a team of warps per shot over
+    column bitsets); arguments and outputs as :func:`eliminate_blocks`. s
+    holds 0/1 bits. ``eliminate_blocks_v1.launches`` counts the kernel
+    launches."""
+    _check_inputs(Hp, s, K, m)
+    if Hp.device.type == "cpu":
+        return eliminate_blocks_plain(Hp, s, K, m, rank, full_jordan,
+                                      exit_on_valid, return_steps)
+    launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
+                                         exit_on_valid)
+    launch()
+    return finish(return_steps)
+
+
+def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
+                        full_jordan: bool = False,
+                        exit_on_valid: bool = True):
+    """K2 on CUDA tensors, prepared but not launched: input casts, output
+    and slab allocation, library load. Returns (launch, finish): each
+    ``launch()`` runs the kernel once from the unchanged inputs (it writes
+    its outputs apart from them), inside a ``torch.profiler`` range named
+    ``K2_RANGE`` with the width, and counts it on ``eliminate_blocks_v1``;
+    ``finish(return_steps)`` gives :func:`eliminate_blocks`'s outputs. A
+    caller can so time the kernel alone."""
+    _check_inputs(Hp, s, K, m)
+    if Hp.device.type != "cuda":
+        raise ValueError(f"unsupported device {Hp.device}")
+    B, W, M = Hp.shape
+    if M > _K2_MAX_ROWS:
+        raise ValueError(f"M={M} rows exceed the kernel's {_K2_MAX_ROWS}")
+    dev = Hp.device
+    hp_in = Hp.to(torch.int32).contiguous()
+    s_in = s.to(device=dev, dtype=torch.int32).contiguous()
+    hp_out = torch.empty_like(hp_in)
+    s_out = torch.empty_like(s_in)
+    cf = torch.empty((B, M), dtype=torch.int32, device=dev)
+    steps = torch.empty((B,), dtype=torch.int32, device=dev)
+    sizes = elim_sizes(W, M)
+    slab = None
+    if sizes["device_memory"]:  # the kernel's rule: the columns in a slab
+        slab = torch.empty((B, sizes["shot_bytes"]), dtype=torch.uint8,
+                           device=dev)
+    fn = _k2_lib().gf2_elim_launch
+    args = (B, W, M, m, K, m if rank is None else rank, int(full_jordan),
+            int(exit_on_valid), _SMEM_LIMIT)
+    label = f"{K2_RANGE}: {W} words" + (", full_jordan" if full_jordan
+                                        else "")
+
+    def launch():
+        # the inputs and the slab stay referenced by this closure
+        with torch.profiler.record_function(label):
+            code = fn(hp_in.data_ptr(), hp_out.data_ptr(), s_in.data_ptr(),
+                      s_out.data_ptr(), cf.data_ptr(), steps.data_ptr(),
+                      None if slab is None else slab.data_ptr(), *args,
+                      _kernels.stream_ptr(dev))
+        _kernels.check(code, "gf2_elim_launch")
+        eliminate_blocks_v1.launches += 1
+
+    def finish(return_steps: bool = False):
+        out = (hp_out, s_out, prow_of_col_from(cf, K), cf >= 0, cf)
+        return out + (steps,) if return_steps else out
+
+    return launch, finish
+
+
+def _k2_lib():
+    lib = _kernels.load("gf2_elim")
+    if not lib.gf2_elim_launch.argtypes:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.gf2_elim_launch.argtypes = [P] * 7 + [I] * 9 + [P]
+        lib.gf2_elim_launch.restype = I
+        lib.gf2_elim_sizes.argtypes = [I, I, I, P]
+        lib.gf2_elim_sizes.restype = I
+        lib.gf2_elim_info.argtypes = [I] * 4 + [P]
+        lib.gf2_elim_info.restype = I
+    return lib
+
+
+def elim_sizes(W: int, M: int) -> dict:
+    """K2's layout of one shot of W words by M rows, as csrc/gf2_elim.cu
+    reports it: its column bytes (the device-memory slab takes this much a
+    shot), the column stride in words, the row words a lane holds, and
+    whether the columns go to the device-memory slab (they exceed
+    ``_SMEM_LIMIT``)."""
+    out = (ctypes.c_longlong * 4)()
+    _kernels.check(_k2_lib().gf2_elim_sizes(W, M, _SMEM_LIMIT, out),
+                   "gf2_elim_sizes")
+    return dict(shot_bytes=out[0], column_stride=out[1],
+                words_per_lane=out[2], device_memory=bool(out[3]))
+
+
+def elim_launch_info(B: int, W: int, M: int, device) -> dict:
+    """K2's shape on the card for B shots of W words by M rows: registers
+    and spilled bytes a thread, column bytes a shot and where they live,
+    warps a shot, shots a block, shared memory a block, blocks, and blocks
+    and shots resident per SM."""
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        _kernels.check(_k2_lib().gf2_elim_info(B, W, M, _SMEM_LIMIT, out),
+                       "gf2_elim_info")
+    return dict(elim_sizes(W, M), registers=out[0], local_bytes=out[1],
+                shots_per_block=out[2], smem_bytes=out[3],
+                columns_in="device memory" if out[4] else "shared memory",
+                warps_per_shot=out[7], blocks=out[5], blocks_per_sm=out[6],
+                shots_per_sm=out[6] * out[2])
 
 
 def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,

@@ -8,7 +8,11 @@ order 2) and reports, for a few steady dispatches:
   (sampling + signature matmul, BP, pooled OSD, readout), summed over the
   dispatch;
 * the device's busy share and time per kernel name from ``torch.profiler``
-  over whole dispatches.
+  over whole dispatches;
+* with eliminator K2 (``--osd-kernel 1``), K2's launches and device time
+  per dispatch at each width the OSD runs it at, from the profiler range
+  K2's wrapper opens around each launch (``osd_cuda.K2_RANGE``, named by
+  the width in words and ``full_jordan``).
 
 Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
@@ -128,12 +132,23 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = (time.time() - t0) / args.dispatches
     kernels = {}
+    k2_widths = {}  # K2's ranges: launches (host side), device ms
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0.0)
-        if dt and ev.device_type is not None and \
-                str(ev.device_type).endswith("CUDA"):
+        on_device = ev.device_type is not None and \
+            str(ev.device_type).endswith("CUDA")
+        if ev.key.startswith(osd_cuda.K2_RANGE):
+            # the host range holds its launches' kernels; a device-side
+            # annotation of the same range, where the profiler makes one,
+            # spans them: either gives the range's device time
+            r = k2_widths.setdefault(ev.key[len(osd_cuda.K2_RANGE) + 2:],
+                                     dict(launches=0.0, ms=0.0))
+            if not on_device:
+                r["launches"] += ev.count / args.dispatches
+            r["ms"] = max(r["ms"], dt / 1e3 / args.dispatches)
+        elif dt and on_device:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
     busy_ms = sum(kernels.values()) / args.dispatches
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
@@ -146,7 +161,8 @@ def main(argv=None):
         dispatch_ms=wall * 1e3, shots_per_s=shots / wall,
         staged_dispatch_ms=staged_wall * 1e3, stage_ms=stages,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
-        kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top})
+        kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top},
+        k2_by_width=k2_widths or None)
     print(f"card: {smi}")
     print(f"dispatch {wall * 1e3:.1f} ms ({shots / wall:.0f} shots/s); "
           f"device busy {busy_ms:.1f} ms, idle share "
@@ -156,6 +172,10 @@ def main(argv=None):
         + f"; staged dispatch wall {staged_wall * 1e3:.1f} ms")
     for k, v in top:
         print(f"  {v / args.dispatches:9.3f} ms  {k[:90]}")
+    if k2_widths:
+        print("K2 per dispatch by width (launches, device ms): " + "; ".join(
+            f"{w} {r['launches']:.1f}, {r['ms']:.3f}"
+            for w, r in k2_widths.items()))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

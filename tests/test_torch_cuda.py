@@ -123,6 +123,125 @@ def test_elim_kernel_matches_plain(cuda, bundles, exit_on_valid,
         assert torch.equal(x, y), name
 
 
+def _elim_case(cuda, bundles, B, seed, K):
+    """B [[72]] basis-Z shots packed at K columns of a random order."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    H, syn = _syndromes(M, "Z", B, seed)
+    rng = np.random.default_rng(seed)
+    cols = torch.as_tensor(np.stack([rng.permutation(H.shape[1])
+                                     for _ in range(B)]), device=cuda)
+    Hp = _gather_pack(dec.H.T.contiguous(), cols[:, :K], K, words_major=True)
+    s = torch.as_tensor(syn, device=cuda).to(torch.int32)
+    return dec, Hp, s
+
+
+def _elim_equal(a, b):
+    for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
+                          a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("B", [1, 37])
+def test_elim_kernel_batches(cuda, bundles, B, exit_on_valid):
+    """One shot, and a batch that is no multiple of the shots a block
+    holds, at the prefix width."""
+    dec, Hp, s = _elim_case(cuda, bundles, B, 7, 512)
+    kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid, return_steps=True)
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, 512, Hp.shape[2], **kw)
+    torch.cuda.synchronize()
+    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 512, Hp.shape[2],
+                                                   **kw))
+
+
+def test_elim_kernel_shots_exit_apart(cuda, bundles):
+    """Shots of one block stop at very different steps: zero residuals at
+    step 0, syndromes of sampled errors early, random syndromes (mostly
+    outside the column span) only at the rank or the last column."""
+    dec, Hp, s = _elim_case(cuda, bundles, 48, 8, 512)
+    rng = np.random.default_rng(8)
+    s[::3] = 0
+    s[1::3] = torch.as_tensor(rng.integers(0, 2, s[1::3].shape),
+                              device=cuda, dtype=torch.int32)
+    kw = dict(rank=dec.rank, return_steps=True)
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, 512, Hp.shape[2], **kw)
+    torch.cuda.synchronize()
+    b = osd_cuda.eliminate_blocks_plain(Hp, s, 512, Hp.shape[2], **kw)
+    _elim_equal(a, b)
+    steps = b[5]
+    assert steps.min() == 0 and steps.max() >= dec.rank
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+def test_elim_kernel_ragged_rows_past_m(cuda, bundles, exit_on_valid):
+    """M = m + 45 rows (no whole number of words): the rows past m carry
+    bits and residuals, are XORed and never pivot."""
+    dec, Hp, s = _elim_case(cuda, bundles, 40, 9, 256)
+    m = Hp.shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    Hp = torch.cat([Hp, torch.randint(-2**31, 2**31 - 1, (40, 8, 45),
+                                      generator=gen, device=cuda,
+                                      dtype=torch.int32)], 2)
+    s = torch.cat([s, torch.randint(0, 2, (40, 45), generator=gen,
+                                    device=cuda, dtype=torch.int32)], 1)
+    kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid, return_steps=True)
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
+    torch.cuda.synchronize()
+    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 256, m, **kw))
+
+
+@pytest.mark.parametrize("full_jordan", [False, True])
+def test_elim_kernel_device_memory_branch(cuda, bundles, monkeypatch,
+                                          full_jordan):
+    """The columns in a device-memory slab (the branch wider matrices take)
+    give the shared-memory launch's outputs bit for bit, at stage-1 width."""
+    dec, Hp, s = _elim_case(cuda, bundles, 37, 10, 256)
+    kw = dict(rank=dec.rank, full_jordan=full_jordan, return_steps=True)
+    m = Hp.shape[2]
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
+    info = osd_cuda.elim_launch_info(37, 8, m, cuda)
+    monkeypatch.setattr(osd_cuda, "_SMEM_LIMIT", 0)
+    d = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
+    torch.cuda.synchronize()
+    assert info["columns_in"] == "shared memory"
+    assert osd_cuda.elim_launch_info(37, 8, m, cuda)["columns_in"] == \
+        "device memory"
+    _elim_equal(d, a)
+    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 256, m, **kw))
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+def test_elim_kernel_three_words_a_lane(cuda, exit_on_valid):
+    """2100 rows: each lane holds 3 row words of a column (as at
+    [[288,12,18]]), on the device-memory branch at 32 words."""
+    rng = np.random.default_rng(12)
+    B, W, M, m = 9, 32, 2100, 2090
+    bits = rng.random((B, 32 * W, M)) < 0.004
+    words = (bits.reshape(B, W, 32, M).astype(np.int64)
+             << np.arange(32)[None, None, :, None]).sum(2)
+    Hp = torch.as_tensor(np.where(words >= 2**31, words - 2**32, words),
+                         dtype=torch.int32, device=cuda)
+    s = torch.as_tensor(rng.integers(0, 2, (B, M)), dtype=torch.int32,
+                        device=cuda)
+    info = osd_cuda.elim_launch_info(B, W, M, cuda)
+    assert info["words_per_lane"] == 3
+    assert info["columns_in"] == "device memory"
+    kw = dict(exit_on_valid=exit_on_valid, return_steps=True)
+    a = osd_cuda.eliminate_blocks_v1(Hp, s, 32 * W, m, **kw)
+    torch.cuda.synchronize()
+    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 32 * W, m, **kw))
+
+
+def test_elim_kernel_launch_info(cuda):
+    """K2's shape at [[144]]'s stage-1 width: no spills, one word a lane,
+    several shots per SM in shared memory."""
+    info = osd_cuda.elim_launch_info(481, 8, 1008, cuda)
+    assert info["local_bytes"] == 0 and info["words_per_lane"] == 1
+    assert info["columns_in"] == "shared memory"
+    assert info["shots_per_sm"] >= 4 and info["shots_per_block"] >= 2
+
+
 def test_pooled_round_gpu_matches_cpu(cuda, bundles):
     """The same randoms through the kernels on the card and the plain
     versions on the CPU give identical per-shot flags."""
