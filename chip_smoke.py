@@ -22,11 +22,12 @@ time per column step and the share of its layout transposes, its
 device-memory branch forced at stage 1 vs its shared-memory launch, and K2
 at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
 version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
-plain version and vs K1 on the same syndromes, then K1's and K3's
-device-memory branch (the one K3 takes at [[288]]) vs their shared-memory
-launches, and K1 at [[288,12,18]] (state in shared memory, one block per
-SM) vs its plain version, (6) eliminator kernels K4 (fused 4-column) and K5 (two shots per
-block) vs their plain versions and K2's, (7) layered path (K3 + K2), (8) the
+plain version and vs K1 on the same syndromes, with K3's shape and ms per
+sweep, then K1's and K3's device-memory branch (forced) vs their
+shared-memory launches, and K1 and K3 at [[288,12,18]] (state in shared
+memory, one block per SM) vs their plain versions, (6) eliminator kernels
+K4 (fused 4-column) and K5 (two shots per block) vs their plain versions
+and K2's, (7) layered path (K3 + K2), (8) the
 main path (a pooled dispatch and run_simulation) under QLDPC_OSD_KERNEL=2
 and 3 (K1 + K4, K1 + K5), (9) the gather_bench entry point (P1, the
 iterated on-chip gather) and P1 vs its plain version at every case of its
@@ -52,7 +53,7 @@ SEED = 2024
 CODE, CYCLES, P = "[[144, 12, 12]]", 12, 0.004
 BATCH, RPD, MAXITER, OSD_ORDER = 1024, 4, 50, 2
 MAX_TRIALS = 16384
-# the largest code K1 runs from shared memory, checked on a small batch
+# the largest code K1 and K3 run from shared memory, checked on a small batch
 CODE_288, CYCLES_288, BATCH_288 = "[[288, 12, 18]]", 18, 37
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -464,6 +465,16 @@ def main():
         fail(f"phase 4: implausible result {res}")
 
     # ---- phase 5: K3 against its plain version, beside K1 ----
+    shape3 = bp_lift_layered_cuda.layered_launch_info(decs[0].lifted, dev)
+    print(f"phase 5: K3 shape at {CODE}: {shape3['registers']} registers "
+          f"and {shape3['local_bytes']} spilled bytes a thread, "
+          f"{shape3['threads']} threads a block (one shot), "
+          f"{shape3['state_bytes']} state bytes a shot in "
+          f"{shape3['state_in']}, {shape3['smem_bytes']} bytes of shared "
+          f"memory a block, {shape3['blocks_per_sm']} blocks (shots) per SM",
+          flush=True)
+    if shape3["blocks_per_sm"] < 1:
+        fail(f"phase 5: K3 cannot be resident: {shape3}")
     k3 = {}
     for basis, dec in zip("ZX", decs):
         args = (dec.lifted, syns[basis], dec.prior, dec.alpha_seq, MAXITER)
@@ -486,18 +497,21 @@ def main():
         plain_ms = cuda_ms(lambda: bp_lift_layered_cuda
                            .decode_batch_lift_layered_plain(*args), 1)
         tabs = bp_lift_cuda.flood_tables(dec.lifted, dev)
+        geo = bp_lift_cuda.flood_geometry(dec.lifted, dev)
         shot_sweeps = int((a["iterations"].long() + 1).sum())
         kb, bb = bound(
             nbytes(syns[basis], a["values"], a["hard"], a["converged"],
                    a["iterations"], dec.prior, dec.alpha_seq,
-                   tabs["chk_nbr"], tabs["col_chk"], tabs["prior_grid"],
+                   geo["pos_info"], geo["wrap_words"], tabs["prior_grid"],
                    tabs["out_gather"], tabs["residual"]),
             K3_OPS_PER_EDGE_SWEEP * k1[basis]["edges"] * shot_sweeps)
         k3[basis] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err_abs,
                          bound_ms=kb, bound_by=bb,
                          converged=int(a["converged"].sum()),
                          mean_sweeps=shot_sweeps / BATCH, out=a)
-        print(f"phase 5: K3 basis {basis}: exact; {ms:.3f} ms (plain "
+        # ms per sweep: the call over the mean sweeps its shots ran
+        print(f"phase 5: K3 basis {basis}: exact; {ms:.3f} ms, "
+              f"{ms / k3[basis]['mean_sweeps']:.4f} ms per sweep (plain "
               f"{plain_ms:.1f} ms, bound {kb:.4f} ms by {bb}); "
               f"{k3[basis]['converged']}/{BATCH} converged, mean "
               f"{k3[basis]['mean_sweeps']:.2f} sweeps; K1 on the same "
@@ -506,8 +520,9 @@ def main():
               f" ms", flush=True)
 
     # K1's and K3's device-memory branch: a per-shot state slab in device
-    # memory instead of shared memory, as K3 takes it at [[288]] (403 KB a
-    # shot; K1's compressed state, 172 KB there, fits shared memory)
+    # memory instead of shared memory, the branch a graph whose state
+    # exceeds a block's shared memory takes; no registry code takes it
+    # (their compressed state is 161,280 bytes a shot at [[288]])
     dec = decs[0]
     args = (dec.lifted, syns["Z"], dec.prior, dec.alpha_seq, MAXITER)
     saved_limit = bp_lift_cuda._SMEM_LIMIT
@@ -532,9 +547,9 @@ def main():
     finally:
         bp_lift_cuda._SMEM_LIMIT = saved_limit
 
-    # K1 at [[288,12,18]] (the matrices and syndromes of phase 3): its
-    # compressed state fits shared memory there, at one block per SM, a
-    # regime [[144]] does not reach
+    # K1 and K3 at [[288,12,18]] (the matrices and syndromes of phase 3):
+    # their compressed state fits shared memory there, at one block per SM,
+    # and the wraps reach ell*mm + mm = 156, a regime [[144]] does not reach
     t0 = time.time()
     g288 = LiftedGraph.try_from_dense(H288, code288.ell, code288.m,
                                       prior288, device=dev)
@@ -542,22 +557,32 @@ def main():
         fail(f"phase 5: {CODE_288} has no lifted structure")
     args = (g288, syn288, torch.as_tensor(prior288, device=dev),
             decs[0].alpha_seq, MAXITER)
-    shape288 = bp_lift_cuda.flood_launch_info(g288, dev)
-    a = bp_lift_cuda.decode_batch_lift_cuda(*args)
-    torch.cuda.synchronize()
-    b = bp_lift_cuda.decode_batch_lift_plain(*args)
-    for name in ("hard", "converged", "iterations", "values"):
-        if not torch.equal(a[name], b[name]):
-            fail(f"phase 5: K1 {name} at {CODE_288} differs from the plain "
-                 "version")
-    print(f"phase 5: K1 at {CODE_288} (basis Z, B={BATCH_288}, maxIter "
-          f"{MAXITER}): every output identical to the plain version; "
-          f"{int(a['converged'].sum())}/{BATCH_288} converged; "
-          f"{shape288['state_bytes']} state bytes a shot in "
-          f"{shape288['state_in']}, {shape288['smem_bytes']} bytes of shared "
-          f"memory a block, {shape288['blocks_per_sm']} blocks per SM "
-          f"({time.time() - t0:.1f} s with the lifted graph)",
-          flush=True)
+    for key, fn_k, plain, info in (
+            ("K1", bp_lift_cuda.decode_batch_lift_cuda,
+             bp_lift_cuda.decode_batch_lift_plain,
+             bp_lift_cuda.flood_launch_info),
+            ("K3", bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
+             bp_lift_layered_cuda.decode_batch_lift_layered_plain,
+             bp_lift_layered_cuda.layered_launch_info)):
+        shape288 = info(g288, dev)
+        if shape288["state_in"] != "shared memory":
+            fail(f"phase 5: {key} at {CODE_288} keeps its state in "
+                 f"{shape288['state_in']}")
+        a = fn_k(*args)
+        torch.cuda.synchronize()
+        b = plain(*args)
+        for name in ("hard", "converged", "iterations", "values"):
+            if not torch.equal(a[name], b[name]):
+                fail(f"phase 5: {key} {name} at {CODE_288} differs from the "
+                     "plain version")
+        print(f"phase 5: {key} at {CODE_288} (basis Z, B={BATCH_288}, "
+              f"maxIter {MAXITER}): every output identical to the plain "
+              f"version; {int(a['converged'].sum())}/{BATCH_288} converged; "
+              f"{shape288['state_bytes']} state bytes a shot in "
+              f"{shape288['state_in']}, {shape288['smem_bytes']} bytes of "
+              f"shared memory a block, {shape288['blocks_per_sm']} blocks per "
+              f"SM ({time.time() - t0:.1f} s with the lifted graph)",
+              flush=True)
 
     # ---- phase 6: K4 and K5 against their plain versions and K2's ----
     dec = decs[0]  # phase 3's inputs are Z-basis shots

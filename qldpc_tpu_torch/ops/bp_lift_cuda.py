@@ -37,9 +37,9 @@ _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK
 
 
 def _flood_define(name: str) -> int:
-    """An integer ``#define`` of csrc/bp_lift_flood.cu, the one place K1's
-    layout constants are set."""
-    src = (_kernels.SRC_DIR / "bp_lift_flood.cu").read_text()
+    """An integer ``#define`` of csrc/bp_lift_common.cuh, the one place the
+    layout constants of K1 and K3 are set."""
+    src = (_kernels.SRC_DIR / "bp_lift_common.cuh").read_text()
     return int(re.search(rf"^#define {name} (\d+)\b", src, re.M).group(1))
 
 
@@ -48,8 +48,8 @@ _FLOOD_THREADS = _flood_define("FLOOD_THREADS")
 
 
 class _FloodGraph(ctypes.Structure):
-    """csrc/bp_lift_flood.cu's ``FloodGraph``: the lift's per-edge
-    constants (offsets in bytes), passed to K1 by value."""
+    """csrc/bp_lift_common.cuh's ``FloodGraph``: the lift's per-edge
+    constants (offsets in bytes), passed to K1 and K3 by value."""
     _fields_ = ([(f, ctypes.c_int * _MAX_EB) for f in
                  ("chk_off", "col_off", "pb_off", "pb_last")]
                 + [(f, ctypes.c_int) for f in ("EB", "NB", "P", "L")])
@@ -113,8 +113,8 @@ def flood_tables(g: LiftedGraph, device) -> dict:
 
 
 def flood_geometry(g: LiftedGraph, device) -> dict:
-    """What kernel K1 computes its neighbours from, cached on the graph per
-    device.
+    """What kernels K1 and K3 compute their neighbours from, cached on the
+    graph per device.
 
     graph: the kernel's ``FloodGraph`` parameter: per edge slot e =
       (pb, o, cx, cy), chk_off = 4 (pb*P - o*ell*mm - cx*mm - cy), col_off =
@@ -130,15 +130,15 @@ def flood_geometry(g: LiftedGraph, device) -> dict:
       edge slots 0-31 and 32-35 at check row p (slot 32w + i at bit 31 - i
       of word w), x*mm + y, 0; the same at column position p (live iff the
       slot is live and t + o < T).
-    The sizes of the kernel's state come from the kernel itself
-    (:func:`_flood_sizes`)."""
+    The sizes of the kernels' state come from the kernels themselves
+    (:func:`_state_sizes`)."""
     key = ("flood_geometry", str(device))
     if key in g.cache:
         return g.cache[key]
     ell, mm, T, NB, EB, m = g.ell, g.mm, g.T, g.NB, g.EB, g.m
     L = ell * mm
     if EB > _MAX_EB or L + mm > 255:
-        raise ValueError(f"K1 takes at most {_MAX_EB} edge slots and "
+        raise ValueError(f"K1 and K3 take at most {_MAX_EB} edge slots and "
                          f"ell*mm + mm < 256; got EB={EB}, ell={ell}, "
                          f"mm={mm}")
     P = L * T
@@ -182,21 +182,22 @@ def flood_geometry(g: LiftedGraph, device) -> dict:
     return geo
 
 
-def _flood_sizes(geo: dict) -> tuple:
-    """(state bytes a shot, shared memory a block with the state in it), as
-    csrc/bp_lift_flood.cu lays them out, cached in ``geo``. The kernel
-    reports them, so the device-memory slab it indexes is sized by the same
-    formula."""
-    if "sizes" not in geo:
+def _state_sizes(geo: dict, kernel: str) -> tuple:
+    """(state bytes a shot, shared memory a block with the state in it) of
+    ``kernel`` ("K1" or "K3") as its source lays them out, cached in
+    ``geo``. The kernel reports them, so the device-memory slab it indexes
+    is sized by the same formula."""
+    key = ("sizes", kernel)
+    if key not in geo:
         out = (ctypes.c_longlong * 3)()
-        _kernels.check(_flood_lib().bp_flood_sizes(
-            ctypes.byref(geo["graph"]), out), "bp_flood_sizes")
+        _kernels.check(_bp_entry(kernel)["sizes"](
+            ctypes.byref(geo["graph"]), out), f"{kernel} sizes")
         if geo["wrap_words"].numel() * 4 < out[1]:
-            raise RuntimeError(f"K1 reads {out[1]} bytes of wrap tables; "
-                               f"flood_geometry holds "
+            raise RuntimeError(f"{kernel} reads {out[1]} bytes of wrap "
+                               f"tables; flood_geometry holds "
                                f"{geo['wrap_words'].numel() * 4}")
-        geo["sizes"] = (out[0], out[2])
-    return geo["sizes"]
+        geo[key] = (out[0], out[2])
+    return geo[key]
 
 
 def _check_inputs(g: LiftedGraph, syndrome, prior, alpha_seq, maxIter):
@@ -238,6 +239,49 @@ def prepare_flood_launch(g: LiftedGraph, syndrome, prior, alpha_seq,
     (launch, outputs): each ``launch()`` runs the kernel once into
     ``outputs`` and counts it on ``decode_batch_lift_cuda``, so a caller can
     also time the kernel alone."""
+    return prepare_bp_launch("K1", decode_batch_lift_cuda, g, syndrome,
+                             prior, alpha_seq, maxIter, clip_llr)
+
+
+def flood_launch_info(g: LiftedGraph, device) -> dict:
+    """K1's shape on the card for graph ``g`` (:func:`bp_launch_info`)."""
+    return bp_launch_info("K1", g, device)
+
+
+# The lifted min-sum kernels: library (csrc/<name>.cu) and the prefix of
+# its C entry points. Both take one C signature (csrc/bp_lift_common.cuh).
+_BP_KERNELS = {"K1": ("bp_lift_flood", "bp_flood"),
+               "K3": ("bp_lift_layered", "bp_layered")}
+
+
+def _bp_entry(kernel: str) -> dict:
+    """The ``launch``, ``info`` and ``sizes`` C entry points of K1 or K3,
+    their argument types set."""
+    name, prefix = _BP_KERNELS[kernel]
+    lib = _kernels.load(name)
+    fns = {s: getattr(lib, f"{prefix}_{s}") for s in ("launch", "info",
+                                                      "sizes")}
+    if not fns["launch"].argtypes:
+        Pt, It = ctypes.c_void_p, ctypes.c_int
+        fns["launch"].argtypes = ([Pt] * 14 + [It] * 3
+                                  + [ctypes.c_float, It, Pt])
+        fns["info"].argtypes = [Pt, It, It, Pt]
+        fns["sizes"].argtypes = [Pt, Pt]
+        for f in fns.values():
+            f.restype = ctypes.c_int
+    return fns
+
+
+def _bp_threads(g: LiftedGraph) -> int:
+    return min(_FLOOD_THREADS, -(-g.m // 32) * 32)
+
+
+def prepare_bp_launch(kernel: str, wrapper, g: LiftedGraph, syndrome, prior,
+                      alpha_seq, maxIter: int, clip_llr: float = 20.0):
+    """K1 or K3 (``kernel``) on CUDA tensors, prepared but not launched:
+    input casts, geometry and tables, output and scratch allocation, library
+    load. Returns (launch, outputs): each ``launch()`` runs the kernel once
+    into ``outputs`` and counts it on ``wrapper.launches``."""
     _check_inputs(g, syndrome, prior, alpha_seq, maxIter)
     if syndrome.device.type != "cuda":
         raise ValueError(f"unsupported device {syndrome.device}")
@@ -252,12 +296,12 @@ def prepare_flood_launch(g: LiftedGraph, syndrome, prior, alpha_seq,
     hard = torch.empty((B, n), dtype=torch.int8, device=dev)
     conv = torch.empty((B,), dtype=torch.bool, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    state, smem = _flood_sizes(geo)
+    state, smem = _state_sizes(geo, kernel)
     scratch = None
     if smem > _SMEM_LIMIT:  # per-shot slab in device memory
         scratch = torch.empty((B, state), dtype=torch.uint8, device=dev)
-    threads = _flood_threads(g)
-    fn = _flood_lib().bp_flood_launch
+    threads = _bp_threads(g)
+    fn = _bp_entry(kernel)["launch"]
 
     def launch():
         # syn, prior, alpha and scratch stay referenced by this closure
@@ -270,103 +314,31 @@ def prepare_flood_launch(g: LiftedGraph, syndrome, prior, alpha_seq,
             hard.data_ptr(), conv.data_ptr(), iters.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, n, maxIter, float(clip_llr), threads, _kernels.stream_ptr(dev))
-        _kernels.check(code, "bp_flood_launch")
-        decode_batch_lift_cuda.launches += 1
-
-    return launch, dict(hard=hard, converged=conv, values=values,
-                        iterations=iters)
-
-
-def _flood_threads(g: LiftedGraph) -> int:
-    return min(_FLOOD_THREADS, -(-g.m // 32) * 32)
-
-
-def _flood_lib():
-    lib = _kernels.load("bp_lift_flood")
-    if not lib.bp_flood_launch.argtypes:
-        Pt, It = ctypes.c_void_p, ctypes.c_int
-        lib.bp_flood_launch.argtypes = ([Pt] * 14 + [It] * 3
-                                        + [ctypes.c_float, It, Pt])
-        lib.bp_flood_launch.restype = ctypes.c_int
-        lib.bp_flood_info.argtypes = [Pt, It, It, Pt]
-        lib.bp_flood_info.restype = ctypes.c_int
-        lib.bp_flood_sizes.argtypes = [Pt, Pt]
-        lib.bp_flood_sizes.restype = ctypes.c_int
-    return lib
-
-
-def flood_launch_info(g: LiftedGraph, device) -> dict:
-    """K1's shape on the card for graph ``g``: registers and spilled bytes
-    a thread, threads a block (one shot), state bytes a shot and where they
-    live, shared memory a block, and blocks (shots) resident per SM."""
-    geo = flood_geometry(g, device)
-    threads = _flood_threads(g)
-    state, smem = _flood_sizes(geo)
-    in_smem = smem <= _SMEM_LIMIT
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-        _kernels.check(_flood_lib().bp_flood_info(
-            ctypes.byref(geo["graph"]), threads, int(not in_smem), out),
-            "bp_flood_info")
-    return dict(registers=out[0], local_bytes=out[1], threads=threads,
-                state_bytes=state,
-                state_in="shared memory" if in_smem else "device memory",
-                smem_bytes=out[2], blocks_per_sm=out[3])
-
-
-def prepare_launch(wrapper, lib_name: str, fn_name: str, g: LiftedGraph,
-                   syndrome, prior, alpha_seq, maxIter: int, clip_llr: float,
-                   extra: tuple = ()):
-    """Kernel K3 (``csrc/<lib_name>.cu``) made ready to launch: input
-    casts, tables, output and scratch allocation, library load. It takes
-    the C signature of K1's first design, which read the neighbour tables;
-    ``extra`` holds the int arguments it takes after maxIter. Returns
-    (launch, outputs): each ``launch()`` runs the kernel once into
-    ``outputs`` and counts it on ``wrapper``, so a caller can also time the
-    kernel alone."""
-    if syndrome.device.type != "cuda":
-        raise ValueError(f"unsupported device {syndrome.device}")
-    dev = syndrome.device
-    tabs = flood_tables(g, dev)
-    B, m = syndrome.shape
-    n, EB, NB, P = g.n, g.EB, g.NB, tabs["P"]
-    syn = syndrome.to(torch.int8).contiguous()
-    prior = prior.to(device=dev, dtype=torch.float32).contiguous()
-    alpha = alpha_seq.to(device=dev, dtype=torch.float32).contiguous()
-    values = torch.empty((B, n), dtype=torch.float32, device=dev)
-    hard = torch.empty((B, n), dtype=torch.int8, device=dev)
-    conv = torch.empty((B,), dtype=torch.bool, device=dev)
-    iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    state = (EB * m + NB * P) * 4
-    scratch = None
-    if state > _SMEM_LIMIT:  # e.g. [[288]]: per-shot slab in device memory
-        scratch = torch.empty((B, state // 4), dtype=torch.float32,
-                              device=dev)
-    threads = min(1024, max(32, -(-m // 32) * 32))
-    fn = getattr(_kernels.load(lib_name), fn_name)
-    if not fn.argtypes:
-        Pt, It = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([Pt] * 14 + [It] * (7 + len(extra))
-                       + [ctypes.c_float, It, Pt])
-        fn.restype = ctypes.c_int
-
-    def launch():
-        # syn, prior, alpha and scratch stay referenced by this closure
-        code = fn(
-            syn.data_ptr(), tabs["prior_grid"].data_ptr(),
-            tabs["chk_nbr"].data_ptr(), tabs["col_chk"].data_ptr(),
-            tabs["pb_start"].data_ptr(), alpha.data_ptr(),
-            tabs["out_gather"].data_ptr(), tabs["residual"].data_ptr(),
-            prior.data_ptr(), values.data_ptr(), hard.data_ptr(),
-            conv.data_ptr(), iters.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, m, EB, P, NB, n, maxIter, *extra, float(clip_llr), threads,
-            _kernels.stream_ptr(dev))
-        _kernels.check(code, fn_name)
+        _kernels.check(code, f"{kernel} launch")
         wrapper.launches += 1
 
     return launch, dict(hard=hard, converged=conv, values=values,
                         iterations=iters)
+
+
+def bp_launch_info(kernel: str, g: LiftedGraph, device) -> dict:
+    """K1's or K3's shape on the card for graph ``g``: registers and
+    spilled bytes a thread, threads a block (one shot), state bytes a shot
+    and where they live, shared memory a block, and blocks (shots) resident
+    per SM."""
+    geo = flood_geometry(g, device)
+    threads = _bp_threads(g)
+    state, smem = _state_sizes(geo, kernel)
+    in_smem = smem <= _SMEM_LIMIT
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _kernels.check(_bp_entry(kernel)["info"](
+            ctypes.byref(geo["graph"]), threads, int(not in_smem), out),
+            f"{kernel} info")
+    return dict(registers=out[0], local_bytes=out[1], threads=threads,
+                state_bytes=state,
+                state_in="shared memory" if in_smem else "device memory",
+                smem_bytes=out[2], blocks_per_sm=out[3])
 
 
 class _PlainGraph:

@@ -279,6 +279,33 @@ def test_layered_kernel_matches_plain(cuda, bundles, basis):
     assert a["converged"].any() and not a["converged"].all()
 
 
+def test_layered_kernel_device_memory_branch(cuda, bundles, monkeypatch):
+    """K3 with its per-shot state in device memory (the branch a graph
+    larger than a block's shared memory takes) equals the plain version."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    _, syn = _syndromes(M, "Z", 37, 2)
+    syn = torch.as_tensor(syn, device=cuda)
+    monkeypatch.setattr(bp_lift_cuda, "_SMEM_LIMIT", 0)
+    a = bp_lift_layered_cuda.decode_batch_lift_layered_cuda(
+        dec.lifted, syn, dec.prior, dec.alpha_seq, 50)
+    torch.cuda.synchronize()
+    b = bp_lift_layered_cuda.decode_batch_lift_layered_plain(
+        dec.lifted, syn, dec.prior, dec.alpha_seq, 50)
+    for k in ("hard", "converged", "iterations", "values"):
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_layered_kernel_launch_info(cuda, bundles):
+    """K3's shape: no spills, state in shared memory, and at least two shots
+    an SM at [[72]]."""
+    circ, M, decs = bundles
+    info = bp_lift_layered_cuda.layered_launch_info(
+        decs[str(cuda)][0].lifted, cuda)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2
+    assert info["state_in"] == "shared memory"
+
+
 @pytest.mark.parametrize("exit_on_valid", [False, True])
 @pytest.mark.parametrize("full_jordan", [False, True])
 @pytest.mark.parametrize("kernel", ["fused", "pair"])
