@@ -14,7 +14,8 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all seven kernels, (2) flooding BP kernel
+Phases: (1) device and build of all seven kernels (an eliminator that
+spills fails), (2) flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
 (3) GF(2) elimination kernel K2 vs its plain
 version at the stage-1, prefix and full widths, with its launch shape, its
@@ -26,14 +27,20 @@ plain version and vs K1 on the same syndromes, with K3's shape and ms per
 sweep, then K1's and K3's device-memory branch (forced) vs their
 shared-memory launches, and K1 and K3 at [[288,12,18]] (state in shared
 memory, one block per SM) vs their plain versions, (6) eliminator kernels
-K4 (fused 4-column) and K5 (two shots per block) vs their plain versions
-and K2's, (7) layered path (K3 + K2), (8) the
+K4 (four pivots per team barrier) and K5 (two shots a team) vs their plain
+versions and K2's at the three widths, with their launch shapes, times per
+column step beside K2's, their device-memory branch forced at stage 1, and
+both at [[288,12,18]] (B=37, stage 1 and prefix), (7) layered path (K3 +
+K2), (8) the
 main path (a pooled dispatch and run_simulation) under QLDPC_OSD_KERNEL=2
 and 3 (K1 + K4, K1 + K5), (9) the gather_bench entry point (P1, the
 iterated on-chip gather) and P1 vs its plain version at every case of its
 ladder, (10) the gather_probe entry point (P2, take-along-axis) and P2 vs
 its plain version and torch.take_along_dim at every probe case, (11) the
-bp_breakdown entry point at [[144,12,12]], B=1024 (K1). Each path runs with
+bp_breakdown entry point at [[144,12,12]], B=1024 (K1), (12) the main
+path's run_simulation against two matched JAX LER records ([[144,12,12]]
+p=0.004 maxIter 20 to 200 errors, [[72,12,6]] p=0.004 maxIter 50 to 100),
+within 3 sigma. Each path runs with
 every launch count set to 0 just before it and read just after. Exits
 non-zero, and prints no result, without a GPU, outside a checkout, or when
 any phase fails.
@@ -43,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +81,7 @@ SMEM_BYTES_PER_CLK_SM = 128  # H100 shared-memory bandwidth per SM
 K3_OPS_PER_EDGE_SWEEP = 18
 # [[144,12,12]] p=0.004 dynamical, the reference's archived LER
 ARCHIVE_LER, ARCHIVE_TRIALS = 200 / 1135, 1135
+LER_MAX_TRIALS = 200_000  # phase 12's cap; its targets take a few thousand
 
 
 def fail(msg: str):
@@ -143,6 +152,10 @@ def main():
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+            # the eliminators K2, K4, K5 must not spill in any instantiation
+            spills = re.findall(r"(\d+) bytes spill", line)
+            if name.startswith("gf2_elim") and any(int(x) for x in spills):
+                fail(f"phase 1: {name} spills: {line.strip()}")
 
     code = qt.get_code(CODE)
     circ = qt.SyndromeCircuit(code, num_cycles=CYCLES)
@@ -261,14 +274,16 @@ def main():
                      f"({where}, {kw})")
         return a, b
 
-    def k2_shape(Hp, s, Kw, m, steps, **kw):
-        """K2's launch shape and kernel-only times: the whole launch, the
-        layout in and out alone (the same launch with no column), and per
-        column step of the longest shot."""
-        info = osd_cuda.elim_launch_info(*Hp.shape, dev)
-        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, Kw, m, **kw)
+    def elim_shape(Hp, s, Kw, m, steps, kernel="K2", **kw):
+        """An eliminator's (K2 by default) launch shape and kernel-only
+        times: the whole launch, the layout in and out alone (the same
+        launch with no column), and per column step of the longest shot."""
+        info = osd_cuda.elim_launch_info(*Hp.shape, dev, kernel)
+        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, Kw, m, kernel=kernel,
+                                                 **kw)
         kernel_ms = cuda_ms(launch, 5)
-        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, 0, m, **kw)
+        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, 0, m, kernel=kernel,
+                                                 **kw)
         layout_ms = cuda_ms(launch, 5)
         info.update(kernel_ms=kernel_ms, layout_ms=layout_ms,
                     us_per_step=kernel_ms * 1e3 / max(int(steps.max()), 1))
@@ -279,7 +294,8 @@ def main():
                 f"spilled bytes; {info['shot_bytes']} column bytes a shot "
                 f"({info['words_per_lane']} row words a lane) in "
                 f"{info['columns_in']}, {info['warps_per_shot']} warps a "
-                f"shot, {info['shots_per_block']} shots a "
+                f"team of {info['shots_per_team']} shot(s), "
+                f"{info['shots_per_block']} shots a "
                 f"block, {info['smem_bytes']} bytes of shared memory a block, "
                 f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks "
                 f"({info['shots_per_sm']} shots) per SM; kernel "
@@ -307,7 +323,7 @@ def main():
                          xor_words=xor_words, steps=steps,
                          mean_steps=float(steps.float().mean()),
                          max_steps=int(steps.max()),
-                         shape=k2_shape(Hp, residual, Kw, m, steps,
+                         shape=elim_shape(Hp, residual, Kw, m, steps,
                                         rank=dec.rank))
         print(f"phase 3: K2 {width} ({Hp.shape[1]} words, {len(Hp)} shots):"
               f" exact with and without the validity exit; {ms:.3f} ms "
@@ -339,7 +355,7 @@ def main():
             if not torch.equal(x, y):
                 fail(f"phase 3: K2's device-memory branch {nm} differs from "
                      "its shared-memory launch (stage1)")
-        dm = k2_shape(Hp, residual, Kw, m, a[5], rank=dec.rank)
+        dm = elim_shape(Hp, residual, Kw, m, a[5], rank=dec.rank)
     finally:
         osd_cuda._SMEM_LIMIT = saved_limit
     print(f"phase 3: K2 device-memory branch forced at stage1: every output "
@@ -371,12 +387,14 @@ def main():
     cols288 = torch.sort(llr288.abs(), dim=1, stable=True).indices
     HT288 = torch.as_tensor(H288.T.copy(), device=dev)
     res288 = syn288.to(torch.int32)
+    w288 = {}  # phase 6 runs K4 and K5 on the same inputs
     for width, Kw in (("stage1", 768), ("prefix", K288)):
         Hp = osd._gather_pack(HT288, cols288[:, :Kw], Kw, words_major=True)
+        w288[width] = (Hp, Kw)
         for exit_on_valid in (False, True):
             a, _ = k2_exact(Hp, res288, Kw, m288, f"{CODE_288} {width}",
                             exit_on_valid=exit_on_valid)
-        info = k2_shape(Hp, res288, Kw, m288, a[5])
+        info = elim_shape(Hp, res288, Kw, m288, a[5])
         if info["columns_in"] != "device memory" or \
                 info["words_per_lane"] != 3:
             fail(f"phase 3: K2 at {CODE_288} {width} took another branch: "
@@ -385,7 +403,6 @@ def main():
               f"B={BATCH_288}): exact with and without the validity exit; "
               f"steps mean {float(a[5].float().mean()):.1f} max "
               f"{int(a[5].max())}; " + shape_line(info), flush=True)
-        del Hp
     del HT288
     print(f"phase 3: {CODE_288} matrices built in {build288_s:.1f} s",
           flush=True)
@@ -586,6 +603,7 @@ def main():
 
     # ---- phase 6: K4 and K5 against their plain versions and K2's ----
     dec = decs[0]  # phase 3's inputs are Z-basis shots
+
     def osd0_bits(out):
         """OSD-0 correction bit of every pivot column slot."""
         s_red, prow = out[1], out[2]
@@ -599,70 +617,81 @@ def main():
         return max(float((x.long() - y.long()).abs().max())
                    for x, y in zip(xs, ys))
 
+    alts = (("k4", "K4", osd_cuda.eliminate_blocks_fused,
+             osd_cuda.eliminate_blocks_fused_plain),
+            ("k5", "K5", osd_cuda.eliminate_blocks_pair,
+             osd_cuda.eliminate_blocks_plain))
+
+    def alt_exact(key, fn_k, plain, Hp, s, Kw, m, where, **kw):
+        """K4 or K5 against its plain version on every output."""
+        a = fn_k(Hp, s, Kw, m, return_steps=True, **kw)
+        torch.cuda.synchronize()
+        b = plain(Hp, s, Kw, m, return_steps=True, **kw)
+        for nm, x, y in zip(names, a, b):
+            if not torch.equal(x, y):
+                fail(f"phase 6: {key.upper()} {nm} differs from its plain "
+                     f"version ({where}, {kw})")
+        return a, b
+
     k45 = dict(k4={}, k5={})
     k45_err = dict(k4=0.0, k5=0.0)
     for width, (Hp, Kw) in widths.items():
         for exit_on_valid in (False, True):
-            kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid,
-                      return_steps=True)
-            a4 = osd_cuda.eliminate_blocks_fused(Hp, residual, Kw, m, **kw)
-            a5 = osd_cuda.eliminate_blocks_pair(Hp, residual, Kw, m, **kw)
-            torch.cuda.synchronize()
-            p4 = osd_cuda.eliminate_blocks_fused_plain(Hp, residual, Kw, m,
-                                                       **kw)
-            p2 = osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m, **kw)
-            where = f"({width}, exit_on_valid={exit_on_valid})"
-            for nm, x, y in zip(names, a4, p4):
-                if not torch.equal(x, y):
-                    fail(f"phase 6: K4 {nm} differs from its plain version "
-                         f"{where}")
-            for nm, x, y in zip(names, a5, p2):
-                if not torch.equal(x, y):
-                    fail(f"phase 6: K5 {nm} differs from K2's plain version "
-                         f"{where}")
+            kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid)
+            where = f"{width}, exit_on_valid={exit_on_valid}"
+            a4, p4 = alt_exact("k4", *alts[0][2:], Hp, residual, Kw, m,
+                               where, **kw)
+            a5, p2 = alt_exact("k5", *alts[1][2:], Hp, residual, Kw, m,
+                               where, **kw)
             if exit_on_valid:  # K4 may stop up to 3 columns after K2
                 for nm, x, y in (("s_red", a4[1], p2[1]),
                                  ("OSD-0 bits", osd0_bits(a4), osd0_bits(p2)),
                                  ("validity", is_valid(a4), is_valid(p2))):
                     if not torch.equal(x, y):
                         fail(f"phase 6: K4 {nm} differs from K2's plain "
-                             f"version {where}")
+                             f"version ({where})")
             else:  # only the rank stop remains; its step count is grouped
                 for nm, x, y in zip(names[:5], a4[:5], p2[:5]):
                     if not torch.equal(x, y):
                         fail(f"phase 6: K4 {nm} differs from K2's plain "
-                             f"version {where}")
+                             f"version ({where})")
             k45_err["k4"] = max(k45_err["k4"], max_diff(a4, p4))
             k45_err["k5"] = max(k45_err["k5"], max_diff(a5, p2))
         # timed as the main path calls it (validity exit on); both do K2's
         # work, so the bound is K2's at this width
-        for key, fn_k, out in (("k4", osd_cuda.eliminate_blocks_fused, a4),
-                               ("k5", osd_cuda.eliminate_blocks_pair, a5)):
+        for (key, kname, fn_k, _), out in zip(alts, (a4, a5)):
             ms = cuda_ms(lambda: fn_k(Hp, residual, Kw, m, rank=dec.rank), 5)
             k45[key][width] = dict(
                 ms=ms, bound_ms=k2[width]["bound_ms"],
                 bound_by=k2[width]["bound_by"],
-                mean_steps=float(out[5].float().mean()))
+                mean_steps=float(out[5].float().mean()),
+                max_steps=int(out[5].max()),
+                shape=elim_shape(Hp, residual, Kw, m, out[5], kname,
+                               rank=dec.rank))
+        r4, r5, r2 = k45["k4"][width], k45["k5"][width], k2[width]
         print(f"phase 6: {width} ({Hp.shape[1]} words): K4 and K5 exact "
               f"against their plain versions and K2's, with and without the "
-              f"validity exit; K4 {k45['k4'][width]['ms']:.3f} ms, K5 "
-              f"{k45['k5'][width]['ms']:.3f} ms, K2 {k2[width]['ms']:.3f} ms "
-              f"(bound {k2[width]['bound_ms']:.4f} ms by "
-              f"{k2[width]['bound_by']}); steps mean K4 "
-              f"{k45['k4'][width]['mean_steps']:.1f}, K5 "
-              f"{k45['k5'][width]['mean_steps']:.1f}, K2 "
-              f"{k2[width]['mean_steps']:.1f}", flush=True)
+              f"validity exit; through the wrapper K4 {r4['ms']:.3f} ms, K5 "
+              f"{r5['ms']:.3f} ms, K2 {r2['ms']:.3f} ms; kernel alone K4 "
+              f"{r4['shape']['kernel_ms']:.4f}, K5 "
+              f"{r5['shape']['kernel_ms']:.4f}, K2 "
+              f"{r2['shape']['kernel_ms']:.4f} ms (bound "
+              f"{r2['bound_ms']:.4f} ms by {r2['bound_by']}); us per step of "
+              f"the longest shot K4 {r4['shape']['us_per_step']:.3f}, K5 "
+              f"{r5['shape']['us_per_step']:.3f} (a double step), K2 "
+              f"{r2['shape']['us_per_step']:.3f}; K5/K2 step ratio "
+              f"{r5['shape']['us_per_step'] / r2['shape']['us_per_step']:.3f};"
+              f" steps mean K4 {r4['mean_steps']:.1f}, K5 "
+              f"{r5['mean_steps']:.1f}, K2 {r2['mean_steps']:.1f}; max K4 "
+              f"{r4['max_steps']}, K5 {r5['max_steps']}, K2 "
+              f"{r2['max_steps']}", flush=True)
+        for key, _, _, _ in alts:
+            print(f"phase 6:   {key.upper()} {width}: "
+                  + shape_line(k45[key][width]["shape"]), flush=True)
     Hp, Kw = widths["full"]
-    for key, fn_k, plain in (
-            ("k4", osd_cuda.eliminate_blocks_fused,
-             osd_cuda.eliminate_blocks_fused_plain),
-            ("k5", osd_cuda.eliminate_blocks_pair,
-             osd_cuda.eliminate_blocks_plain)):
-        a = fn_k(Hp, residual, Kw, m, rank=dec.rank, full_jordan=True)
-        b = plain(Hp, residual, Kw, m, rank=dec.rank, full_jordan=True)
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            fail(f"phase 6: {key.upper()} full_jordan differs from its plain "
-                 "version")
+    for key, _, fn_k, plain in alts:
+        alt_exact(key, fn_k, plain, Hp, residual, Kw, m, "full",
+                  rank=dec.rank, full_jordan=True)
     Hp, Kw = widths["stage1"]
     k45["k4"]["stage1"]["plain_ms"] = cuda_ms(
         lambda: osd_cuda.eliminate_blocks_fused_plain(Hp, residual, Kw, m,
@@ -674,6 +703,71 @@ def main():
           f"plain K4 {k45['k4']['stage1']['plain_ms']:.1f} ms, K5 (K2's "
           f"plain version) {k45['k5']['stage1']['plain_ms']:.1f} ms",
           flush=True)
+
+    # the chain of one team alone: at most one team per SM (37 teams), so
+    # no other shot shares the SM's issue slots; the time per step less the
+    # layout, K5's double step against K2's single step
+    chain = {}
+    wrap = dict(K2=osd_cuda.eliminate_blocks_v1,
+                **{kname: fn_k for _, kname, fn_k, _ in alts})
+    for kname, nshots in (("K2", 37), ("K4", 37), ("K5", 74)):
+        h, r = Hp[:nshots], residual[:nshots]
+        steps = wrap[kname](h, r, Kw, m, rank=dec.rank, return_steps=True)[5]
+        sh = elim_shape(h, r, Kw, m, steps, kname, rank=dec.rank)
+        chain[kname] = dict(sh, chain_us_per_step=(
+            sh["kernel_ms"] - sh["layout_ms"]) * 1e3 / max(int(steps.max()),
+                                                            1))
+    print(f"phase 6: one team per SM at stage1 (K2 and K4 37 shots, K5 74): "
+          f"us per step of the longest shot, layout excluded: K2 "
+          f"{chain['K2']['chain_us_per_step']:.3f}, K4 "
+          f"{chain['K4']['chain_us_per_step']:.3f} (a column), K5 "
+          f"{chain['K5']['chain_us_per_step']:.3f} (a double step); K5/K2 "
+          f"{chain['K5']['chain_us_per_step'] / chain['K2']['chain_us_per_step']:.3f}"
+          f"; kernel K2 {chain['K2']['kernel_ms']:.4f}, K4 "
+          f"{chain['K4']['kernel_ms']:.4f}, K5 {chain['K5']['kernel_ms']:.4f}"
+          f" ms", flush=True)
+    k45["chain"] = chain
+
+    # the device-memory branch forced at stage-1 width: bit-identical to the
+    # shared-memory launch
+    for key, kname, fn_k, _ in alts:
+        kw = dict(rank=dec.rank, return_steps=True)
+        ref = fn_k(Hp, residual, Kw, m, **kw)
+        saved_limit = osd_cuda._SMEM_LIMIT
+        osd_cuda._SMEM_LIMIT = 0
+        try:
+            a = fn_k(Hp, residual, Kw, m, **kw)
+            torch.cuda.synchronize()
+            for nm, x, y in zip(names, a, ref):
+                if not torch.equal(x, y):
+                    fail(f"phase 6: {kname}'s device-memory branch {nm} "
+                         "differs from its shared-memory launch (stage1)")
+            dm = elim_shape(Hp, residual, Kw, m, a[5], kname, rank=dec.rank)
+        finally:
+            osd_cuda._SMEM_LIMIT = saved_limit
+        k45[key]["stage1_device_memory"] = dm
+        print(f"phase 6: {kname} device-memory branch forced at stage1: "
+              f"every output identical to the shared-memory launch; "
+              + shape_line(dm), flush=True)
+
+    # K4 and K5 at [[288,12,18]], B=37 (phase 3's inputs): three row words
+    # a lane, device memory
+    for width, (Hp, Kw) in w288.items():
+        for key, kname, fn_k, plain in alts:
+            for exit_on_valid in (False, True):
+                a, _ = alt_exact(key, fn_k, plain, Hp, res288, Kw, m288,
+                                 f"{CODE_288} {width}",
+                                 exit_on_valid=exit_on_valid)
+            info = elim_shape(Hp, res288, Kw, m288, a[5], kname)
+            if info["columns_in"] != "device memory" or \
+                    info["words_per_lane"] != 3:
+                fail(f"phase 6: {kname} at {CODE_288} {width} took another "
+                     f"branch: {info}")
+            print(f"phase 6: {kname} at {CODE_288} {width} ({Hp.shape[1]} "
+                  f"words, B={BATCH_288}): exact with and without the validity"
+                  f" exit; steps mean {float(a[5].float().mean()):.1f} max "
+                  f"{int(a[5].max())}; " + shape_line(info), flush=True)
+    del w288
 
     # ---- phase 7: layered path (K3 + K2) ----
     fn_l = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, P, BATCH,
@@ -876,6 +970,43 @@ def main():
           f"per-iteration {brk['full_per_iter_ms']:.4f} ms, wrapper "
           f"postprocess {brk['postprocess_ms']:.3f} ms", flush=True)
 
+    # ---- phase 12: the main path's LER against matched JAX records ----
+    # run_simulation (flooding, K2, dynamical alpha, OSD order 2) to the
+    # records' error counts; |z| <= 3 with binomial sigma on both sides
+    for name, cycles, p, max_iter, target, ref_errs, ref_n, src in (
+            (CODE, CYCLES, P, 20, 200, 200, 1264, "VALIDATION.md:20"),
+            ("[[72, 12, 6]]", 6, 0.004, 50, 100, 100, 652,
+             "VALIDATION.md:102")):
+        c = qt.get_code(name)
+        reset_counts()
+        t0 = time.time()
+        r = qt.run_simulation(
+            c.Hx, c.Hz, c.Lx, c.Lz, p, num_cycles=cycles, maxIter=max_iter,
+            osd_order=OSD_ORDER, target_logical_errors=target,
+            max_trials=LER_MAX_TRIALS, batch_size=BATCH,
+            rounds_per_dispatch=RPD, base_seed=SEED,
+            precomputed_matrices=M if (name, p) == (CODE, P) else None,
+            verbose=False, ell=c.ell, m=c.m, a_x_powers=c.a_x_powers,
+            a_y_powers=c.a_y_powers, b_y_powers=c.b_y_powers,
+            b_x_powers=c.b_x_powers)
+        torch.cuda.synchronize()
+        cnt = counts()
+        ler, n = r["logical_error_rate"], r["num_trials"]
+        ref = ref_errs / ref_n
+        z = (ler - ref) / np.sqrt(ler * (1 - ler) / max(n, 1)
+                                  + ref * (1 - ref) / ref_n)
+        print(f"phase 12: {name} p={p} maxIter {max_iter}: LER {ler:.5f} "
+              f"({r['logical_errors']}/{n}) against the JAX record {ref:.4f} "
+              f"({ref_errs}/{ref_n}, {src}): z {z:+.2f}; "
+              f"{r['osd_rank_deficient_shots']} rank-deficient shot-bases; "
+              f"launches K1 {cnt['k1']} K2 {cnt['k2']}; "
+              f"{time.time() - t0:.1f} s", flush=True)
+        if cnt["k1"] <= 0 or cnt["k2"] <= 0:
+            fail(f"phase 12: run_simulation did not launch K1 and K2: {cnt}")
+        if r["logical_errors"] < target or abs(z) > 3:
+            fail(f"phase 12: {name} LER {ler:.5f} ({r['logical_errors']}/"
+                 f"{n}) is not within 3 sigma of the JAX record {ref:.4f}")
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -909,8 +1040,11 @@ def main():
             name=name, route="cuda", source=f"qldpc_tpu_torch/csrc/{src}",
             replaces=f"qldpc_tpu/ops/osd_pallas.py:{line}",
             launches=launches_v[key][key], max_abs_err=k45_err[key],
-            ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-            bound_by=st["bound_by"], library_ms=None))
+            ms=st["ms"], kernel_ms=st["shape"]["kernel_ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=None,
+            ms_by_width={w: k45[key][w]["ms"] for w in widths},
+            bound_ms_by_width={w: k2[w]["bound_ms"] for w in widths}))
     kernels += [
         dict(name="gather_iter_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/gather_iter.cu",

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, and loaded
 with ``ctypes``. Libraries land in ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+flags and every shared header of ``csrc/`` (``*.cuh``: the BP kernels
+include ``bp_lift_common.cuh``, the eliminators ``gf2_elim_common.cuh``), so
+an edited source or header rebuilds and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source at once.
 
 ``-fmad=false`` keeps every multiply and add separately rounded: the BP

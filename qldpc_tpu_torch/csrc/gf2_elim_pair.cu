@@ -1,5 +1,5 @@
 // Batched, swap-free, greedy GF(2) Gauss-Jordan elimination over bit-packed
-// columns, two shots per thread block advancing through one column loop.
+// columns, two shots through one team of warps.
 //
 // Replaces: qldpc_tpu/ops/osd_pallas.py::_elim_kernel_v3 (the pallas_call
 // in eliminate_blocks under QLDPC_OSD_KERNEL=3), which interleaves two
@@ -9,175 +9,321 @@
 // c < K in order, the pivot is the lowest unused row r < m with bit c set,
 // every other row with bit c set is XORed with the pivot row and the
 // residual syndrome follows; a shot stops when `rank` pivots are reached or
-// (exit_on_valid) when every unused row's residual is zero. Each shot keeps
-// its own column and exits on its own, so every output equals K2's.
+// (exit_on_valid) when every unused row's residual is zero. Each shot exits
+// on its own, so every output equals K2's.
 //
 // Bound on the H100 at the [[144,12,12]] main-path shapes (m = 1008 rows,
 // stage-1 8 words, prefix 40 words, full width 70 words): as K2, the matrix
-// must be read and written once, and the cost is the chain of dependent
-// column steps per shot, each ended by block barriers. Here one step serves
-// both shots of a block: two barriers per step (pivot choice, then the
-// exit flags of both shots, gathered with a shared atomicOr) instead of two
-// per shot-step, on half as many blocks. Layout as K2: words-major, rows on
-// threads, each thread holding the same rows of both shots. Two stage-1
-// matrices (2 x 32 KB) sit in shared memory; when two do not fit in the
-// 227 KB a block may hold, both run on their device-memory copies.
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+// is read and written once, and the cost is each shot's chain of dependent
+// column steps (a column read, a ballot, shuffles, the pivot row's reads
+// and ballots, the XORs, a team barrier), whose latency K2 leaves exposed.
+//
+// Design: K2's column-bitset layout and team of warps (gf2_elim_common.cuh),
+// with one team carrying two adjacent shots of the batch. The OSD sorts its
+// batch by BP residual weight, so neighbours tend to stop at similar depths.
+// Every warp keeps both shots' row state in registers (the rows < m are
+// shared). Both shots are at the same column while both run, so the loop
+// runs a double step: both columns' loads, both pivot searches and both
+// pivots' row updates issued branch-free (every ballot and shuffle for both
+// shots, so that the two chains interleave), both pivot rows' reads over
+// each of the warp's column groups issued together, and one XOR pass whose
+// batches of four columns draw from either shot; then one named barrier for
+// the pair, after which each pivot column's owner writes it as its pivot's
+// unit column. Once one shot stops, the other goes on alone through K2's
+// own column step (column_step), its row state swapped into slot 0, so a
+// stopped shot costs nothing. The last team of an odd batch carries one
+// shot. The pair's columns sit in shared memory where a team's two fit
+// (stage 1 at [[144]]), and otherwise on a per-team slab in device memory
+// of K2's layout; gf2_elim_pair_sizes reports which and its size.
+#include "gf2_elim_common.cuh"
 
-#define GF2_MAXR 4  // rows per thread: M <= 4 * blockDim.x
+namespace {
 
-__global__ void __launch_bounds__(1024)
-gf2_elim_pair_kernel(int* __restrict__ hp,        // (B, W, M) in/out
-                     int* __restrict__ s,         // (B, M) in/out
-                     int* __restrict__ colofrow,  // (B, M) out
-                     int* __restrict__ steps,     // (B) out: column steps
-                     int B, int W, int M, int m, int K, int rank,
-                     int full_jordan, int exit_on_valid, int use_smem) {
-  extern __shared__ int smem[];
-  // pivot slot per (step parity, shot); pending flags per step parity (bit
-  // h: shot h still has an unused row with a nonzero residual)
-  __shared__ int piv_slot[2][2];
-  __shared__ int pend[2];
-  const int b0 = 2 * blockIdx.x;
-  const int nshot = min(2, B - b0);
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  int* s_sm[2];
-  int* cf_sm[2];
-  int* H[2];
+// XOR e0 into the columns of shot 0 (H0) whose bit is set in m0, and e1
+// into those of shot 1 (H1) in m1, over one 32-column group (word offset
+// grp): four columns a batch from either shot, their loads issued together.
+template <int R>
+__device__ __forceinline__ void xor_columns_pair(
+    unsigned* H0, unsigned* H1, int grp, unsigned m0, unsigned m1,
+    const unsigned (&e0)[R], const unsigned (&e1)[R], int lane, int NR,
+    int S) {
+  while (m0 | m1) {
+    unsigned* cp[4];  // each picked column, nullptr for none
+    bool second[4];   // picked from shot 1
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int* base = smem + (size_t)h * (2 * M + (use_smem ? W * M : 0));
-    s_sm[h] = base;
-    cf_sm[h] = base + M;
-    int* hp_b = hp + (size_t)(b0 + h) * W * M;
-    H[h] = use_smem ? base + 2 * M : hp_b;
-  }
-  for (int h = 0; h < nshot; ++h) {
-    int* hp_b = hp + (size_t)(b0 + h) * W * M;
-    if (use_smem)
-      for (int i = tid; i < W * M; i += nt) H[h][i] = hp_b[i];
-    for (int r = tid; r < M; r += nt) {
-      s_sm[h][r] = s[(size_t)(b0 + h) * M + r];
-      cf_sm[h][r] = -1;
+    for (int u = 0; u < 4; ++u) {
+      second[u] = m0 == 0u;
+      const unsigned mk = second[u] ? m1 : m0;
+      cp[u] = mk ? (second[u] ? H1 : H0) + grp + (__ffs(mk) - 1) * S
+                 : nullptr;
+      if (second[u])
+        m1 &= m1 - 1u;
+      else
+        m0 &= m0 - 1u;
     }
-  }
-  if (tid < 4) piv_slot[tid >> 1][tid & 1] = INT_MAX;
-  if (tid < 2) pend[tid] = 0;
-  __syncthreads();
-
-  int done[2] = {1, 1};
+    unsigned x[4][R];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int nz = 0;
-    if (h < nshot && exit_on_valid)
-      for (int r = tid; r < m; r += nt) nz |= s_sm[h][r] != 0;
-    const int any = __syncthreads_or(nz);
-    done[h] = h >= nshot || K <= 0 || (exit_on_valid && !any);
-  }
-  int col[2] = {0, 0};
-  int npiv[2] = {0, 0};
-  for (int step = 0; !(done[0] && done[1]); ++step) {
-    const int slot = step & 1;
-    unsigned has_bit[2] = {0, 0};
+    for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (done[h]) continue;
-      const int w = col[h] >> 5;
-      const int bit = col[h] & 31;
-      int mine = INT_MAX;
-#pragma unroll
-      for (int k = 0; k < GF2_MAXR; ++k) {
-        const int r = tid + k * nt;
-        if (r < M && ((H[h][w * M + r] >> bit) & 1)) {
-          has_bit[h] |= 1u << k;
-          if (r < m && cf_sm[h][r] < 0 && r < mine) mine = r;
-        }
+      for (int k = 0; k < R; ++k) {
+        const int q = 32 * k + lane;
+        x[u][k] = (cp[u] && (k < R - 1 || q < NR)) ? cp[u][q] : 0u;
       }
-      const int wmin = __reduce_min_sync(0xffffffffu, mine);
-      if ((tid & 31) == 0 && wmin != INT_MAX)
-        atomicMin(&piv_slot[slot][h], wmin);
-    }
-    // the other parity's slots were last read before the previous step's
-    // closing barrier: reset them for the next step
-    if (tid < 2) piv_slot[slot ^ 1][tid] = INT_MAX;
-    __syncthreads();
-    // the other parity's flags were last read right after the previous
-    // step's closing barrier, which every thread has left by now
-    if (tid == 0) pend[slot ^ 1] = 0;
-    int pending = 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (done[h]) continue;
-      const int c = col[h];
-      const int piv = piv_slot[slot][h];
-      if (piv != INT_MAX) {
-        const int w0 = full_jordan ? 0 : c >> 5;
-        const int ps = s_sm[h][piv];
-        int* Hh = H[h];
+    for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int k = 0; k < GF2_MAXR; ++k) {
-          const int r = tid + k * nt;
-          if (((has_bit[h] >> k) & 1) && r != piv) {
-            for (int j = w0; j < W; ++j) Hh[j * M + r] ^= Hh[j * M + piv];
-            s_sm[h][r] ^= ps;
-          }
-        }
-        if (piv % nt == tid) cf_sm[h][piv] = c;
-        ++npiv[h];
+      for (int k = 0; k < R; ++k) {
+        const int q = 32 * k + lane;
+        if (cp[u] && (k < R - 1 || q < NR))
+          cp[u][q] = x[u][k] ^ (second[u] ? e1[k] : e0[k]);
       }
-      if (exit_on_valid) {
-        int p = 0;
-        for (int r = tid; r < m; r += nt) p |= cf_sm[h][r] < 0 && s_sm[h][r];
-        pending |= p << h;
-      }
-    }
-    const int wp = __reduce_or_sync(0xffffffffu, pending);
-    if ((tid & 31) == 0 && wp) atomicOr(&pend[slot], wp);
-    __syncthreads();  // step barrier
-    const int flags = pend[slot];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (done[h]) continue;
-      ++col[h];
-      if (npiv[h] >= rank || (exit_on_valid && !((flags >> h) & 1))
-          || col[h] >= K)
-        done[h] = 1;
-    }
-  }
-
-  for (int h = 0; h < nshot; ++h) {
-    int* hp_b = hp + (size_t)(b0 + h) * W * M;
-    if (use_smem)
-      for (int i = tid; i < W * M; i += nt) hp_b[i] = H[h][i];
-    for (int r = tid; r < M; r += nt) {
-      s[(size_t)(b0 + h) * M + r] = s_sm[h][r];
-      colofrow[(size_t)(b0 + h) * M + r] = cf_sm[h][r];
-    }
-    if (tid == 0) steps[b0 + h] = col[h];
   }
 }
 
-extern "C" int gf2_elim_pair_launch(int* hp, int* s, int* colofrow,
-                                    int* steps, int B, int W, int M, int m,
-                                    int K, int rank, int full_jordan,
-                                    int exit_on_valid, int threads,
-                                    int smem_limit, void* stream) {
-  const size_t small = (size_t)2 * 2 * M * sizeof(int);
-  const size_t full = small + (size_t)2 * W * M * sizeof(int);
-  const int use_smem = full <= (size_t)smem_limit;
-  const size_t smem = use_smem ? full : small;
-  cudaError_t err = cudaFuncSetAttribute(
-      gf2_elim_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0) {
-    gf2_elim_pair_kernel<<<(B + 1) / 2, threads, smem,
-                           (cudaStream_t)stream>>>(
-        hp, s, colofrow, steps, B, W, M, m, K, rank, full_jordan,
-        exit_on_valid, use_smem);
+// Exchange two shots' row state (registers: no indexing by shot).
+template <int R>
+__device__ __forceinline__ void swap_rows(unsigned (&a)[R], unsigned (&b)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const unsigned x = a[k];
+    a[k] = b[k];
+    b[k] = x;
   }
-  return (int)cudaGetLastError();
+}
+
+template <int R, bool kDev>
+__global__ void __launch_bounds__(max_block_threads(R, true), 1)
+gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
+                     int* __restrict__ hp_out,       // (B, W, M)
+                     const int* __restrict__ s_in,   // (B, M)
+                     int* __restrict__ s_out,        // (B, M)
+                     int* __restrict__ colofrow,     // (B, M)
+                     int* __restrict__ steps,        // (B): column steps
+                     unsigned* __restrict__ slab,    // (teams, 2 shots)
+                     int B, int W, int M, int m, int K, int rank,
+                     int full_jordan, int exit_on_valid, int spb, int T,
+                     int S) {
+  extern __shared__ unsigned smem[];
+  const int lane = threadIdx.x & 31;
+  const int team = (threadIdx.x >> 5) / T;
+  const int t = (threadIdx.x >> 5) - team * T;  // warp in the team
+  const int pair = blockIdx.x * spb + team;
+  const int b0 = 2 * pair;  // the team's shots: b0, and b0 + 1 if < B
+  if (b0 >= B) return;      // the whole team; no block barrier follows
+  const int nshot = b0 + 1 < B ? 2 : 1;
+  const int NR = (M + 31) >> 5;
+  const int shot_words = 32 * W * S;
+  unsigned* H[2];
+  H[0] = kDev ? slab + (size_t)pair * 2 * shot_words
+              : smem + (size_t)team * 2 * shot_words;
+  H[1] = H[0] + shot_words;
+
+  unsigned used[2][R], sres[2][R], valid[R];
+  valid_rows(valid, m, lane);
+  bool done[2];
+  int nstep[2] = {0, 0};  // column steps each shot ran
+  int npiv[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h < nshot) {
+      const size_t b = b0 + h;
+      load_columns(H[h], (const unsigned*)hp_in + b * W * M, W, M, NR, S, t,
+                   T, lane);
+      load_rows(s_in + b * M, M, NR, used[h], sres[h], lane);
+      if (t == 0)
+        for (int r = lane; r < M; r += 32) colofrow[b * M + r] = -1;
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) used[h][k] = sres[h][k] = 0u;
+    }
+  }
+  team_sync(team, T);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    done[h] = h >= nshot ||
+              (exit_on_valid && !pending(sres[h], used[h], valid));
+
+  int col = 0;
+  int gc_mod = 0;   // (col / 32) mod T: warp gc_mod owns column col
+  int g_first = t;  // this warp's first group at or after the pivot's word
+  // double steps while both shots run
+  for (; col < K && !done[0] && !done[1]; ++col) {
+    const int gc = col >> 5;
+    if (col > 0 && (col & 31) == 0) {  // a new group: no division by T
+      if (++gc_mod == T) gc_mod = 0;
+      if (!full_jordan && g_first < gc) g_first += T;
+    }
+    // both columns' words, then both pivot searches, branch-free: every
+    // load, ballot and shuffle is issued for both shots, so that the two
+    // chains interleave
+    unsigned cw[2][R];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) read_column(H[h] + col * S, cw[h], lane, NR);
+    int pq[2] = {-1, -1};         // the pivot's row word, -1 for none
+    unsigned pbit[2] = {0u, 0u};  // its bit in that word
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      unsigned cand[2], bal[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cand[h] = cw[h][k] & ~used[h][k] & valid[k];
+        bal[h] = __ballot_sync(kFull, cand[h] != 0u);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int L = __ffs(bal[h]) - 1;
+        const unsigned c = __shfl_sync(kFull, cand[h], L & 31);
+        if (pq[h] < 0 && bal[h]) {
+          pq[h] = 32 * k + L;
+          pbit[h] = c & (0u - c);
+        }
+      }
+    }
+    // both pivots' steps on the row state, predicated (pbit 0 for none)
+    int pr[2], pqc[2];  // the pivot's bit; its row word, 0 for none
+    unsigned ps[2];     // the pivot row's residual bit
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ++nstep[h];
+      pr[h] = (__ffs(pbit[h]) - 1) & 31;
+      pqc[h] = pq[h] < 0 ? 0 : pq[h];
+      const bool owner = lane == (pqc[h] & 31);
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (owner && k == (pqc[h] >> 5)) cw[h][k] &= ~pbit[h];  // its elim
+      ps[h] = (row_word(sres[h], pqc[h]) >> pr[h]) & (pq[h] >= 0);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool owner = lane == (pqc[h] & 31);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (ps[h]) sres[h][k] ^= cw[h][k];
+        if (owner && k == (pqc[h] >> 5)) used[h][k] |= pbit[h];
+      }
+      if (t == 0 && owner && pq[h] >= 0)
+        colofrow[(size_t)(b0 + h) * M + 32 * pq[h] + pr[h]] = col;
+      npiv[h] += pq[h] >= 0;
+    }
+    // both pivot rows' bits over this warp's groups from the pivot's word
+    // on, two groups a batch (four reads issued together); column col is
+    // left to the unit writes after the barrier, as in K2
+    if (pq[0] >= 0 || pq[1] >= 0) {
+      for (int g = g_first; g < W; g += 2 * T) {
+        int base[2];
+        unsigned masks[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int gg = g + u * T;
+          base[u] = 32 * (gg < W ? gg : g) * S;  // in range: no branch
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned bit =
+                (H[h][base[u] + lane * S + pqc[h]] >> pr[h]) & 1u;
+            masks[h][u] = __ballot_sync(kFull, pq[h] >= 0 && gg < W && bit);
+            if (gg == gc) masks[h][u] &= ~(1u << (col & 31));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          xor_columns_pair<R>(H[0], H[1], base[u], masks[0][u], masks[1][u],
+                              cw[0], cw[1], lane, NR, S);
+      }
+    }
+    // each shot's exit, from registers alone, before the barrier
+    bool pend[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) pend[h] = pending(sres[h], used[h], valid);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      done[h] = npiv[h] >= rank || (exit_on_valid && !pend[h]);
+    team_sync(team, T);
+    if (gc_mod == t) {  // after the barrier: no warp reads column col again
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        write_unit<R>(H[h] + col * S, pq[h], pbit[h], lane, NR);
+      __syncwarp();
+    }
+  }
+  // the shot still running, if any, goes on alone through K2's column
+  // step, its row state moved to slot 0
+  const bool moved = done[0];  // shot 1 goes on alone
+  if (moved) {
+    swap_rows(used[0], used[1]);
+    swap_rows(sres[0], sres[1]);
+  }
+  {
+    unsigned* H0 = moved ? H[1] : H[0];
+    int* cf = colofrow + (size_t)(b0 + moved) * M;
+    int np = moved ? npiv[1] : npiv[0];
+    int ns = moved ? nstep[1] : nstep[0];
+    bool d = done[0] && done[1];
+    for (; col < K && !d; ++col) {
+      if (col > 0 && (col & 31) == 0) {
+        if (++gc_mod == T) gc_mod = 0;
+        if (!full_jordan && g_first < (col >> 5)) g_first += T;
+      }
+      ++ns;
+      d = column_step(H0, col, g_first, gc_mod, W, NR, S, used[0], sres[0],
+                      valid, np, cf, rank, exit_on_valid, team, t, T, lane);
+    }
+    if (moved)
+      nstep[1] = ns;
+    else
+      nstep[0] = ns;
+  }
+  if (moved) swap_rows(sres[0], sres[1]);  // the residuals go out by shot
+  team_sync(team, T);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h < nshot) {
+      const size_t b = b0 + h;
+      store_columns(H[h], (unsigned*)hp_out + b * W * M, W, M, NR, S, t, T,
+                    lane);
+      if (t == 0) {
+        store_rows(sres[h], s_out + b * M, M, NR, lane);
+        if (lane == 0) steps[b] = nstep[h];
+      }
+    }
+  }
+}
+
+GF2_PICK(gf2_elim_pair_kernel)
+
+Plan plan(int B, int W, int M, int smem_limit, int sms) {
+  return make_plan(B, W, M, smem_limit, sms, 2, true);
+}
+
+}  // namespace
+
+// One team's (two shots') column bytes, the column stride in words, the
+// row words a lane holds, and 1 when the columns go to a device-memory slab
+// of ceil(B / 2) times out[0] bytes, for W words by M rows: out[0..3].
+extern "C" int gf2_elim_pair_sizes(int W, int M, int smem_limit,
+                                   long long* out) {
+  return plan_sizes(plan(2, W, M, smem_limit, 1), out);
+}
+
+// The launch of B shots of W words by M rows: registers and local (spill)
+// bytes a thread, shots a block, dynamic shared memory a block, 1 on the
+// device-memory branch, blocks, blocks resident per SM, and warps a team
+// of two shots: out[0..7].
+extern "C" int gf2_elim_pair_info(int B, int W, int M, int smem_limit,
+                                  int* out) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count());
+  return plan_info(p, pick(p.R, p.dev), 2, out);
+}
+
+extern "C" int gf2_elim_pair_launch(const int* hp_in, int* hp_out,
+                                    const int* s_in, int* s_out,
+                                    int* colofrow, int* steps, void* slab,
+                                    int B, int W, int M, int m, int K,
+                                    int rank, int full_jordan,
+                                    int exit_on_valid, int smem_limit,
+                                    void* stream) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count());
+  return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
+                     colofrow, steps, slab, B, W, M, m, K, rank, full_jordan,
+                     exit_on_valid, stream);
 }

@@ -10,11 +10,18 @@ package reads it, and set on this module to switch at run time:
        of warps per shot over column bitsets, exit tested after every
        column.
   2 -> ``eliminate_blocks_fused``: kernel K4 (``csrc/gf2_elim_fused.cu``),
-       four pivots chosen per fused tail update, exit tested once per
-       4-column group.
+       K2's layout, four pivots per team barrier and one fused tail pass
+       per 4-column group, exit tested once per group.
   3 -> ``eliminate_blocks_pair``: kernel K5 (``csrc/gf2_elim_pair.cu``),
-       two shots per thread block advancing through one column loop, each
-       exiting on its own.
+       K2's layout, two shots through one team of warps, each exiting on
+       its own.
+
+All three share the column-bitset layout, the plan and the host entry
+points (``csrc/gf2_elim_common.cuh``) and one Python launch path
+(:func:`prepare_elim_launch`): a device-memory slab where a team's columns
+exceed ``_SMEM_LIMIT``, a ``torch.profiler`` range per launch named with
+the kernel and the width (``K2_RANGE``, ``K4_RANGE``, ``K5_RANGE``), and
+the launch count on the wrapper.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 plain version on a CPU tensor: ``eliminate_blocks_plain`` for K2 and K5
@@ -43,10 +50,15 @@ import torch
 from .. import _kernels
 
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024  # dynamic bytes a block takes
-_MAX_ROWS_PER_THREAD = 4     # GF2_MAXR in csrc/gf2_elim_{fused,pair}.cu
-_K2_MAX_ROWS = 32 * 32 * 4   # 32 lanes x GF2_MAXR words of 32 rows (K2)
+_MAX_ROWS = 32 * 32 * 4      # 32 lanes x GF2_MAXR words of 32 rows
 _FUSED_GROUP = 4             # columns per K4 group (GF2_GROUP)
-K2_RANGE = "K2 launch"       # profiler range of each K2 launch, by width
+# profiler range of each launch, named with the width, by kernel
+K2_RANGE, K4_RANGE, K5_RANGE = "K2 launch", "K4 launch", "K5 launch"
+# each kernel's library (csrc/<name>.cu, exporting <name>_launch, _sizes and
+# _info), the shots a team carries, and its profiler range
+_ELIM_KERNELS = {"K2": ("gf2_elim", 1, K2_RANGE),
+                 "K4": ("gf2_elim_fused", 1, K4_RANGE),
+                 "K5": ("gf2_elim_pair", 2, K5_RANGE)}
 
 # Eliminator generation, as osd_pallas._KERNEL_VERSION in the JAX package.
 _KERNEL_VERSION = int(os.environ.get("QLDPC_OSD_KERNEL", "1"))
@@ -95,35 +107,18 @@ def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
     return fn(Hp, s, K, m, rank, full_jordan, exit_on_valid, return_steps)
 
 
-def _launch(wrapper, lib_name: str, fn_name: str, plain, Hp, s, K, m, rank,
-            full_jordan, exit_on_valid, return_steps):
-    """Shared body of the K4 and K5 wrappers: the plain version on a CPU
-    tensor, else one launch of ``fn_name`` from ``csrc/<lib_name>.cu``
-    (same C signature for both kernels), counted on ``wrapper``."""
+def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
+         return_steps):
+    """Shared body of the three wrappers: the plain version on a CPU
+    tensor, else one launch of ``kernel``."""
     _check_inputs(Hp, s, K, m)
     if Hp.device.type == "cpu":
         return plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
                      return_steps)
-    if Hp.device.type != "cuda":
-        raise ValueError(f"unsupported device {Hp.device}")
-    B, W, M = Hp.shape
-    threads = min(1024, max(32, -(-M // 32) * 32))
-    if M > threads * _MAX_ROWS_PER_THREAD:
-        raise ValueError(f"M={M} rows exceed the kernel's "
-                         f"{threads * _MAX_ROWS_PER_THREAD}")
-    out_hp = Hp.to(torch.int32).contiguous().clone()
-    out_s = s.to(device=Hp.device, dtype=torch.int32).contiguous().clone()
-    cf = torch.empty((B, M), dtype=torch.int32, device=Hp.device)
-    steps = torch.empty((B,), dtype=torch.int32, device=Hp.device)
-    code = getattr(_lib(lib_name), fn_name)(
-        out_hp.data_ptr(), out_s.data_ptr(), cf.data_ptr(), steps.data_ptr(),
-        B, W, M, m, K, m if rank is None else rank, int(full_jordan),
-        int(exit_on_valid), threads, _SMEM_LIMIT,
-        _kernels.stream_ptr(Hp.device))
-    _kernels.check(code, fn_name)
-    wrapper.launches += 1
-    out = (out_hp, out_s, prow_of_col_from(cf, K), cf >= 0, cf)
-    return out + (steps,) if return_steps else out
+    launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
+                                         exit_on_valid, kernel=kernel)
+    launch()
+    return finish(return_steps)
 
 
 def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
@@ -133,32 +128,61 @@ def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
     column bitsets); arguments and outputs as :func:`eliminate_blocks`. s
     holds 0/1 bits. ``eliminate_blocks_v1.launches`` counts the kernel
     launches."""
-    _check_inputs(Hp, s, K, m)
-    if Hp.device.type == "cpu":
-        return eliminate_blocks_plain(Hp, s, K, m, rank, full_jordan,
-                                      exit_on_valid, return_steps)
-    launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
-                                         exit_on_valid)
-    launch()
-    return finish(return_steps)
+    return _run("K2", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
+                exit_on_valid, return_steps)
+
+
+def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,
+                           full_jordan: bool = False,
+                           exit_on_valid: bool = True,
+                           return_steps: bool = False):
+    """Kernel K4 (``csrc/gf2_elim_fused.cu``): K2's column steps four
+    pivots per team barrier, the tail columns updated in one fused pass per
+    4-column group, the exit tested once per group.
+    ``eliminate_blocks_fused.launches`` counts the kernel launches."""
+    return _run("K4", eliminate_blocks_fused_plain, Hp, s, K, m, rank,
+                full_jordan, exit_on_valid, return_steps)
+
+
+def eliminate_blocks_pair(Hp, s, K: int, m: int, rank: int = None,
+                          full_jordan: bool = False,
+                          exit_on_valid: bool = True,
+                          return_steps: bool = False):
+    """Kernel K5 (``csrc/gf2_elim_pair.cu``): K2's per-shot function with
+    two shots through one team of warps; every output equals K2's.
+    ``eliminate_blocks_pair.launches`` counts the kernel launches."""
+    return _run("K5", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
+                exit_on_valid, return_steps)
+
+
+for _fn in (eliminate_blocks_v1, eliminate_blocks_fused,
+            eliminate_blocks_pair):
+    _fn.launches = 0
+_ELIMINATORS = {1: eliminate_blocks_v1, 2: eliminate_blocks_fused,
+                3: eliminate_blocks_pair}
+_WRAPPERS = {"K2": eliminate_blocks_v1, "K4": eliminate_blocks_fused,
+             "K5": eliminate_blocks_pair}
 
 
 def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False,
-                        exit_on_valid: bool = True):
-    """K2 on CUDA tensors, prepared but not launched: input casts, output
-    and slab allocation, library load. Returns (launch, finish): each
-    ``launch()`` runs the kernel once from the unchanged inputs (it writes
-    its outputs apart from them), inside a ``torch.profiler`` range named
-    ``K2_RANGE`` with the width, and counts it on ``eliminate_blocks_v1``;
-    ``finish(return_steps)`` gives :func:`eliminate_blocks`'s outputs. A
-    caller can so time the kernel alone."""
+                        exit_on_valid: bool = True, kernel: str = "K2"):
+    """``kernel`` (K2, K4 or K5) on CUDA tensors, prepared but not
+    launched: input casts, output and slab allocation, library load.
+    Returns (launch, finish): each ``launch()`` runs the kernel once from
+    the unchanged inputs (it writes its outputs apart from them), inside a
+    ``torch.profiler`` range named by the kernel's ``*_RANGE`` with the
+    width, and counts it on the kernel's wrapper; ``finish(return_steps)``
+    gives :func:`eliminate_blocks`'s outputs. A caller can so time the
+    kernel alone."""
     _check_inputs(Hp, s, K, m)
     if Hp.device.type != "cuda":
         raise ValueError(f"unsupported device {Hp.device}")
     B, W, M = Hp.shape
-    if M > _K2_MAX_ROWS:
-        raise ValueError(f"M={M} rows exceed the kernel's {_K2_MAX_ROWS}")
+    if M > _MAX_ROWS:
+        raise ValueError(f"M={M} rows exceed the kernel's {_MAX_ROWS}")
+    name, spt, label = _ELIM_KERNELS[kernel]
+    wrapper = _WRAPPERS[kernel]
     dev = Hp.device
     hp_in = Hp.to(torch.int32).contiguous()
     s_in = s.to(device=dev, dtype=torch.int32).contiguous()
@@ -166,16 +190,15 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
     s_out = torch.empty_like(s_in)
     cf = torch.empty((B, M), dtype=torch.int32, device=dev)
     steps = torch.empty((B,), dtype=torch.int32, device=dev)
-    sizes = elim_sizes(W, M)
+    sizes = elim_sizes(W, M, kernel)
     slab = None
     if sizes["device_memory"]:  # the kernel's rule: the columns in a slab
-        slab = torch.empty((B, sizes["shot_bytes"]), dtype=torch.uint8,
-                           device=dev)
-    fn = _k2_lib().gf2_elim_launch
+        slab = torch.empty((-(-B // spt), sizes["team_bytes"]),
+                           dtype=torch.uint8, device=dev)
+    fn = getattr(_lib(name), f"{name}_launch")
     args = (B, W, M, m, K, m if rank is None else rank, int(full_jordan),
             int(exit_on_valid), _SMEM_LIMIT)
-    label = f"{K2_RANGE}: {W} words" + (", full_jordan" if full_jordan
-                                        else "")
+    label = f"{label}: {W} words" + (", full_jordan" if full_jordan else "")
 
     def launch():
         # the inputs and the slab stay referenced by this closure
@@ -184,8 +207,8 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
                       s_out.data_ptr(), cf.data_ptr(), steps.data_ptr(),
                       None if slab is None else slab.data_ptr(), *args,
                       _kernels.stream_ptr(dev))
-        _kernels.check(code, "gf2_elim_launch")
-        eliminate_blocks_v1.launches += 1
+        _kernels.check(code, f"{name}_launch")
+        wrapper.launches += 1
 
     def finish(return_steps: bool = False):
         out = (hp_out, s_out, prow_of_col_from(cf, K), cf >= 0, cf)
@@ -194,90 +217,57 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
     return launch, finish
 
 
-def _k2_lib():
-    lib = _kernels.load("gf2_elim")
-    if not lib.gf2_elim_launch.argtypes:
+def _lib(name: str):
+    """``csrc/<name>.cu``'s library with its three entry points typed."""
+    lib = _kernels.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if not launch.argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.gf2_elim_launch.argtypes = [P] * 7 + [I] * 9 + [P]
-        lib.gf2_elim_launch.restype = I
-        lib.gf2_elim_sizes.argtypes = [I, I, I, P]
-        lib.gf2_elim_sizes.restype = I
-        lib.gf2_elim_info.argtypes = [I] * 4 + [P]
-        lib.gf2_elim_info.restype = I
+        launch.argtypes = [P] * 7 + [I] * 9 + [P]
+        launch.restype = I
+        sizes = getattr(lib, f"{name}_sizes")
+        sizes.argtypes = [I, I, I, P]
+        sizes.restype = I
+        info = getattr(lib, f"{name}_info")
+        info.argtypes = [I] * 4 + [P]
+        info.restype = I
     return lib
 
 
-def elim_sizes(W: int, M: int) -> dict:
-    """K2's layout of one shot of W words by M rows, as csrc/gf2_elim.cu
-    reports it: its column bytes (the device-memory slab takes this much a
-    shot), the column stride in words, the row words a lane holds, and
-    whether the columns go to the device-memory slab (they exceed
-    ``_SMEM_LIMIT``)."""
+def elim_sizes(W: int, M: int, kernel: str = "K2") -> dict:
+    """``kernel``'s layout of one shot of W words by M rows, as its source
+    reports it: the column bytes of a shot and of a team (the shots the
+    kernel runs through one team of warps; the device-memory slab takes a
+    team's bytes a team), the column stride in words, the row words a lane
+    holds, and whether the columns go to the device-memory slab (a team's
+    exceed ``_SMEM_LIMIT``)."""
+    name, spt, _ = _ELIM_KERNELS[kernel]
     out = (ctypes.c_longlong * 4)()
-    _kernels.check(_k2_lib().gf2_elim_sizes(W, M, _SMEM_LIMIT, out),
-                   "gf2_elim_sizes")
-    return dict(shot_bytes=out[0], column_stride=out[1],
+    _kernels.check(getattr(_lib(name), f"{name}_sizes")(W, M, _SMEM_LIMIT,
+                                                         out),
+                   f"{name}_sizes")
+    return dict(shot_bytes=out[0] // spt, team_bytes=out[0],
+                shots_per_team=spt, column_stride=out[1],
                 words_per_lane=out[2], device_memory=bool(out[3]))
 
 
-def elim_launch_info(B: int, W: int, M: int, device) -> dict:
-    """K2's shape on the card for B shots of W words by M rows: registers
-    and spilled bytes a thread, column bytes a shot and where they live,
-    warps a shot, shots a block, shared memory a block, blocks, and blocks
-    and shots resident per SM."""
+def elim_launch_info(B: int, W: int, M: int, device,
+                     kernel: str = "K2") -> dict:
+    """``kernel``'s shape on the card for B shots of W words by M rows:
+    registers and spilled bytes a thread, column bytes a shot and where
+    they live, warps a team and shots a team, shots a block, shared memory
+    a block, blocks, and blocks and shots resident per SM."""
+    name, _, _ = _ELIM_KERNELS[kernel]
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(device):
-        _kernels.check(_k2_lib().gf2_elim_info(B, W, M, _SMEM_LIMIT, out),
-                       "gf2_elim_info")
-    return dict(elim_sizes(W, M), registers=out[0], local_bytes=out[1],
-                shots_per_block=out[2], smem_bytes=out[3],
+        _kernels.check(getattr(_lib(name), f"{name}_info")(
+            B, W, M, _SMEM_LIMIT, out), f"{name}_info")
+    return dict(elim_sizes(W, M, kernel), registers=out[0],
+                local_bytes=out[1], shots_per_block=out[2],
+                smem_bytes=out[3],
                 columns_in="device memory" if out[4] else "shared memory",
                 warps_per_shot=out[7], blocks=out[5], blocks_per_sm=out[6],
                 shots_per_sm=out[6] * out[2])
-
-
-def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,
-                           full_jordan: bool = False,
-                           exit_on_valid: bool = True,
-                           return_steps: bool = False):
-    """Kernel K4 (``csrc/gf2_elim_fused.cu``): K2's function with the
-    pivots of each 4-column group chosen one after another on their word
-    and applied to the remaining words in one fused pass, the exit tested
-    once per group. ``eliminate_blocks_fused.launches`` counts the kernel
-    launches."""
-    return _launch(eliminate_blocks_fused, "gf2_elim_fused",
-                   "gf2_elim_fused_launch", eliminate_blocks_fused_plain,
-                   Hp, s, K, m, rank, full_jordan, exit_on_valid,
-                   return_steps)
-
-
-def eliminate_blocks_pair(Hp, s, K: int, m: int, rank: int = None,
-                          full_jordan: bool = False,
-                          exit_on_valid: bool = True,
-                          return_steps: bool = False):
-    """Kernel K5 (``csrc/gf2_elim_pair.cu``): K2's per-shot function with
-    two shots per thread block; every output equals K2's.
-    ``eliminate_blocks_pair.launches`` counts the kernel launches."""
-    return _launch(eliminate_blocks_pair, "gf2_elim_pair",
-                   "gf2_elim_pair_launch", eliminate_blocks_plain, Hp, s, K,
-                   m, rank, full_jordan, exit_on_valid, return_steps)
-
-
-for _fn in (eliminate_blocks_v1, eliminate_blocks_fused,
-            eliminate_blocks_pair):
-    _fn.launches = 0
-_ELIMINATORS = {1: eliminate_blocks_v1, 2: eliminate_blocks_fused,
-                3: eliminate_blocks_pair}
-
-
-def _lib(name: str):
-    lib = _kernels.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if not fn.argtypes:
-        P = ctypes.c_void_p
-        fn.argtypes = [P] * 4 + [ctypes.c_int] * 10 + [P]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,

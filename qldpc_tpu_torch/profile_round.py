@@ -9,10 +9,11 @@ order 2) and reports, for a few steady dispatches:
   dispatch;
 * the device's busy share and time per kernel name from ``torch.profiler``
   over whole dispatches;
-* with eliminator K2 (``--osd-kernel 1``), K2's launches and device time
-  per dispatch at each width the OSD runs it at, from the profiler range
-  K2's wrapper opens around each launch (``osd_cuda.K2_RANGE``, named by
-  the width in words and ``full_jordan``).
+* the eliminator's launches and device time per dispatch at each width
+  the OSD runs it at, from the profiler range its wrapper opens around each
+  launch (``osd_cuda.K2_RANGE``, ``K4_RANGE`` or ``K5_RANGE`` for
+  ``--osd-kernel`` 1, 2 or 3, named by the width in words and
+  ``full_jordan``).
 
 Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
@@ -132,19 +133,21 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = (time.time() - t0) / args.dispatches
     kernels = {}
-    k2_widths = {}  # K2's ranges: launches (host side), device ms
+    elim = {1: "K2", 2: "K4", 3: "K5"}[args.osd_kernel]
+    elim_range = osd_cuda._ELIM_KERNELS[elim][2]
+    widths = {}  # the eliminator's ranges: launches (host side), device ms
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0.0)
         on_device = ev.device_type is not None and \
             str(ev.device_type).endswith("CUDA")
-        if ev.key.startswith(osd_cuda.K2_RANGE):
+        if ev.key.startswith(elim_range):
             # the host range holds its launches' kernels; a device-side
             # annotation of the same range, where the profiler makes one,
             # spans them: either gives the range's device time
-            r = k2_widths.setdefault(ev.key[len(osd_cuda.K2_RANGE) + 2:],
-                                     dict(launches=0.0, ms=0.0))
+            r = widths.setdefault(ev.key[len(elim_range) + 2:],
+                                  dict(launches=0.0, ms=0.0))
             if not on_device:
                 r["launches"] += ev.count / args.dispatches
             r["ms"] = max(r["ms"], dt / 1e3 / args.dispatches)
@@ -162,7 +165,7 @@ def main(argv=None):
         staged_dispatch_ms=staged_wall * 1e3, stage_ms=stages,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
         kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top},
-        k2_by_width=k2_widths or None)
+        eliminator=elim, elim_by_width=widths or None)
     print(f"card: {smi}")
     print(f"dispatch {wall * 1e3:.1f} ms ({shots / wall:.0f} shots/s); "
           f"device busy {busy_ms:.1f} ms, idle share "
@@ -172,10 +175,12 @@ def main(argv=None):
         + f"; staged dispatch wall {staged_wall * 1e3:.1f} ms")
     for k, v in top:
         print(f"  {v / args.dispatches:9.3f} ms  {k[:90]}")
-    if k2_widths:
-        print("K2 per dispatch by width (launches, device ms): " + "; ".join(
-            f"{w} {r['launches']:.1f}, {r['ms']:.3f}"
-            for w, r in k2_widths.items()))
+    if widths:
+        print(f"{elim} per dispatch by width (launches, device ms): "
+              + "; ".join(f"{w} {r['launches']:.1f}, {r['ms']:.3f}"
+                          for w, r in widths.items())
+              + f"; total {sum(r['launches'] for r in widths.values()):.1f},"
+              f" {sum(r['ms'] for r in widths.values()):.3f}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

@@ -142,41 +142,43 @@ def _elim_equal(a, b):
         assert torch.equal(x, y), name
 
 
-@pytest.mark.parametrize("exit_on_valid", [False, True])
-@pytest.mark.parametrize("B", [1, 37])
-def test_elim_kernel_batches(cuda, bundles, B, exit_on_valid):
-    """One shot, and a batch that is no multiple of the shots a block
-    holds, at the prefix width."""
-    dec, Hp, s = _elim_case(cuda, bundles, B, 7, 512)
-    kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid, return_steps=True)
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, 512, Hp.shape[2], **kw)
+# each eliminator's wrapper and the plain version it must equal
+_ELIM = {"K2": (osd_cuda.eliminate_blocks_v1, osd_cuda.eliminate_blocks_plain),
+         "K4": (osd_cuda.eliminate_blocks_fused,
+                osd_cuda.eliminate_blocks_fused_plain),
+         "K5": (osd_cuda.eliminate_blocks_pair,
+                osd_cuda.eliminate_blocks_plain)}
+
+
+def _elim_against_plain(kernel, Hp, s, K, m, **kw):
+    """``kernel`` against its plain version on every output; returns the
+    kernel's outputs."""
+    fn, plain = _ELIM[kernel]
+    before = fn.launches
+    a = fn(Hp, s, K, m, return_steps=True, **kw)
     torch.cuda.synchronize()
-    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 512, Hp.shape[2],
-                                                   **kw))
+    assert fn.launches == before + 1
+    _elim_equal(a, plain(Hp, s, K, m, return_steps=True, **kw))
+    return a
 
 
-def test_elim_kernel_shots_exit_apart(cuda, bundles):
-    """Shots of one block stop at very different steps: zero residuals at
-    step 0, syndromes of sampled errors early, random syndromes (mostly
-    outside the column span) only at the rank or the last column."""
+def _batches(cuda, bundles, kernel, B, exit_on_valid):
+    dec, Hp, s = _elim_case(cuda, bundles, B, 7, 512)
+    _elim_against_plain(kernel, Hp, s, 512, Hp.shape[2], rank=dec.rank,
+                        exit_on_valid=exit_on_valid)
+
+
+def _shots_exit_apart(cuda, bundles, kernel):
     dec, Hp, s = _elim_case(cuda, bundles, 48, 8, 512)
     rng = np.random.default_rng(8)
     s[::3] = 0
     s[1::3] = torch.as_tensor(rng.integers(0, 2, s[1::3].shape),
                               device=cuda, dtype=torch.int32)
-    kw = dict(rank=dec.rank, return_steps=True)
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, 512, Hp.shape[2], **kw)
-    torch.cuda.synchronize()
-    b = osd_cuda.eliminate_blocks_plain(Hp, s, 512, Hp.shape[2], **kw)
-    _elim_equal(a, b)
-    steps = b[5]
-    assert steps.min() == 0 and steps.max() >= dec.rank
+    a = _elim_against_plain(kernel, Hp, s, 512, Hp.shape[2], rank=dec.rank)
+    assert a[5].min() == 0 and a[5].max() >= dec.rank
 
 
-@pytest.mark.parametrize("exit_on_valid", [False, True])
-def test_elim_kernel_ragged_rows_past_m(cuda, bundles, exit_on_valid):
-    """M = m + 45 rows (no whole number of words): the rows past m carry
-    bits and residuals, are XORed and never pivot."""
+def _ragged_rows_past_m(cuda, bundles, kernel, exit_on_valid):
     dec, Hp, s = _elim_case(cuda, bundles, 40, 9, 256)
     m = Hp.shape[2]
     gen = torch.Generator(device=cuda).manual_seed(9)
@@ -185,36 +187,25 @@ def test_elim_kernel_ragged_rows_past_m(cuda, bundles, exit_on_valid):
                                       dtype=torch.int32)], 2)
     s = torch.cat([s, torch.randint(0, 2, (40, 45), generator=gen,
                                     device=cuda, dtype=torch.int32)], 1)
-    kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid, return_steps=True)
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
-    torch.cuda.synchronize()
-    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 256, m, **kw))
+    _elim_against_plain(kernel, Hp, s, 256, m, rank=dec.rank,
+                        exit_on_valid=exit_on_valid)
 
 
-@pytest.mark.parametrize("full_jordan", [False, True])
-def test_elim_kernel_device_memory_branch(cuda, bundles, monkeypatch,
-                                          full_jordan):
-    """The columns in a device-memory slab (the branch wider matrices take)
-    give the shared-memory launch's outputs bit for bit, at stage-1 width."""
+def _device_memory_branch(cuda, bundles, monkeypatch, kernel, full_jordan):
     dec, Hp, s = _elim_case(cuda, bundles, 37, 10, 256)
-    kw = dict(rank=dec.rank, full_jordan=full_jordan, return_steps=True)
+    kw = dict(rank=dec.rank, full_jordan=full_jordan)
     m = Hp.shape[2]
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
-    info = osd_cuda.elim_launch_info(37, 8, m, cuda)
+    a = _elim_against_plain(kernel, Hp, s, 256, m, **kw)
+    info = osd_cuda.elim_launch_info(37, 8, m, cuda, kernel)
     monkeypatch.setattr(osd_cuda, "_SMEM_LIMIT", 0)
-    d = osd_cuda.eliminate_blocks_v1(Hp, s, 256, m, **kw)
-    torch.cuda.synchronize()
+    d = _elim_against_plain(kernel, Hp, s, 256, m, **kw)
     assert info["columns_in"] == "shared memory"
-    assert osd_cuda.elim_launch_info(37, 8, m, cuda)["columns_in"] == \
-        "device memory"
+    assert osd_cuda.elim_launch_info(37, 8, m, cuda, kernel)["columns_in"] \
+        == "device memory"
     _elim_equal(d, a)
-    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 256, m, **kw))
 
 
-@pytest.mark.parametrize("exit_on_valid", [False, True])
-def test_elim_kernel_three_words_a_lane(cuda, exit_on_valid):
-    """2100 rows: each lane holds 3 row words of a column (as at
-    [[288,12,18]]), on the device-memory branch at 32 words."""
+def _three_words_a_lane(cuda, kernel, exit_on_valid):
     rng = np.random.default_rng(12)
     B, W, M, m = 9, 32, 2100, 2090
     bits = rng.random((B, 32 * W, M)) < 0.004
@@ -224,13 +215,48 @@ def test_elim_kernel_three_words_a_lane(cuda, exit_on_valid):
                          dtype=torch.int32, device=cuda)
     s = torch.as_tensor(rng.integers(0, 2, (B, M)), dtype=torch.int32,
                         device=cuda)
-    info = osd_cuda.elim_launch_info(B, W, M, cuda)
-    assert info["words_per_lane"] == 3
+    info = osd_cuda.elim_launch_info(B, W, M, cuda, kernel)
+    assert info["words_per_lane"] == 3 and info["local_bytes"] == 0
     assert info["columns_in"] == "device memory"
-    kw = dict(exit_on_valid=exit_on_valid, return_steps=True)
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, 32 * W, m, **kw)
-    torch.cuda.synchronize()
-    _elim_equal(a, osd_cuda.eliminate_blocks_plain(Hp, s, 32 * W, m, **kw))
+    _elim_against_plain(kernel, Hp, s, 32 * W, m,
+                        exit_on_valid=exit_on_valid)
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("B", [1, 37])
+def test_elim_kernel_batches(cuda, bundles, B, exit_on_valid):
+    """One shot, and a batch that is no multiple of the shots a block
+    holds, at the prefix width."""
+    _batches(cuda, bundles, "K2", B, exit_on_valid)
+
+
+def test_elim_kernel_shots_exit_apart(cuda, bundles):
+    """Shots of one block stop at very different steps: zero residuals at
+    step 0, syndromes of sampled errors early, random syndromes (mostly
+    outside the column span) only at the rank or the last column."""
+    _shots_exit_apart(cuda, bundles, "K2")
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+def test_elim_kernel_ragged_rows_past_m(cuda, bundles, exit_on_valid):
+    """M = m + 45 rows (no whole number of words): the rows past m carry
+    bits and residuals, are XORed and never pivot."""
+    _ragged_rows_past_m(cuda, bundles, "K2", exit_on_valid)
+
+
+@pytest.mark.parametrize("full_jordan", [False, True])
+def test_elim_kernel_device_memory_branch(cuda, bundles, monkeypatch,
+                                          full_jordan):
+    """The columns in a device-memory slab (the branch wider matrices take)
+    give the shared-memory launch's outputs bit for bit, at stage-1 width."""
+    _device_memory_branch(cuda, bundles, monkeypatch, "K2", full_jordan)
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+def test_elim_kernel_three_words_a_lane(cuda, exit_on_valid):
+    """2100 rows: each lane holds 3 row words of a column (as at
+    [[288,12,18]]), on the device-memory branch at 32 words."""
+    _three_words_a_lane(cuda, "K2", exit_on_valid)
 
 
 def test_elim_kernel_launch_info(cuda):
@@ -240,6 +266,52 @@ def test_elim_kernel_launch_info(cuda):
     assert info["local_bytes"] == 0 and info["words_per_lane"] == 1
     assert info["columns_in"] == "shared memory"
     assert info["shots_per_sm"] >= 4 and info["shots_per_block"] >= 2
+
+
+# K4 and K5 on K2's cases: batches (odd ones leave K5's last team one
+# shot), shots exiting apart (hundreds of columns within a K5 pair), ragged
+# rows past m, the device-memory branch, three row words a lane
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_batches(cuda, bundles, kernel, B, exit_on_valid):
+    _batches(cuda, bundles, kernel, B, exit_on_valid)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_shots_exit_apart(cuda, bundles, kernel):
+    _shots_exit_apart(cuda, bundles, kernel)
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_ragged_rows_past_m(cuda, bundles, kernel,
+                                            exit_on_valid):
+    _ragged_rows_past_m(cuda, bundles, kernel, exit_on_valid)
+
+
+@pytest.mark.parametrize("full_jordan", [False, True])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_device_memory_branch(cuda, bundles, monkeypatch,
+                                              kernel, full_jordan):
+    _device_memory_branch(cuda, bundles, monkeypatch, kernel, full_jordan)
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_three_words_a_lane(cuda, kernel, exit_on_valid):
+    _three_words_a_lane(cuda, kernel, exit_on_valid)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_alt_elim_kernel_launch_info(cuda, kernel):
+    """K4's and K5's shape at [[144]]'s stage-1 width: no spills, one word
+    a lane, shared memory, K5 two shots a team."""
+    info = osd_cuda.elim_launch_info(481, 8, 1008, cuda, kernel)
+    assert info["local_bytes"] == 0 and info["words_per_lane"] == 1
+    assert info["columns_in"] == "shared memory"
+    assert info["shots_per_team"] == (2 if kernel == "K5" else 1)
+    assert info["shots_per_sm"] >= 4
 
 
 def test_pooled_round_gpu_matches_cpu(cuda, bundles):
