@@ -6,8 +6,9 @@ against its plain PyTorch version on the card at the [[144,12,12]] shapes
 of the main path, drives the port's paths (pooled BP+OSD Monte-Carlo rounds
 and run_simulation at the bench configuration: [[144,12,12]], 12 cycles,
 p=0.004, 1024 shots per round, 4 rounds per dispatch, maxIter 50, OSD
-order 2) with the flooding and the layered BP schedule and under each
-eliminator generation, and prints one JSON result line last.
+order 2) with the flooding and the layered BP schedule, under each
+eliminator generation, with calibrated alpha sequences, damping and tanh
+BP, and prints one JSON result line last.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and the CUDA
 toolkit:
@@ -40,10 +41,19 @@ its plain version and torch.take_along_dim at every probe case, (11) the
 bp_breakdown entry point at [[144,12,12]], B=1024 (K1), (12) the main
 path's run_simulation against two matched JAX LER records ([[144,12,12]]
 p=0.004 maxIter 20 to 200 errors, [[72,12,6]] p=0.004 maxIter 50 to 100),
-within 3 sigma. Each path runs with
-every launch count set to 0 just before it and read just after. Exits
-non-zero, and prints no result, without a GPU, outside a checkout, or when
-any phase fails.
+within 3 sigma, (13) the padded-CSR BP decoder (ops/bp.py) on the card
+against itself on the CPU at [[144,12,12]] basis Z (iid p=0.004 errors,
+B=128, maxIter 50): float32 bit for bit, damping 0.8 and tanh on every
+decision, bfloat16 by its count of differing shots; and K1 against its
+plain version under a fitted Alvarado alpha, (14) the slice's full-width
+path: run_simulation with alpha_mode="alvarado-autoregressive" (calibration
+on the card, then K1 + K2 with the fitted sequences) against the matched
+JAX record (0.119, 200/1686) within 3 sigma, K1 against its plain version
+under the fitted sequence, alpha_mode="alvarado" with scopt=True (alpha in
+(0.05, 1.5), beta < 0), and one 4096-shot dispatch each with damping 0.8
+and with tanh BP (K2 and no K1). Each path runs with every launch count
+set to 0 just before it and read just after. Exits non-zero, and prints
+no result, without a GPU, outside a checkout, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -82,6 +92,11 @@ K3_OPS_PER_EDGE_SWEEP = 18
 # [[144,12,12]] p=0.004 dynamical, the reference's archived LER
 ARCHIVE_LER, ARCHIVE_TRIALS = 200 / 1135, 1135
 LER_MAX_TRIALS = 200_000  # phase 12's cap; its targets take a few thousand
+GENERIC_B = 128  # phase 13's shots (the calibration input, iid errors)
+BF16_MAX_DIFFERING = 6  # phase 13: bfloat16 shots allowed to differ
+# [[144,12,12]] p=0.004 gated autoregressive alpha, maxIter 50, OSD order 2:
+# the JAX package's record (VALIDATION.md:106)
+AR_REF_ERRS, AR_REF_TRIALS = 200, 1686
 
 
 def fail(msg: str):
@@ -108,7 +123,8 @@ def main():
 
         import qldpc_tpu_torch as qt
         from qldpc_tpu_torch import _kernels
-        from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda,
+        from qldpc_tpu_torch.ops import (bp, bp_lift_cuda,
+                                         bp_lift_layered_cuda, calibrate,
                                          gather, osd, osd_cuda)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
@@ -138,6 +154,7 @@ def main():
 
     card = smi("name,power.limit")
     sm_clock = smi("clocks.max.sm")  # e.g. "1980 MHz"
+    t_start = time.time()
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1007,6 +1024,215 @@ def main():
             fail(f"phase 12: {name} LER {ler:.5f} ({r['logical_errors']}/"
                  f"{n}) is not within 3 sigma of the JAX record {ref:.4f}")
 
+    # ---- phase 13: generic BP on the card against the port on the CPU ----
+    dec = decs[0]
+    t13 = time.time()
+    H_z = M["HdecZ"]
+    g_dev = bp.TannerGraph.from_dense(H_z, device=dev)
+    g_cpu = bp.TannerGraph.from_dense(H_z, device="cpu")
+    HT_z = torch.as_tensor((np.asarray(H_z) != 0).T.astype(np.float32),
+                           device=dev)
+    _, syn13 = calibrate._sample_errors_and_syndromes(
+        calibrate._generator(dev, SEED, 13), HT_z, g_dev.n, P, GENERIC_B)
+    cpu_args = (syn13.cpu(), dec.prior.cpu(), dec.alpha_seq.cpu())
+    dev_args = (syn13, dec.prior, dec.alpha_seq)
+    generic = {}
+    for name, kw in (("float32", {}), ("damping 0.8", dict(damping=0.8)),
+                     ("tanh", None),
+                     ("bfloat16", dict(msg_dtype=torch.bfloat16))):
+        def run(g, syn, prior, seq, kw=kw):
+            if kw is None:
+                return bp.decode_batch_tanh(g, syn, prior, MAXITER)
+            return bp.decode_batch(g, syn, prior, seq, MAXITER, **kw)
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        a = run(g_dev, *dev_args)
+        torch.cuda.synchronize()
+        gpu_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        b = run(g_cpu, *cpu_args)
+        cpu_s = time.time() - t0
+        a = {k: v.cpu() for k, v in a.items()}
+        differ = ((a["hard"] != b["hard"]).any(1)
+                  | (a["converged"] != b["converged"])
+                  | (a["iterations"] != b["iterations"]))
+        n_diff = int(differ.sum())
+        same_values = torch.equal(a["values"], b["values"])
+        err = float((a["values"] - b["values"]).abs().max())
+        generic[name] = dict(gpu_ms=gpu_ms, cpu_s=cpu_s, differing=n_diff,
+                             same_values=same_values, max_abs_err=err,
+                             converged=int(a["converged"].sum()),
+                             mean_iters=float(
+                                 (a["iterations"].float() + 1).mean()))
+        r = generic[name]
+        print(f"phase 13: {name}: card {gpu_ms:.1f} ms "
+              f"({gpu_ms / r['mean_iters']:.2f} ms per iteration of the "
+              f"mean), CPU {cpu_s:.1f} s; {n_diff}/{GENERIC_B} shots differ "
+              f"in a decision; values "
+              f"{'bit-identical' if same_values else f'max abs err {err:.3g}'}"
+              f"; {r['converged']}/{GENERIC_B} converged, mean "
+              f"{r['mean_iters']:.2f} iterations", flush=True)
+        if name == "float32" and (n_diff or not same_values):
+            fail("phase 13: float32 generic BP differs between the card and "
+                 "the CPU")
+        if name in ("damping 0.8", "tanh") and n_diff:
+            fail(f"phase 13: {name} decisions differ between the card and "
+                 "the CPU")
+        if name == "bfloat16" and n_diff > BF16_MAX_DIFFERING:
+            fail(f"phase 13: bfloat16: {n_diff} shots differ (bound "
+                 f"{BF16_MAX_DIFFERING})")
+        if not r["converged"]:
+            fail(f"phase 13: {name} converged no shot")
+    del g_dev, HT_z
+
+    # K1 against its plain version under a fitted (Alvarado) alpha, on
+    # phase 2's syndromes
+    def k1_exact(seq_np, where):
+        args = (dec.lifted, syns["Z"], dec.prior,
+                torch.as_tensor(np.asarray(seq_np, np.float32), device=dev),
+                MAXITER)
+        a = bp_lift_cuda.decode_batch_lift_cuda(*args)
+        torch.cuda.synchronize()
+        b = bp_lift_cuda.decode_batch_lift_plain(*args)
+        for key in ("hard", "converged", "iterations"):
+            if not torch.equal(a[key], b[key]):
+                fail(f"{where}: K1 {key} differs from the plain version")
+        unconv = ~b["converged"]
+        if not torch.equal(a["values"][unconv], b["values"][unconv]):
+            fail(f"{where}: K1 values of unconverged shots differ")
+        return int(a["converged"].sum())
+
+    t0 = time.time()
+    alpha13, r2_13 = calibrate.estimate_alpha_alvarado(
+        H_z, P, trials=engine._calib_trials(None, H_z.shape[1], P),
+        llrs=qt.channel_llrs(M["channel_probsZ"]), seed=SEED, device=dev)
+    fit13_s = time.time() - t0
+    conv13 = k1_exact(alpha_schedule("alvarado", MAXITER, alpha13),
+                      "phase 13")
+    print(f"phase 13: Alvarado fit (basis Z, 500 trials) alpha "
+          f"{alpha13:.5f}, R^2 {r2_13:.4f} in {fit13_s:.2f} s; K1 under it "
+          f"(B={BATCH}): every decision and the unconverged shots' values "
+          f"identical to the plain version, {conv13}/{BATCH} converged "
+          f"(dynamical: {k1['Z']['converged']}); phase {time.time() - t13:.1f}"
+          f" s", flush=True)
+
+    # ---- phase 14: calibrated run_simulation, damping and tanh ----
+    calib_s: dict = {}
+    saved = {name: getattr(engine, name)
+             for name in ("_calibrate_basis_sequences", "_scopt_betas")}
+
+    def timed(name):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = saved[name](*a, **kw)
+            torch.cuda.synchronize()
+            calib_s[name] = time.time() - t0
+            return out
+        return wrapper
+
+    for name in saved:
+        setattr(engine, name, timed(name))
+    try:
+        reset_counts()
+        t0 = time.time()
+        ar = qt.run_simulation(
+            code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
+            maxIter=MAXITER, osd_order=OSD_ORDER, target_logical_errors=200,
+            max_trials=LER_MAX_TRIALS, batch_size=BATCH,
+            rounds_per_dispatch=RPD, base_seed=SEED, precomputed_matrices=M,
+            verbose=False, alpha_mode="alvarado-autoregressive", **bb_params)
+        torch.cuda.synchronize()
+        ar_s = time.time() - t0
+        launches_ar = counts()
+        ar_calib_s = calib_s.pop("_calibrate_basis_sequences")
+        reset_counts()
+        sc = qt.run_simulation(
+            code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
+            maxIter=MAXITER, osd_order=OSD_ORDER, max_trials=BATCH * RPD,
+            batch_size=BATCH, rounds_per_dispatch=RPD, base_seed=SEED,
+            precomputed_matrices=M, verbose=False, alpha_mode="alvarado",
+            scopt=True, **bb_params)
+        torch.cuda.synchronize()
+        launches_sc = counts()
+    finally:
+        for name, fn_s in saved.items():
+            setattr(engine, name, fn_s)
+    ler, n = ar["logical_error_rate"], ar["num_trials"]
+    ref = AR_REF_ERRS / AR_REF_TRIALS
+    z = (ler - ref) / np.sqrt(ler * (1 - ler) / max(n, 1)
+                              + ref * (1 - ref) / AR_REF_TRIALS)
+    seq_ar = {b: np.asarray(ar[f"alpha_seq_{b}"]) for b in "zx"}
+    r2_ar = {b: np.asarray(ar[f"alpha_r2_values_{b}"]) for b in "zx"}
+    print(f"phase 14: run_simulation(alpha_mode='alvarado-autoregressive') "
+          f"{CODE} p={P} maxIter {MAXITER}: calibration {ar_calib_s:.1f} s "
+          f"(500 trials a basis, {MAXITER} fits each); alpha z "
+          f"{seq_ar['z'].min():.4f}-{seq_ar['z'].max():.4f}, x "
+          f"{seq_ar['x'].min():.4f}-{seq_ar['x'].max():.4f}; fallbacks z "
+          f"{ar['n_alpha_fallbacks_z']} x {ar['n_alpha_fallbacks_x']}; R^2 "
+          f"min/median z {np.nanmin(r2_ar['z']):.4f}/"
+          f"{np.nanmedian(r2_ar['z']):.4f} x {np.nanmin(r2_ar['x']):.4f}/"
+          f"{np.nanmedian(r2_ar['x']):.4f}; LER {ler:.5f} "
+          f"({ar['logical_errors']}/{n}) against the JAX record {ref:.4f} "
+          f"({AR_REF_ERRS}/{AR_REF_TRIALS}, VALIDATION.md:106): z {z:+.2f}; "
+          f"{ar['osd_rank_deficient_shots']} rank-deficient shot-bases; "
+          f"{ar['shots_per_sec']:.1f} shots/s; launches K1 "
+          f"{launches_ar['k1']} K2 {launches_ar['k2']}; {ar_s:.1f} s",
+          flush=True)
+    if launches_ar["k1"] <= 0 or launches_ar["k2"] <= 0 or any(
+            launches_ar[k] for k in ("k3", "k4", "k5")):
+        fail(f"phase 14: the calibrated path did not run K1 and K2 alone: "
+             f"{launches_ar}")
+    if ar["logical_errors"] < 200 or abs(z) > 3:
+        fail(f"phase 14: autoregressive LER {ler:.5f} is not within 3 sigma "
+             f"of the JAX record {ref:.4f}")
+    conv14 = k1_exact(seq_ar["z"], "phase 14")
+    print(f"phase 14: K1 under the fitted Z sequence (B={BATCH}): every "
+          f"decision and the unconverged shots' values identical to the "
+          f"plain version; {conv14}/{BATCH} converged (dynamical: "
+          f"{k1['Z']['converged']})", flush=True)
+    alphas = {b: sc[f"alpha_seq_{b}"][0] for b in "zx"}
+    print(f"phase 14: run_simulation(alpha_mode='alvarado', scopt=True) "
+          f"{sc['num_trials']} shots: alpha z {alphas['z']:.5f} (R^2 "
+          f"{sc['alpha_r2_z']:.4f}) x {alphas['x']:.5f} (R^2 "
+          f"{sc['alpha_r2_x']:.4f}); beta z {sc['beta_z']:.5f} (R^2 "
+          f"{sc['beta_r2_z']:.4f}) x {sc['beta_x']:.5f} (R^2 "
+          f"{sc['beta_r2_x']:.4f}), fitted in "
+          f"{calib_s['_scopt_betas']:.1f} s; LER "
+          f"{sc['logical_error_rate']:.5f}; launches K1 {launches_sc['k1']} "
+          f"K2 {launches_sc['k2']}", flush=True)
+    if not all(0.05 < a < 1.5 for a in alphas.values()) or not \
+            (sc["beta_z"] < 0 and sc["beta_x"] < 0):
+        fail(f"phase 14: implausible Alvarado alpha or SCOPT beta: {sc}")
+    if launches_sc["k1"] <= 0 or launches_sc["k2"] <= 0:
+        fail(f"phase 14: the Alvarado run did not launch K1 and K2: "
+             f"{launches_sc}")
+    for name, kw in (("damping 0.8", dict(damping=0.8)),
+                     ("tanh", dict(bp_variant="tanh"))):
+        fn_g = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, P, BATCH,
+                                           MAXITER, OSD_ORDER, RPD, **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_g = fn_g(None, randoms=randoms)
+        torch.cuda.synchronize()
+        c = counts()
+        rd = int(out_g["z_rankdef"].sum() + out_g["x_rankdef"].sum())
+        print(f"phase 14: {name} pooled dispatch ({RPD}x{BATCH} shots) in "
+              f"{time.time() - t0:.2f} s: BP converged z "
+              f"{int(out_g['z_conv'].sum())} x {int(out_g['x_conv'].sum())} "
+              f"(flooding z {int(out_k['z_conv'].sum())} x "
+              f"{int(out_k['x_conv'].sum())}), {int(out_g['any_err'].sum())} "
+              f"logical errors (flooding {int(out_k['any_err'].sum())}), {rd} "
+              f"rank-deficient; launches K1 {c['k1']} K2 {c['k2']}",
+              flush=True)
+        if c["k2"] <= 0 or any(c[k] for k in ("k1", "k3", "k4", "k5")):
+            fail(f"phase 14: the {name} dispatch ran other kernels than K2: "
+                 f"{c}")
+        if rd:
+            fail(f"phase 14: {name}: {rd} rank-deficient shot-bases")
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -1060,7 +1286,8 @@ def main():
              plain_ms=p2[0]["plain_ms"], bound_ms=p2[0]["bound_ms"],
              bound_by="bytes", library_ms=p2[0]["library_ms"]),
     ]
-    print(f"max SM clock {sm_clock}, {sms} SMs")
+    print(f"max SM clock {sm_clock}, {sms} SMs; every phase passed in "
+          f"{time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """qldpc_tpu_torch — PyTorch/CUDA port of the qLDPC Monte-Carlo decoder.
 
 The host layer (BB codes, circuits, decoding matrices) is NumPy; the decode
-round (sampling, flooding min-sum BP, OSD, logical readout) runs on an NVIDIA
-GPU through hand-written CUDA kernels (``csrc/``), with a plain PyTorch twin
-of each kernel for CPU tensors.
+round (sampling, min-sum BP, OSD, logical readout) runs on an NVIDIA GPU
+through hand-written CUDA kernels (``csrc/``), with a plain PyTorch twin of
+each kernel for CPU tensors. Calibration and the BP variants the JAX package
+runs as XLA (damped, tanh, graphs without a lift) are PyTorch ops on the
+same device.
 
 Device rule: every entry point runs on ``cuda`` by default and raises when no
 GPU is present unless the caller passes ``device="cpu"``. Nothing falls back

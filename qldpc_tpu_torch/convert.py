@@ -11,7 +11,11 @@ integers.
 ``arrays`` keys: ``sel``, ``gate_loc``, ``A_loc`` (L, R) from the trial
 maps; ``prior_grid``, ``slot_mask``, ``cmask``, ``out_gather``,
 ``residual`` from the lifted graph; ``H`` (m, n), ``H_logical`` (n, k),
-``logical_pack``, ``prior``, ``alpha_seq``, ``basis_cols``.
+``logical_pack``, ``prior``, ``alpha_seq``, ``basis_cols``; ``row_cols``,
+``row_mask``, ``col_edges``, ``col_mask`` from the padded-CSR Tanner graph
+(:func:`tanner_from_jax`; without them the graph is built from ``H``, a
+function of H alone). The lifted graph's keys are absent when the JAX
+bundle has no lift (``lifted`` None).
 
 ``meta`` keys: ``num_syn``, ``k`` (trial maps); ``eb_pb``, ``eb_o``,
 ``eb_cx``, ``eb_cy``, ``NB``, ``ell``, ``mm``, ``T``, ``n``, ``m`` (lifted
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .ops.bp import TannerGraph
 from .ops.bp_lift import LiftedGraph
 from .ops.sampler import trial_maps_from_arrays
 from .parallel.engine import BasisDecoder
@@ -31,30 +36,52 @@ LIFT_STATICS = ("eb_pb", "eb_o", "eb_cx", "eb_cy", "NB", "ell", "mm", "T",
                 "n", "m")
 
 
+def _tensor(arrays: dict, name: str, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(
+        np.asarray(arrays[name]).astype(dtype)), device=dev)
+
+
+def tanner_from_jax(arrays: dict, device=None) -> TannerGraph:
+    """The port's TannerGraph from the four arrays of a JAX one
+    (``row_cols``, ``row_mask``, ``col_edges``, ``col_mask``)."""
+    dev = resolve_device(device)
+    row_cols = _tensor(arrays, "row_cols", np.int64, dev)
+    col_edges = _tensor(arrays, "col_edges", np.int64, dev)
+    return TannerGraph(
+        row_cols=row_cols, row_mask=_tensor(arrays, "row_mask", np.bool_, dev),
+        col_edges=col_edges,
+        col_mask=_tensor(arrays, "col_mask", np.bool_, dev),
+        m=row_cols.shape[0], n=col_edges.shape[0], dr=row_cols.shape[1],
+        dc=col_edges.shape[1])
+
+
 def basis_from_jax(arrays: dict, meta: dict, device=None) -> BasisDecoder:
     """The port's decode bundle from the leaves of a JAX BasisDecoder."""
     dev = resolve_device(device)
 
     def t(name, dtype):
-        return torch.as_tensor(np.ascontiguousarray(
-            np.asarray(arrays[name]).astype(dtype)), device=dev)
+        return _tensor(arrays, name, dtype, dev)
 
     maps = trial_maps_from_arrays(arrays["sel"], arrays["gate_loc"],
                                   np.asarray(arrays["A_loc"], np.float32),
                                   meta["num_syn"], meta["k"], dev)
     statics = {k: (tuple(int(v) for v in meta[k])
                    if k.startswith("eb_") else int(meta[k]))
-               for k in LIFT_STATICS}
-    lifted = LiftedGraph(
-        prior_grid=t("prior_grid", np.float32),
-        slot_mask=t("slot_mask", np.bool_),
-        cmask=t("cmask", np.bool_),
-        out_gather=t("out_gather", np.int64),
-        residual=t("residual", np.bool_),
-        **statics)
+               for k in LIFT_STATICS if k in meta}
+    lifted = None
+    if "prior_grid" in arrays:
+        lifted = LiftedGraph(
+            prior_grid=t("prior_grid", np.float32),
+            slot_mask=t("slot_mask", np.bool_),
+            cmask=t("cmask", np.bool_),
+            out_gather=t("out_gather", np.int64),
+            residual=t("residual", np.bool_),
+            **statics)
     H = np.asarray(arrays["H"]).astype(np.uint8)
+    graph = (tanner_from_jax(arrays, dev) if "row_cols" in arrays
+             else TannerGraph.from_dense(H, device=dev))
     return BasisDecoder(
-        maps=maps, lifted=lifted,
+        maps=maps, graph=graph, lifted=lifted,
         H=torch.as_tensor(H, device=dev),
         HT=torch.as_tensor(np.ascontiguousarray(H.T, np.float32),
                            device=dev),

@@ -14,9 +14,9 @@ never assumed; see ``LiftedGraph.try_from_dense``.
 An edge slot eb = (base pattern pb, offset o, rep-check (cx, cy)) connects
 column (pb, gx, gy, a) to check (gx+cx, gy+cy, a+o).
 
-``decode_batch_lift`` (flooding) and ``decode_batch_lift_layered`` (the
-time-layered schedule) are the roll-based PyTorch twins of the JAX
-package's XLA lifts; the CUDA kernels and their gather-based plain versions
+``decode_batch_lift`` (flooding, with damping and bfloat16 messages) and
+``decode_batch_lift_layered`` (the time-layered schedule) are the
+roll-based PyTorch twins of the JAX package's XLA lifts; the CUDA kernels and their gather-based plain versions
 live in ops/bp_lift_cuda.py (flooding) and ops/bp_lift_layered_cuda.py
 (layered). Algorithm: normalized min-sum, per-iteration (per-sweep)
 syndrome check, per-shot convergence freezing, magnitude
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .bp import _BIG
+from .bp import _BIG, _fused_mix, _fused_sub
 
 _DEAD_PRIOR = 50.0  # prior of dead grid slots: hard bit 0
 
@@ -236,47 +236,57 @@ def _to_col(A, e, g: LiftedGraph, dead):
 
 
 def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
-                      maxIter: int, clip_llr: float = 20.0):
-    """Roll-based float32 min-sum on a LiftedGraph (the reference twin;
-    damping 1 — damped decoding comes with the generic BP port).
+                      maxIter: int, damping: float = 1.0,
+                      clip_llr: float = 20.0, msg_dtype=torch.float32):
+    """Roll-based min-sum on a LiftedGraph: the twin of the JAX package's
+    ``decode_batch_lift``, and the port's damped lifted decoder.
 
     syndrome (B, m) with rows t*ell*mm + x*mm + y; prior (n,) f32;
-    alpha_seq (maxIter,) f32. Returns dict hard (B, n) int8, converged (B,)
-    bool, values (B, n) f32 (frozen at each shot's first convergence),
-    iterations (B,) int32.
+    alpha_seq (maxIter,) f32; ``msg_dtype`` torch.float32 or torch.bfloat16
+    for the edge messages (posteriors are summed in float32). With
+    ``damping`` != 1 each new message is clip(d*q + (1-d)*q_prev), clipped
+    again, with the JAX XLA program's fused multiply-adds (ops/bp.py,
+    ``_fused_sub``); damping 1 keeps the Pallas kernel's (and K1's)
+    unfused arithmetic. Returns dict hard (B, n) int8, converged (B,) bool, values (B, n)
+    f32 (frozen at each shot's first convergence), iterations (B,) int32.
 
     Edge messages live in CHECK layout, so the check update and the syndrome
     parity are reductions over the EB axis; the only cross-layout traffic is
     two rolls per edge per iteration. Runs until every shot has converged or
-    maxIter (one host read per iteration: this is a reference, not the hot
-    path)."""
+    maxIter (one host read per iteration). Damping 1 on the card is kernel
+    K1's (ops/bp_lift_cuda.py); this runs the damped path there."""
     B = syndrome.shape[0]
     dev = syndrome.device
     ell, mm, T, NB, EB = g.ell, g.mm, g.T, g.NB, g.EB
-    f32 = torch.float32
-    big = torch.tensor(_BIG, dtype=f32, device=dev)
+    f32, dt = torch.float32, msg_dtype
+    big = torch.tensor(_BIG, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    d_new = torch.tensor(damping, dtype=dt, device=dev)
+    d_old = torch.tensor(1.0 - damping, dtype=dt, device=dev)
     pb_start = [0] * (NB + 1)
     for e, pb in enumerate(g.eb_pb):
         pb_start[pb + 1] = e + 1
 
     syn = syndrome.T.reshape(T, ell, mm, B).permute(1, 2, 0, 3)
     syn = syn.to(torch.int32)
-    sgn_syn = 1.0 - 2.0 * syn.to(f32)
+    sgn_syn = (1.0 - 2.0 * syn.to(f32)).to(dt)
     prior = prior.to(f32)
-    alpha_seq = alpha_seq.to(f32)
+    alpha_seq = torch.as_tensor(alpha_seq, device=dev).to(f32)
 
     cmask = g.cmask[..., None]                            # (EB,ell,mm,T,1)
     pg = g.prior_grid[..., None]                          # (NB,ell,mm,T,1)
+    pg_dt = pg.to(dt)
 
-    Q = torch.stack([_to_check(pg[g.eb_pb[e]].expand(ell, mm, T, B), e, g,
-                               _BIG) for e in range(EB)])
+    Q = torch.stack([_to_check(pg_dt[g.eb_pb[e]].expand(ell, mm, T, B), e,
+                               g, _BIG) for e in range(EB)])
     Q = torch.where(cmask, Q, big)
+    Qold = Q
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     vals = torch.zeros((NB, ell, mm, T, B), dtype=f32, device=dev)
     iters = torch.full((B,), maxIter - 1, dtype=torch.int32, device=dev)
     it = 0
     while it < maxIter and not bool(done.all()):
-        alpha = alpha_seq[it]
+        alpha = alpha_seq[it].to(dt)
         # --- check pass: pure reductions over the EB axis ---
         absQ = Q.abs()                       # dead positions hold +_BIG
         m1 = absQ.amin(0)
@@ -286,27 +296,34 @@ def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
         m2 = torch.where(nmin > 1, m1, m2d)
         neg = Q < 0.0
         negtot = neg.sum(0) & 1
-        sgn = torch.where(negtot == 1, -1.0, 1.0).to(f32) * sgn_syn
+        sgn = torch.where(negtot == 1, -1.0, 1.0).to(dt) * sgn_syn
         mag = torch.where(is_min, m2[None], m1[None])
-        sq = torch.where(neg, -1.0, 1.0).to(f32)
-        Rchk = alpha * sgn[None] * sq * mag
-        Rchk = torch.where(cmask, Rchk, torch.zeros((), dtype=f32,
-                                                    device=dev))
+        sq = torch.where(neg, -1.0, 1.0).to(dt)
+        coef = alpha * sgn[None] * sq
+        Rchk = torch.where(cmask, coef * mag, zero)
 
-        # --- posterior sum per base pattern (column layout) ---
+        # --- posterior sum per base pattern (column layout), float32 ---
         Rcol = [_to_col(Rchk[e], e, g, 0.0) for e in range(EB)]
         V = torch.stack([
-            pg[pb] + sum(Rcol[e] for e in range(pb_start[pb],
-                                                pb_start[pb + 1]))
+            pg[pb] + sum(Rcol[e].to(f32) for e in range(pb_start[pb],
+                                                        pb_start[pb + 1]))
             for pb in range(NB)])                        # (NB,...,B) f32
 
         # --- Q update + syndrome parity (one V->check roll per edge) ---
         Qn = []
         par = torch.zeros((ell, mm, T, B), dtype=torch.int32, device=dev)
         for e in range(EB):
-            vhc = _to_check(V[g.eb_pb[e]], e, g, _BIG)
+            vhc = _to_check(V[g.eb_pb[e]].to(dt), e, g, _BIG)
             par = par + (cmask[e] & (vhc < 0.0)).to(torch.int32)
-            q = torch.clamp(vhc - Rchk[e], -clip_llr, clip_llr)
+            if damping != 1.0:
+                # the JAX package's damped lift is an XLA program whose
+                # multiply-adds are fused (ops/bp.py, _fused_sub)
+                q = torch.clamp(_fused_sub(vhc, coef[e], mag[e]),
+                                -clip_llr, clip_llr)
+                q = torch.clamp(_fused_mix(d_new, q, d_old, Qold[e]),
+                                -clip_llr, clip_llr)
+            else:
+                q = torch.clamp(vhc - Rchk[e], -clip_llr, clip_llr)
             Qn.append(torch.where(cmask[e], q, big))
         Q = torch.stack(Qn)
         ok = ((par & 1) == syn).reshape(-1, B).all(0)
@@ -314,6 +331,8 @@ def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
         vals = torch.where(done[None, None, None, None, :], vals, V)
         iters = torch.where(ok & ~done, it, iters)
         done = done | ok
+        if damping != 1.0:
+            Qold = Q
         it += 1
 
     return _epilogue(g, vals, prior, done, iters)

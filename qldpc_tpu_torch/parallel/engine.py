@@ -1,26 +1,28 @@
 """Monte-Carlo logical-error-rate engine on one CUDA device.
 
-Port of the JAX package's ``run_simulation`` main path: dynamical alpha,
-normalized min-sum on the lifted graph (damping 1) with the flooding
-(``bp_variant="minsum"``) or the time-layered (``bp_variant="layered"``)
-schedule, pooled, residual-sorted OSD with the staged eliminator, logical
-readout, and exact sequential stopping. One decode round = ``batch`` shots:
-sample gate faults -> signature matmul -> BP (kernel K1 flooding, K3
-layered) -> OSD on the shots BP did not converge (kernel K2, or K4 / K5
-under ``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical
-comparison. Stopping reproduces the reference's sequential rule exactly:
-per-shot error flags are read in shot order and the run truncates at the
-trial where the target error count is reached.
+Port of the JAX package's ``run_simulation``: per-basis alpha sequences
+(dynamical, or calibrated on the device: Alvarado, autoregressive
+Alvarado; optional SCOPT beta, reported), BP, pooled, residual-sorted OSD
+with the staged eliminator, logical readout, and exact sequential stopping.
+One decode round = ``batch`` shots: sample gate faults -> signature matmul
+-> BP -> OSD on the shots BP did not converge (kernel K2, or K4 / K5 under
+``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical comparison.
+BP is dispatched as in the JAX package: on a lifted graph with damping 1,
+kernel K1 (flooding, ``bp_variant="minsum"``) or K3 (``"layered"``);
+damped on a lifted graph, the roll decoder (ops/bp_lift.py); tanh BP and
+graphs without a lift, the padded-CSR decoder (ops/bp.py). Stopping
+reproduces the reference's sequential rule exactly: per-shot error flags
+are read in shot order and the run truncates at the trial where the target
+error count is reached.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): alpha modes other than dynamical and ``scopt`` (Queue A item 8),
-``bp_variant="tanh"``, damping != 1 and non-lifted codes (item 7), a device
-mesh (item 11).
+Not ported yet: a device mesh (raises NotImplementedError naming ROADMAP.md
+Queue A item 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -32,8 +34,10 @@ from ..models import gf2
 from ..models.bb import make_code
 from ..models.builder import build_decoding_matrices, channel_llrs
 from ..models.circuit import SyndromeCircuit
-from ..ops.bp import alpha_schedule
-from ..ops.bp_lift import LiftedGraph
+from ..ops import calibrate
+from ..ops.bp import (TannerGraph, alpha_schedule, decode_batch,
+                      decode_batch_tanh)
+from ..ops.bp_lift import LiftedGraph, decode_batch_lift
 from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops.osd import choose_K, osd_batch
@@ -51,17 +55,7 @@ def _unported(what: str, item: str):
         f"{item}); use the JAX package qldpc_tpu for it")
 
 
-def _check_supported(alpha_mode="dynamical", scopt=False,
-                     bp_variant="minsum", damping=1.0, mesh=None):
-    if alpha_mode != "dynamical":
-        raise _unported(f"alpha_mode={alpha_mode!r}", "item 8 (calibration)")
-    if scopt:
-        raise _unported("scopt", "item 8 (calibration)")
-    if bp_variant not in ("minsum", "layered"):
-        raise _unported(f"bp_variant={bp_variant!r}",
-                        "item 7 (generic padded-CSR BP)")
-    if damping != 1.0:
-        raise _unported("damping != 1", "item 7 (generic padded-CSR BP)")
+def _check_supported(mesh=None):
     if mesh is not None:
         raise _unported("a device mesh", "item 11 (multi-device)")
 
@@ -90,7 +84,9 @@ class BasisDecoder:
     """Static per-basis decode bundle (tensors on one device)."""
 
     maps: TrialMaps
-    lifted: LiftedGraph   # circulant-structured BP layout (ops/bp_lift.py)
+    graph: TannerGraph    # padded-CSR BP layout (ops/bp.py)
+    lifted: Optional[LiftedGraph]  # circulant-structured BP layout
+                                   # (ops/bp_lift.py); None without a lift
     H: torch.Tensor            # (m, n) uint8 decoding matrix
     HT: torch.Tensor           # (n, m) float32
     H_logical: torch.Tensor    # (n, k) float32 — logical action per column
@@ -117,15 +113,15 @@ def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
     first = matrices[f"first_logical_row{b}"]
     H_logical = (full[first:first + k] != 0).astype(np.float32)  # (k, n)
     prior_np = channel_llrs(matrices[f"channel_probs{b}"], clip_channel)
+    # circulant-lift BP layout (needs the BB polynomial dims; raw CSS codes
+    # without them decode on the padded-CSR graph)
     ell = getattr(circ.code, "ell", None)
     mmm = getattr(circ.code, "m", None)
     lifted = (LiftedGraph.try_from_dense(H, ell, mmm, prior_np, device=dev)
               if ell and mmm else None)
-    if lifted is None:
-        raise _unported("a decoding graph that is not a clean lift",
-                        "item 7 (generic padded-CSR BP)")
     return BasisDecoder(
         maps=make_trial_maps(circ, matrices, b, device=dev),
+        graph=TannerGraph.from_dense(H, device=dev),
         lifted=lifted,
         H=torch.as_tensor(H, device=dev),
         HT=torch.as_tensor(np.ascontiguousarray(H.T, np.float32),
@@ -148,16 +144,35 @@ def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
 
 
 def _bp_one_basis(syndrome, dec: BasisDecoder, maxIter: int,
-                  clip_llr: float = 20.0, bp_variant: str = "minsum"):
-    """BP only: min-sum on the lifted graph, damping 1 — the flooding
-    schedule for ``bp_variant="minsum"`` (kernel K1 on CUDA tensors), the
-    time-layered one for ``"layered"`` (kernel K3; ``maxIter`` counts
-    sweeps). Returns the BP dict (values (B, n) f32, hard (B, n) int8,
-    converged (B,) bool, iterations (B,) int32)."""
-    decode = {"minsum": decode_batch_lift_cuda,
-              "layered": decode_batch_lift_layered_cuda}[bp_variant]
-    return decode(dec.lifted, syndrome, dec.prior, dec.alpha_seq, maxIter,
-                  clip_llr=clip_llr)
+                  damping: float = 1.0, clip_llr: float = 20.0,
+                  msg_dtype=torch.float32, bp_variant: str = "minsum"):
+    """BP only, dispatched as the JAX package does. Returns the BP dict
+    (values (B, n) f32, hard (B, n) int8, converged (B,) bool, iterations
+    (B,) int32).
+
+    - ``bp_variant="tanh"``: tanh true BP on the padded-CSR graph (alpha,
+      damping and clip_llr do not apply, as in the reference);
+    - a lifted graph with damping 1: kernel K1 (flooding) or, for
+      ``"layered"``, kernel K3 (``maxIter`` counts sweeps) on CUDA tensors;
+    - a lifted graph with damping != 1: the roll decoder;
+    - otherwise: min-sum on the padded-CSR graph.
+
+    ``msg_dtype`` is the message dtype of the last two (the kernels keep
+    float32)."""
+    if bp_variant == "tanh":
+        return decode_batch_tanh(dec.graph, syndrome, dec.prior, maxIter)
+    if dec.lifted is not None and damping == 1.0:
+        decode = (decode_batch_lift_layered_cuda if bp_variant == "layered"
+                  else decode_batch_lift_cuda)
+        return decode(dec.lifted, syndrome, dec.prior, dec.alpha_seq,
+                      maxIter, clip_llr=clip_llr)
+    if dec.lifted is not None:
+        return decode_batch_lift(dec.lifted, syndrome, dec.prior,
+                                 dec.alpha_seq, maxIter, damping=damping,
+                                 clip_llr=clip_llr, msg_dtype=msg_dtype)
+    return decode_batch(dec.graph, syndrome, dec.prior, dec.alpha_seq,
+                        maxIter, damping=damping, clip_llr=clip_llr,
+                        msg_dtype=msg_dtype)
 
 
 def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
@@ -203,16 +218,17 @@ def _logical_readout(hard, conv, delta, dec: BasisDecoder):
 
 
 def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
-                     clip_llr=20.0, randoms=None, bp_variant="minsum"):
-    """One round's sampling + both-basis BP. ``randoms`` = (err, pauli,
-    cat2) replaces the draw from ``gen`` (tests feed both packages the same
-    draws). Returns the [z, x] per-basis state dicts."""
+                     bp_args: tuple, randoms=None):
+    """One round's sampling + both-basis BP; ``bp_args`` = (damping,
+    clip_llr, msg_dtype, bp_variant) of :func:`_bp_one_basis`. ``randoms`` =
+    (err, pauli, cat2) replaces the draw from ``gen`` (tests feed both
+    packages the same draws). Returns the [z, x] per-basis state dicts."""
     trials = trial_batch(gen, error_rate, dec_z.maps, dec_x.maps, n_locs,
                          batch, randoms)
     per_basis = []
     for name, dec in (("z", dec_z), ("x", dec_x)):
         syndrome = trials[f"syndrome_{name}"]
-        bp = _bp_one_basis(syndrome, dec, maxIter, clip_llr, bp_variant)
+        bp = _bp_one_basis(syndrome, dec, maxIter, *bp_args)
         per_basis.append(dict(
             syn=syndrome, true_log=trials[f"true_{name}"],
             values=bp["values"], hard=bp["hard"], conv=bp["converged"]))
@@ -238,22 +254,43 @@ def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None):
     return out
 
 
+def _round_defaults(dec_z: BasisDecoder, damping: float, msg_dtype,
+                    bp_variant: str):
+    """Resolve the device-dependent round defaults shared by make_round_fn
+    and make_pooled_round_fn: the layered schedule needs a lifted graph and
+    damping 1 (otherwise flooding, with a warning, as in the JAX package);
+    messages of the roll and padded-CSR decoders default to bfloat16 on the
+    card and float32 on the CPU."""
+    if bp_variant == "layered" and (dec_z.lifted is None or damping != 1.0):
+        logger.warning(
+            "bp_variant='layered' needs a lifted decoding graph and "
+            "damping == 1; falling back to the flooding schedule")
+        bp_variant = "minsum"
+    if msg_dtype is None:
+        msg_dtype = (torch.bfloat16 if dec_z.prior.device.type == "cuda"
+                     else torch.float32)
+    return msg_dtype, bp_variant
+
+
 def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
                          n_locs: int, error_rate: float, batch: int,
                          maxIter: int, osd_order: int, n_rounds: int,
                          damping: float = 1.0, clip_llr: float = 20.0,
-                         bp_variant: str = "minsum", osd_chunk: int = None):
+                         bp_variant: str = "minsum", osd_chunk: int = None,
+                         msg_dtype=None):
     """``n_rounds`` decode rounds with CROSS-ROUND OSD compaction:
     sampling + BP per round, then ONE pooled OSD phase over all
     ``n_rounds * batch`` shots. Returns ``pooled(gen, randoms=None)`` ->
     flattened (n_rounds * batch,) per-shot flags; ``randoms`` is a list of
     per-round (err, pauli, cat2) replacing the draws from ``gen``."""
-    _check_supported(bp_variant=bp_variant, damping=damping)
+    msg_dtype, bp_variant = _round_defaults(dec_z, damping, msg_dtype,
+                                            bp_variant)
+    bp_args = (damping, clip_llr, msg_dtype, bp_variant)
 
     def pooled(gen, randoms=None):
         stacked = [_sample_bp_phase(
-            gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, clip_llr,
-            None if randoms is None else randoms[i], bp_variant)
+            gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, bp_args,
+            None if randoms is None else randoms[i])
             for i in range(n_rounds)]
         flat = [{k: torch.cat([r[b][k] for r in stacked])
                  for k in stacked[0][b]} for b in (0, 1)]
@@ -266,14 +303,138 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
 def make_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder, n_locs: int,
                   error_rate: float, batch: int, maxIter: int,
                   osd_order: int, damping: float = 1.0,
-                  clip_llr: float = 20.0, bp_variant: str = "minsum"):
+                  clip_llr: float = 20.0, bp_variant: str = "minsum",
+                  msg_dtype=None):
     """One decode round: ``round_fn(gen, randoms=None)`` -> per-shot flags
     (the one-round pool of :func:`make_pooled_round_fn`)."""
     pooled = make_pooled_round_fn(dec_z, dec_x, n_locs, error_rate, batch,
                                   maxIter, osd_order, 1, damping, clip_llr,
-                                  bp_variant)
+                                  bp_variant, msg_dtype=msg_dtype)
     return lambda gen, randoms=None: pooled(
         gen, None if randoms is None else [randoms])
+
+
+def _calib_trials(requested: Optional[int], n: int, p: float) -> int:
+    """The reference's trial-count rule (engine.py:236-244): None selects
+    max(500, min(50000, 2000/(n*p))); an explicit integer is honoured."""
+    if requested is not None:
+        return requested
+    return max(500, min(50000, int(2000 / (n * p))))
+
+
+def _fmt(rate: float) -> str:
+    return f"{rate:.6g}".replace(".", "p")
+
+
+def _plot_path(plot_dir: Optional[str], rate: float, kind: str,
+               basis: str) -> Optional[str]:
+    if plot_dir is None:
+        return None
+    os.makedirs(plot_dir, exist_ok=True)
+    return os.path.join(plot_dir, f"{kind}_{_fmt(rate)}_{basis}_fit.png")
+
+
+def _calibrate_basis_sequences(matrices, error_rate, alpha_mode,
+                               alvarado_alpha, maxIter,
+                               alpha_estimation_trials=None,
+                               alpha_estimation_bins=50, base_seed=0,
+                               estimation_plot_dir=None, plot_tag="",
+                               device=None):
+    """Per-basis min-sum alpha sequences for one code (the calibration
+    dispatch of the reference engine, engine.py:228-344), fitted on
+    ``device``. ``alvarado_alpha`` under ``alpha_mode="alvarado"``: None
+    (fit each basis), a (z, x) pair, or one scalar for both. Returns
+    (seq_z, seq_x, result_extra); result_extra holds the fit values and
+    ``alpha_z`` / ``alpha_x``.
+
+    On several processes the JAX package broadcasts the fitted sequences
+    from process 0; the port's multi-device runs (ROADMAP Queue A item 11)
+    will add that broadcast here."""
+    llrs_z = channel_llrs(matrices["channel_probsZ"])
+    llrs_x = channel_llrs(matrices["channel_probsX"])
+    result_extra: Dict[str, Any] = {}
+    tag = f"{plot_tag}_" if plot_tag else ""
+    alpha_z = alpha_x = 1.0
+
+    def trials(b):
+        return _calib_trials(alpha_estimation_trials,
+                             matrices[f"Hdec{b}"].shape[1], error_rate)
+
+    if alpha_mode == "alvarado":
+        if alvarado_alpha is None:
+            alpha_z, r2z = calibrate.estimate_alpha_alvarado(
+                matrices["HdecZ"], error_rate, trials=trials("Z"),
+                bins=alpha_estimation_bins, llrs=llrs_z, seed=base_seed + 1,
+                plot_path=_plot_path(estimation_plot_dir, error_rate,
+                                     tag + "alvarado", "z"), device=device)
+            alpha_x, r2x = calibrate.estimate_alpha_alvarado(
+                matrices["HdecX"], error_rate, trials=trials("X"),
+                bins=alpha_estimation_bins, llrs=llrs_x, seed=base_seed + 2,
+                plot_path=_plot_path(estimation_plot_dir, error_rate,
+                                     tag + "alvarado", "x"), device=device)
+            result_extra.update(alpha_r2_z=r2z, alpha_r2_x=r2x)
+        elif isinstance(alvarado_alpha, (list, tuple, np.ndarray)) and \
+                len(alvarado_alpha) == 2:
+            alpha_z, alpha_x = (float(alvarado_alpha[0]),
+                                float(alvarado_alpha[1]))
+            result_extra.update(alpha_r2_z=None, alpha_r2_x=None)
+        else:
+            alpha_z = alpha_x = float(alvarado_alpha)
+            result_extra.update(alpha_r2_z=None, alpha_r2_x=None)
+        seq_z = alpha_schedule("alvarado", maxIter, alpha_z)
+        seq_x = alpha_schedule("alvarado", maxIter, alpha_x)
+    elif alpha_mode == "alvarado-autoregressive":
+        if alvarado_alpha is not None:
+            raise ValueError(
+                "alvarado_alpha must be None for alvarado-autoregressive")
+        fits = {}
+        for b, llrs, off in (("z", llrs_z, 1), ("x", llrs_x, 2)):
+            fits[b] = calibrate.estimate_alpha_alvarado_autoregressive(
+                matrices[f"Hdec{b.upper()}"], error_rate, maxIter,
+                trials=trials(b.upper()), bins=alpha_estimation_bins,
+                llrs=llrs, seed=base_seed + off,
+                plot_dir=estimation_plot_dir,
+                plot_prefix=f"{tag}autoregressive_{_fmt(error_rate)}_{b}",
+                return_fallbacks=True, device=device)
+        (av_z, r2v_z, fb_z), (av_x, r2v_x, fb_x) = fits["z"], fits["x"]
+        result_extra.update(alpha_values_z=av_z, alpha_values_x=av_x,
+                            alpha_r2_values_z=r2v_z, alpha_r2_values_x=r2v_x,
+                            n_alpha_fallbacks_z=fb_z, n_alpha_fallbacks_x=fb_x,
+                            n_alpha_fallbacks=fb_z + fb_x)
+        seq_z = alpha_schedule("alvarado-autoregressive", maxIter, av_z)
+        seq_x = alpha_schedule("alvarado-autoregressive", maxIter, av_x)
+    elif alpha_mode == "dynamical":
+        seq_z = seq_x = alpha_schedule("dynamical", maxIter)
+    else:
+        raise ValueError(f"Unsupported alpha_mode: {alpha_mode}")
+
+    if alpha_mode != "dynamical":
+        # the per-iteration sequences the decoder consumes
+        result_extra["alpha_seq_z"] = np.asarray(seq_z, np.float32).tolist()
+        result_extra["alpha_seq_x"] = np.asarray(seq_x, np.float32).tolist()
+    result_extra["alpha_z"] = alpha_z
+    result_extra["alpha_x"] = alpha_x
+    return seq_z, seq_x, result_extra
+
+
+def _scopt_betas(matrices, error_rate, alpha_mode, alpha_z, alpha_x,
+                 result_extra, maxIter, bins, base_seed, plot_dir, device):
+    """SCOPT beta per basis (the scopt branch of the reference engine):
+    estimated and reported, not consumed by the decoder, as in the
+    reference (engine.py:389 TODO) and the JAX package."""
+    out = {}
+    for b, alpha, off in (("z", alpha_z, 3), ("x", alpha_x, 4)):
+        H = matrices[f"Hdec{b.upper()}"]
+        if alpha_mode == "alvarado-autoregressive":
+            alpha = result_extra.get(f"alpha_values_{b}", alpha)
+        out[f"beta_{b}"], out[f"beta_r2_{b}"] = calibrate.estimate_scopt_beta(
+            H, error_rate, trials=_calib_trials(None, H.shape[1], error_rate),
+            bins=bins, alpha=alpha, alpha_mode=alpha_mode, maxIter=maxIter,
+            llrs=channel_llrs(matrices[f"channel_probs{b.upper()}"]),
+            seed=base_seed + off,
+            plot_path=_plot_path(plot_dir, error_rate, "scopt", b),
+            device=device)
+    return out
 
 
 def _crossing_take(a: np.ndarray, remaining: int) -> int:
@@ -380,17 +541,15 @@ def run_simulation(
 ) -> Dict[str, Any]:
     """Reference-compatible Monte-Carlo LER estimation with the JAX
     package's signature and result dict, on one CUDA device (``device``:
-    None = "cuda"; pass "cpu" for the plain PyTorch versions).
-    ``num_workers``, ``use_jit`` and the calibration-only arguments are
-    accepted for compatibility; modes not ported raise
-    NotImplementedError."""
-    del num_workers, use_jit, alvarado_alpha, alpha_estimation_trials
-    del alpha_estimation_bins, estimation_plot_dir
+    None = "cuda"; pass "cpu" for the plain PyTorch versions). Calibration
+    (``alpha_mode`` "alvarado" / "alvarado-autoregressive", ``scopt``) runs
+    on the same device. ``num_workers`` and ``use_jit`` are accepted for
+    compatibility; a ``mesh`` raises NotImplementedError."""
+    del num_workers, use_jit
     dev = resolve_device(device)
     if alpha_mode is None:
         alpha_mode = "dynamical" if use_dynamic_alpha else "alvarado"
-    _check_supported(alpha_mode=alpha_mode, scopt=scopt,
-                     bp_variant=bp_variant, damping=damping, mesh=mesh)
+    _check_supported(mesh=mesh)
     if base_seed is None:
         base_seed = int(np.random.randint(0, 2**31))
 
@@ -400,10 +559,20 @@ def run_simulation(
         circ, code.Lx, code.Lz, error_rate)
     matrices = ensure_sampler_metadata(matrices, circ, code.Lx, code.Lz,
                                        error_rate)
-    seq = alpha_schedule("dynamical", maxIter)
-    dec_z = _make_basis(circ, matrices, "Z", seq, osd_order=osd_order,
+    seq_z, seq_x, result_extra = _calibrate_basis_sequences(
+        matrices, error_rate, alpha_mode, alvarado_alpha, maxIter,
+        alpha_estimation_trials, alpha_estimation_bins, base_seed,
+        estimation_plot_dir, device=dev)
+    alpha_z = result_extra.pop("alpha_z")
+    alpha_x = result_extra.pop("alpha_x")
+    if scopt:
+        result_extra.update(_scopt_betas(
+            matrices, error_rate, alpha_mode, alpha_z, alpha_x, result_extra,
+            maxIter, alpha_estimation_bins, base_seed, estimation_plot_dir,
+            dev))
+    dec_z = _make_basis(circ, matrices, "Z", seq_z, osd_order=osd_order,
                         device=dev)
-    dec_x = _make_basis(circ, matrices, "X", seq, osd_order=osd_order,
+    dec_x = _make_basis(circ, matrices, "X", seq_x, osd_order=osd_order,
                         device=dev)
 
     if max_trials is None:
@@ -449,7 +618,7 @@ def run_simulation(
     elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
     # steady-state throughput excludes the first round (kernel builds)
     steady_done = trials_run - st["steady_trials"][0]
-    return {
+    result = {
         "logical_error_rate": tot_errs / max(1, trials_run),
         "z_logical_error_rate": st["z_errs"][0] / max(1, trials_run),
         "x_logical_error_rate": st["x_errs"][0] / max(1, trials_run),
@@ -461,3 +630,5 @@ def run_simulation(
         "num_devices": 1,
         "osd_rank_deficient_shots": st["rankdef"][0],
     }
+    result.update(result_extra)
+    return result

@@ -19,11 +19,15 @@ Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
     python -m qldpc_tpu_torch.profile_round [--dispatches 3] [--json PATH]
         [--bp-variant minsum|layered] [--osd-kernel 1|2|3]
+        [--alpha-mode dynamical|alvarado|alvarado-autoregressive]
 
 ``--bp-variant`` picks the BP schedule (flooding K1, layered K3) and
 ``--osd-kernel`` the eliminator generation (K2, K4, K5), as
-``run_simulation(bp_variant=...)`` and ``QLDPC_OSD_KERNEL`` do. Prints a
-summary, and the full report as JSON to PATH when given.
+``run_simulation(bp_variant=...)`` and ``QLDPC_OSD_KERNEL`` do;
+``--alpha-mode`` fits each basis's alpha sequence on the device first, as
+``run_simulation(alpha_mode=...)`` does (default trials, seed
+``--seed``), and reports the calibration's seconds. Prints a summary, and
+the full report as JSON to PATH when given.
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ import torch
 
 from . import build_decoding_matrices, get_code, SyndromeCircuit
 from .ops import osd_cuda
-from .ops.bp import alpha_schedule
 from .ops.sampler import augmented_bits, fault_bits, sample_gate_randoms
 from .parallel import engine
 
@@ -90,20 +93,30 @@ def main(argv=None):
     ap.add_argument("--bp-variant", default="minsum",
                     choices=("minsum", "layered"))
     ap.add_argument("--osd-kernel", type=int, default=1, choices=(1, 2, 3))
+    ap.add_argument("--alpha-mode", default="dynamical",
+                    choices=("dynamical", "alvarado",
+                             "alvarado-autoregressive"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA GPU")
     dev = torch.device("cuda")
     cfg = dict(code="[[144, 12, 12]]", cycles=12, p=0.004, batch=1024, rpd=4,
                maxIter=50, osd_order=2, bp_variant=args.bp_variant,
-               osd_kernel=args.osd_kernel)
+               osd_kernel=args.osd_kernel, alpha_mode=args.alpha_mode)
     osd_cuda._KERNEL_VERSION = args.osd_kernel
     code = get_code(cfg["code"])
     circ = SyndromeCircuit(code, num_cycles=cfg["cycles"])
     M = build_decoding_matrices(circ, code.Lx, code.Lz, cfg["p"])
-    seq = alpha_schedule("dynamical", cfg["maxIter"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq_z, seq_x, _ = engine._calibrate_basis_sequences(
+        M, cfg["p"], cfg["alpha_mode"], None, cfg["maxIter"],
+        base_seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    calibration_s = time.time() - t0
     decs = [engine._make_basis(circ, M, b, seq, osd_order=cfg["osd_order"],
-                               device=dev) for b in "ZX"]
+                               device=dev)
+            for b, seq in (("Z", seq_z), ("X", seq_x))]
     n_locs = circ.num_error_locs
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     fn = engine.make_pooled_round_fn(decs[0], decs[1], n_locs, cfg["p"],
@@ -161,12 +174,19 @@ def main(argv=None):
     shots = cfg["batch"] * cfg["rpd"]
     report = dict(
         card=smi, config=cfg, dispatches=args.dispatches,
+        calibration_s=calibration_s,
+        alpha_seq={"z": [float(a) for a in seq_z],
+                   "x": [float(a) for a in seq_x]},
         dispatch_ms=wall * 1e3, shots_per_s=shots / wall,
         staged_dispatch_ms=staged_wall * 1e3, stage_ms=stages,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
         kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top},
         eliminator=elim, elim_by_width=widths or None)
     print(f"card: {smi}")
+    if cfg["alpha_mode"] != "dynamical":
+        print(f"calibration ({cfg['alpha_mode']}) {calibration_s:.2f} s; "
+              f"alpha z {min(seq_z):.4f}-{max(seq_z):.4f}, x "
+              f"{min(seq_x):.4f}-{max(seq_x):.4f}")
     print(f"dispatch {wall * 1e3:.1f} ms ({shots / wall:.0f} shots/s); "
           f"device busy {busy_ms:.1f} ms, idle share "
           f"{report['device_idle_share']:.3f}")

@@ -1,4 +1,6 @@
-"""Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU.
+"""Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU,
+and the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
+calibration histogram) against themselves on the CPU.
 
 Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
 on first use); every test skips without a card. Imports neither jax nor the
@@ -10,8 +12,8 @@ import pytest
 import torch
 
 import qldpc_tpu_torch as qt
-from qldpc_tpu_torch.ops import (bp_lift_cuda, bp_lift_layered_cuda, gather,
-                                 osd_cuda)
+from qldpc_tpu_torch.ops import (bp, bp_lift_cuda, bp_lift_layered_cuda,
+                                 calibrate, gather, osd_cuda)
 from qldpc_tpu_torch.ops.bp import alpha_schedule
 from qldpc_tpu_torch.ops.osd import _gather_pack
 from qldpc_tpu_torch.parallel import engine
@@ -479,3 +481,65 @@ def test_take_along_kernel_matches_plain(cuda, dtype, axis, shape):
     assert gather.take_along.launches == before + 1
     assert torch.equal(out, gather.take_along_plain(x, idx, axis))
     assert torch.equal(out, torch.take_along_dim(x, idx.long(), axis))
+
+
+@pytest.mark.parametrize("case", ["float32", "damping", "bfloat16", "tanh"])
+def test_generic_bp_gpu_matches_cpu(cuda, bundles, case):
+    """The padded-CSR decoder gives the same bits on the card as on the
+    CPU (float32, damped, bfloat16); tanh BP the same decisions."""
+    _, M = bundles[:2]
+    H, syn = _syndromes(M, "Z", 96, 4)
+    prior = torch.as_tensor(qt.channel_llrs(M["channel_probsZ"]),
+                            dtype=torch.float32)
+    seq = torch.as_tensor(alpha_schedule("dynamical", 30))
+    outs = {}
+    for dev in ("cpu", cuda):
+        g = bp.TannerGraph.from_dense(H, device=dev)
+        args = (torch.as_tensor(syn, device=dev), prior.to(dev))
+        if case == "tanh":
+            out = bp.decode_batch_tanh(g, *args, 30)
+        else:
+            kw = dict(damping=dict(damping=0.8),
+                      bfloat16=dict(msg_dtype=torch.bfloat16)).get(case, {})
+            out = bp.decode_batch(g, *args, seq.to(dev), 30, **kw)
+        outs[str(dev)] = {k: v.cpu() for k, v in out.items()}
+    a, b = outs["cpu"], outs[str(cuda)]
+    assert a["converged"].any() and not a["converged"].all()
+    for k in (("hard", "converged", "iterations") if case == "tanh"
+              else a):
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("kw", [dict(damping=0.9), dict(bp_variant="tanh")])
+def test_pooled_round_generic_gpu_matches_cpu(cuda, bundles, kw):
+    """Damped (float32 messages) and tanh rounds: K2 on the card and the
+    plain versions on the CPU give identical flags, and K1 is not
+    launched."""
+    circ, M, decs = bundles
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    randoms = [sample_gate_randoms(gen, 128, circ.num_error_locs, 0.006)
+               for _ in range(2)]
+    outs = {}
+    before = bp_lift_cuda.decode_batch_lift_cuda.launches
+    for dev in ("cpu", str(cuda)):
+        dz, dx = decs[dev]
+        fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
+                                         128, 50, 2, 2,
+                                         msg_dtype=torch.float32, **kw)
+        outs[dev] = fn(None, randoms=[tuple(x.to(dev) for x in r)
+                                      for r in randoms])
+    assert bp_lift_cuda.decode_batch_lift_cuda.launches == before
+    for k, v in outs["cpu"].items():
+        assert torch.equal(v, outs[str(cuda)][k].cpu()), k
+
+
+def test_calibration_histogram_on_card(cuda):
+    """The device histogram of the calibration fit gives numpy's densities
+    on the card."""
+    x = np.random.default_rng(3).normal(1.0, 5.0, 200_000)
+    lo, hi = float(x.min()), float(x.max())
+    want = np.histogram(x, bins=50, range=(lo, hi), density=True)
+    got = calibrate._histogram(torch.as_tensor(x, device=cuda), lo, hi, 50)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)

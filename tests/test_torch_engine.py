@@ -128,10 +128,6 @@ def test_crossing_take():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(alpha_mode="alvarado", alvarado_alpha=0.8), "item 8"),
-    (dict(scopt=True), "item 8"),
-    (dict(bp_variant="tanh"), "item 7"),
-    (dict(damping=0.9), "item 7"),
     (dict(mesh=object()), "item 11"),
 ])
 def test_unported_modes_raise(kwargs, item):

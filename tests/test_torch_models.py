@@ -86,12 +86,14 @@ def test_lifted_graph_identical(built, basis):
 
 def _jax_leaves(dec) -> tuple:
     """The leaves of a JAX BasisDecoder as numpy arrays + metadata."""
-    g, mp = dec.lifted, dec.maps
+    g, mp, tg = dec.lifted, dec.maps, dec.graph
     arrays = dict(
         sel=mp.sel, gate_loc=mp.gate_loc,
         A_loc=np.asarray(mp.A_loc.astype(jnp.float32)),
         prior_grid=g.prior_grid, slot_mask=g.slot_mask, cmask=g.cmask,
-        out_gather=g.out_gather, residual=g.residual, H=dec.H,
+        out_gather=g.out_gather, residual=g.residual,
+        row_cols=tg.row_cols, row_mask=tg.row_mask, col_edges=tg.col_edges,
+        col_mask=tg.col_mask, H=dec.H,
         H_logical=np.asarray(dec.H_logical.astype(jnp.float32)),
         logical_pack=dec.logical_pack, prior=dec.prior,
         alpha_seq=dec.alpha_seq, basis_cols=dec.basis_cols)
@@ -125,6 +127,21 @@ def test_basis_from_jax_round_trip(built, basis):
                            getattr(own.lifted, name)), name
     for name in LIFT_STATICS:
         assert getattr(conv.lifted, name) == getattr(own.lifted, name), name
+    for name in ("row_cols", "row_mask", "col_edges", "col_mask"):
+        a, b = getattr(conv.graph, name), getattr(own.graph, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert np.array_equal(np.asarray(getattr(jdec.graph, name)),
+                              a.numpy()), name
+    for name in ("m", "n", "dr", "dc"):
+        assert getattr(conv.graph, name) == getattr(own.graph, name) == \
+            getattr(jdec.graph, name), name
+    # without the graph's arrays the graph is built from H, identically
+    bare = basis_from_jax({k: v for k, v in arrays.items() if k not in
+                           ("row_cols", "row_mask", "col_edges", "col_mask")},
+                          meta, device="cpu")
+    for name in ("row_cols", "row_mask", "col_edges", "col_mask"):
+        assert torch.equal(getattr(bare.graph, name),
+                           getattr(conv.graph, name)), name
 
 
 def test_port_imports_without_jax():
@@ -149,6 +166,7 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     for name in ("parallel.engine", "ops.osd_cuda", "ops.gather",
+                 "ops.bp", "ops.calibrate",
                  "models.builder", "profile_round", "utils.caching",
                  "scripts.bp_breakdown", "scripts.gather_bench",
                  "scripts.gather_probe", "_kernels", "convert"):
