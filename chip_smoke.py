@@ -1103,11 +1103,55 @@ def main():
             fail(f"{where}: K1 values of unconverged shots differ")
         return int(a["converged"].sum())
 
+    trials13 = engine._calib_trials(None, H_z.shape[1], P)
+    llrs_z = qt.channel_llrs(M["channel_probsZ"])
     t0 = time.time()
     alpha13, r2_13 = calibrate.estimate_alpha_alvarado(
-        H_z, P, trials=engine._calib_trials(None, H_z.shape[1], P),
-        llrs=qt.channel_llrs(M["channel_probsZ"]), seed=SEED, device=dev)
+        H_z, P, trials=trials13, llrs=llrs_z, seed=SEED, device=dev)
     fit13_s = time.time() - t0
+
+    # one calibration point's binning: on the card (calibrate._histogram)
+    # against numpy's np.histogram after a copy to the host (the JAX
+    # package's way), on the buckets of one Alvarado harvest
+    _, g_c, HT_c, prior_c = calibrate._setup(H_z, llrs_z, dev)
+    buckets = calibrate._harvest_buckets(g_c, HT_c, prior_c, P, trials13,
+                                         (SEED,), np.zeros(0, np.float32), 0)
+    del g_c, HT_c
+
+    def bins_card():
+        x = [t.double() for t in buckets]
+        x = [v[torch.isfinite(v) & (v.abs() < 1e29)] for v in x]
+        lo, hi = min(float(v.min()) for v in x), max(float(v.max())
+                                                      for v in x)
+        return [calibrate._histogram(v, lo, hi, 50)[0] for v in x]
+
+    def bins_host():
+        x = [t.cpu().numpy().astype(np.float64) for t in buckets]
+        x = [v[np.isfinite(v) & (np.abs(v) < 1e29)] for v in x]
+        lo, hi = min(v.min() for v in x), max(v.max() for v in x)
+        return [np.histogram(v, 50, range=(lo, hi), density=True)[0]
+                for v in x]
+
+    hist_ms = {}
+    for name, fn_h in (("card", bins_card), ("host", bins_host)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dens = fn_h()
+        hist_ms.setdefault(name, []).append((time.time() - t0) * 1e3)
+        hist_ms[name + "_out"] = dens
+    same_bins = all(np.array_equal(a, b) for a, b in
+                    zip(hist_ms["card_out"], hist_ms["host_out"]))
+    n_msgs = sum(int(t.numel()) for t in buckets)
+    del buckets
+    print(f"phase 13: one calibration point's binning ({n_msgs} messages, "
+          f"50 bins): card {min(hist_ms['card']):.2f} ms, host copy + "
+          f"np.histogram {min(hist_ms['host']):.2f} ms (best of 2); "
+          f"densities {'identical' if same_bins else 'DIFFER'}; an "
+          f"autoregressive calibration bins {2 * MAXITER} such points",
+          flush=True)
+    if not same_bins:
+        fail("phase 13: the card's calibration histogram differs from "
+             "np.histogram")
     conv13 = k1_exact(alpha_schedule("alvarado", MAXITER, alpha13),
                       "phase 13")
     print(f"phase 13: Alvarado fit (basis Z, 500 trials) alpha "
@@ -1132,8 +1176,21 @@ def main():
             return out
         return wrapper
 
+    # fits that raised calibrate.FitFailed and fell back; the R^2 gate's
+    # rejections are the other fallbacks
+    fit_raised = [0]
+    fit_saved = calibrate._fit_log_ratio
+
+    def counting_fit(*a, **kw):
+        try:
+            return fit_saved(*a, **kw)
+        except calibrate.FitFailed:
+            fit_raised[0] += 1
+            raise
+
     for name in saved:
         setattr(engine, name, timed(name))
+    calibrate._fit_log_ratio = counting_fit
     try:
         reset_counts()
         t0 = time.time()
@@ -1147,6 +1204,7 @@ def main():
         ar_s = time.time() - t0
         launches_ar = counts()
         ar_calib_s = calib_s.pop("_calibrate_basis_sequences")
+        ar_raised = fit_raised[0]
         reset_counts()
         sc = qt.run_simulation(
             code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
@@ -1159,18 +1217,23 @@ def main():
     finally:
         for name, fn_s in saved.items():
             setattr(engine, name, fn_s)
+        calibrate._fit_log_ratio = fit_saved
     ler, n = ar["logical_error_rate"], ar["num_trials"]
     ref = AR_REF_ERRS / AR_REF_TRIALS
     z = (ler - ref) / np.sqrt(ler * (1 - ler) / max(n, 1)
                               + ref * (1 - ref) / AR_REF_TRIALS)
     seq_ar = {b: np.asarray(ar[f"alpha_seq_{b}"]) for b in "zx"}
     r2_ar = {b: np.asarray(ar[f"alpha_r2_values_{b}"]) for b in "zx"}
+    n_gated = ar["n_alpha_fallbacks_z"] + ar["n_alpha_fallbacks_x"] - \
+        ar_raised
     print(f"phase 14: run_simulation(alpha_mode='alvarado-autoregressive') "
           f"{CODE} p={P} maxIter {MAXITER}: calibration {ar_calib_s:.1f} s "
           f"(500 trials a basis, {MAXITER} fits each); alpha z "
           f"{seq_ar['z'].min():.4f}-{seq_ar['z'].max():.4f}, x "
           f"{seq_ar['x'].min():.4f}-{seq_ar['x'].max():.4f}; fallbacks z "
-          f"{ar['n_alpha_fallbacks_z']} x {ar['n_alpha_fallbacks_x']}; R^2 "
+          f"{ar['n_alpha_fallbacks_z']} x {ar['n_alpha_fallbacks_x']}, of "
+          f"which {ar_raised} fits raised (no finite sample, no shared bin or"
+          f" no optimum) and {n_gated} were rejected by the gate; R^2 "
           f"min/median z {np.nanmin(r2_ar['z']):.4f}/"
           f"{np.nanmedian(r2_ar['z']):.4f} x {np.nanmin(r2_ar['x']):.4f}/"
           f"{np.nanmedian(r2_ar['x']):.4f}; LER {ler:.5f} "

@@ -13,8 +13,7 @@ maps; ``prior_grid``, ``slot_mask``, ``cmask``, ``out_gather``,
 ``residual`` from the lifted graph; ``H`` (m, n), ``H_logical`` (n, k),
 ``logical_pack``, ``prior``, ``alpha_seq``, ``basis_cols``; ``row_cols``,
 ``row_mask``, ``col_edges``, ``col_mask`` from the padded-CSR Tanner graph
-(:func:`tanner_from_jax`; without them the graph is built from ``H``, a
-function of H alone). The lifted graph's keys are absent when the JAX
+(:func:`tanner_from_jax`). The lifted graph's keys are absent when the JAX
 bundle has no lift (``lifted`` None).
 
 ``meta`` keys: ``num_syn``, ``k`` (trial maps); ``eb_pb``, ``eb_o``,
@@ -78,10 +77,8 @@ def basis_from_jax(arrays: dict, meta: dict, device=None) -> BasisDecoder:
             residual=t("residual", np.bool_),
             **statics)
     H = np.asarray(arrays["H"]).astype(np.uint8)
-    graph = (tanner_from_jax(arrays, dev) if "row_cols" in arrays
-             else TannerGraph.from_dense(H, device=dev))
     return BasisDecoder(
-        maps=maps, graph=graph, lifted=lifted,
+        maps=maps, graph=tanner_from_jax(arrays, dev), lifted=lifted,
         H=torch.as_tensor(H, device=dev),
         HT=torch.as_tensor(np.ascontiguousarray(H.T, np.float32),
                            device=dev),

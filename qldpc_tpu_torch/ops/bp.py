@@ -283,6 +283,16 @@ def decode_batch(graph: TannerGraph, syndrome, prior, alpha_seq,
     return _result(vals, done, iters)
 
 
+def _tanh32(x):
+    """float32 tanh, evaluated in float64 and rounded once."""
+    return torch.tanh(x.double()).to(torch.float32)
+
+
+def _atanh32(x):
+    """float32 atanh, evaluated in float64 and rounded once."""
+    return torch.atanh(x.double()).to(torch.float32)
+
+
 def _tanh_check_update(Q_rows, sgn_syn, clip_val):
     """Tanh/arctanh true-BP check update (reference bp_core,
     src/decoding/kernels.py:171-193). Padded lanes hold +_BIG, whose tanh is
@@ -294,7 +304,7 @@ def _tanh_check_update(Q_rows, sgn_syn, clip_val):
     rounded, and the row product is taken in slot order, so that the CPU and
     the card agree (their float32 transcendentals differ in the last bits,
     which atanh near the clip amplifies)."""
-    t = torch.tanh(Q_rows.double() * 0.5).to(torch.float32)
+    t = _tanh32(Q_rows * 0.5)
     floor = torch.where(t >= 0.0, 1e-15, -1e-15).to(t.dtype)
     t = torch.where(t.abs() < 1e-15, floor, t)
     row_prod = t[:, 0]
@@ -303,7 +313,7 @@ def _tanh_check_update(Q_rows, sgn_syn, clip_val):
     prod_others = row_prod[:, None, :] / t
     prod_c = torch.clamp(prod_others * sgn_syn[:, None, :].to(t.dtype),
                          -clip_val, clip_val)
-    return 2.0 * torch.atanh(prod_c.double()).to(torch.float32)
+    return 2.0 * _atanh32(prod_c)
 
 
 def decode_batch_tanh(graph: TannerGraph, syndrome, prior, maxIter: int,
@@ -337,9 +347,8 @@ def decode_batch_tanh(graph: TannerGraph, syndrome, prior, maxIter: int,
 
 
 def harvest_messages(graph: TannerGraph, syndrome, prior, alpha_seq,
-                     advance_iters: int, damping: float = 1.0,
-                     clip_llr: float = 20.0):
-    """Advance float32 min-sum ``advance_iters`` iterations with no
+                     advance_iters: int, clip_llr: float = 20.0):
+    """Advance undamped float32 min-sum ``advance_iters`` iterations with no
     convergence exit (calibration advances state unconditionally, reference
     alpha.py:219-244), then run one unscaled (alpha = 1) check pass.
 
@@ -353,16 +362,9 @@ def harvest_messages(graph: TannerGraph, syndrome, prior, alpha_seq,
     alpha_seq = torch.as_tensor(alpha_seq, device=dev).to(torch.float32)
     index = _edge_index(graph)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
-    Qold = Q
     for it in range(int(advance_iters)):
         R, *parts = _check_update(Q, sgn_syn, alpha_seq[it], parts=True)
         _, Q_new, _ = _variable_update(R, prior, graph, index, parts)
-        Q_new = torch.clamp(Q_new, -clip_llr, clip_llr)
-        if damping != 1.0:
-            Q_new = torch.clamp(
-                _fused_mix(torch.tensor(damping), Q_new,
-                           torch.tensor(1.0 - damping), Qold),
-                -clip_llr, clip_llr)
-        Q = Qold = torch.where(mask3, Q_new, big)
+        Q = torch.where(mask3, torch.clamp(Q_new, -clip_llr, clip_llr), big)
     R = _check_update(Q, sgn_syn, 1.0)
     return R, graph.row_cols

@@ -29,6 +29,8 @@ from .bp import TannerGraph, alpha_schedule, decode_batch, harvest_messages
 
 logger = logging.getLogger(__name__)
 
+_CHUNK = 512                  # shots a harvest or decode chunk, as in JAX
+
 
 def _dynamical_alpha(k: int) -> float:
     """The dynamical schedule value for iteration k (kernels.py:273)."""
@@ -71,12 +73,20 @@ def _histogram(x, lo: float, hi: float, bins: int):
     return n / np.diff(edges) / n.sum(), edges
 
 
+class FitFailed(ValueError):
+    """The fit itself failed: no finite samples, no bin both histograms
+    fill, or scipy found no optimum. Only this is caught where a failed fit
+    falls back to the dynamical schedule; an error of the device work that
+    fed the fit propagates."""
+
+
 def _fit_log_ratio(x0, x1, bins: int, flip: bool = False,
                    plot_path: Optional[str] = None, title: str = ""):
     """Histogram two sample sets (arrays or tensors, on any device), fit
     log(f0/f1) = a*x (or f1/f0 with flip=True), return (a, r2). Reference
-    alpha.py:9-66 / scopt.py:141-160. matplotlib is imported only when
-    ``plot_path`` is given."""
+    alpha.py:9-66 / scopt.py:141-160. Raises :class:`FitFailed` when the
+    fit cannot be made. matplotlib is imported only when ``plot_path`` is
+    given."""
     from scipy.optimize import curve_fit
 
     x0 = torch.as_tensor(x0).to(torch.float64)
@@ -87,7 +97,7 @@ def _fit_log_ratio(x0, x1, bins: int, flip: bool = False,
     x0 = x0[torch.isfinite(x0) & (x0.abs() < 1e29)]
     x1 = x1[torch.isfinite(x1) & (x1.abs() < 1e29)]
     if x0.numel() == 0 or x1.numel() == 0:
-        raise ValueError("No finite samples for calibration fit")
+        raise FitFailed("No finite samples for calibration fit")
     lo = min(float(x0.min()), float(x1.min()))
     hi = max(float(x0.max()), float(x1.max()))
     h0, edges = _histogram(x0, lo, hi, bins)
@@ -95,11 +105,14 @@ def _fit_log_ratio(x0, x1, bins: int, flip: bool = False,
     centers = (edges[:-1] + edges[1:]) / 2.0
     valid = (h0 > 0) & (h1 > 0)
     if not np.any(valid):
-        raise ValueError("No overlapping histogram bins for calibration fit")
+        raise FitFailed("No overlapping histogram bins for calibration fit")
     xs = centers[valid]
     ys = (np.log(h1[valid] / h0[valid]) if flip
           else np.log(h0[valid] / h1[valid]))
-    popt, _ = curve_fit(lambda x, a: a * x, xs, ys)
+    try:
+        popt, _ = curve_fit(lambda x, a: a * x, xs, ys)
+    except RuntimeError as e:      # scipy: optimal parameters not found
+        raise FitFailed(str(e)) from e
     a = float(popt[0])
     fit = a * xs
     ss_res = np.sum((ys - fit) ** 2)
@@ -153,7 +166,7 @@ def _setup(H, llrs, device):
 
 
 def _harvest_buckets(graph, HT, prior, error_rate, trials, seed_path,
-                     alpha_prefix, advance_iters, chunk=512, seq_len=None):
+                     alpha_prefix, advance_iters, seq_len=None):
     """Unscaled check messages bucketed by the true bit value of the edge's
     variable, after advancing ``advance_iters`` BP iterations with
     ``alpha_prefix``. Chunk c draws from ``_generator(dev, *seed_path,
@@ -170,7 +183,7 @@ def _harvest_buckets(graph, HT, prior, error_rate, trials, seed_path,
     out0, out1 = [], []
     done = 0
     while done < trials:
-        t = min(chunk, trials - done)
+        t = min(_CHUNK, trials - done)
         e, syn = _sample_errors_and_syndromes(
             _generator(dev, *seed_path, done), HT, graph.n, error_rate, t)
         R, _ = harvest_messages(graph, syn, prior, seq_t, advance_iters)
@@ -221,15 +234,15 @@ def estimate_alpha_alvarado_autoregressive(
         if plot_dir is not None:
             prefix = plot_prefix or f"autoregressive_p{error_rate:.6g}"
             plot_path = f"{plot_dir}/{prefix}_iter{k + 1}_alpha_fit.png"
+        t0, t1 = _harvest_buckets(
+            graph, HT, prior, error_rate, trials, (seed, 7919 * k),
+            np.asarray(alphas, dtype=np.float32), k, seq_len=maxIter)
         try:
-            t0, t1 = _harvest_buckets(
-                graph, HT, prior, error_rate, trials, (seed, 7919 * k),
-                np.asarray(alphas, dtype=np.float32), k, seq_len=maxIter)
             a, r2 = _fit_log_ratio(
                 t0, t1, bins, plot_path=plot_path,
                 title=f"Autoregressive alpha fit "
                       f"(p={error_rate:.6g}, iter={k+1})")
-        except (ValueError, RuntimeError) as e:
+        except FitFailed as e:
             logger.warning("autoregressive alpha fit failed at iter %d "
                            "(%s); using dynamical value", k + 1, e)
             a, r2 = np.nan, np.nan
@@ -250,7 +263,7 @@ def estimate_alpha_alvarado_autoregressive(
 
 def estimate_scopt_beta(H, error_rate, trials=10000, bins=50, alpha=1.0,
                         alpha_mode="dynamical", maxIter=50, llrs=None,
-                        seed=0, plot_path: Optional[str] = None, chunk=512,
+                        seed=0, plot_path: Optional[str] = None,
                         device=None) -> Tuple[float, float]:
     """SCOPT beta: fit log(f1/f0) = beta * x on the final posterior LLRs of
     a full (early-exiting) float32 min-sum decode (reference
@@ -262,7 +275,7 @@ def estimate_scopt_beta(H, error_rate, trials=10000, bins=50, alpha=1.0,
     f0, f1 = [], []
     done = 0
     while done < trials:
-        t = min(chunk, trials - done)
+        t = min(_CHUNK, trials - done)
         e, syn = _sample_errors_and_syndromes(
             _generator(dev, seed, done), HT, graph.n, error_rate, t)
         vals = decode_batch(graph, syn, prior, seq, maxIter)["values"]

@@ -192,6 +192,48 @@ def test_invalid_arguments(setup72):
         tcal._fit_log_ratio(np.array([1e30]), np.array([1.0]), 10)
 
 
+def test_only_fit_failures_fall_back(setup72, monkeypatch):
+    """A fit that fails (FitFailed: no sample, no shared bin, or scipy's
+    optimum not found) falls back to the dynamical value; an error of the
+    device work around it (harvest, binning) propagates."""
+    import scipy.optimize
+    H, llrs = setup72["Z"]
+    kw = dict(maxIter=3, trials=64, llrs=llrs, return_fallbacks=True,
+              device="cpu")
+    fit = tcal._fit_log_ratio
+    calls = []
+
+    def fail_second(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise tcal.FitFailed("No overlapping histogram bins")
+        return fit(*a, **k)
+    monkeypatch.setattr(tcal, "_fit_log_ratio", fail_second)
+    alphas, r2s, n_fb = tcal.estimate_alpha_alvarado_autoregressive(
+        H, P, **kw)
+    assert alphas[1] == tcal._dynamical_alpha(1) and np.isnan(r2s[1])
+    assert n_fb >= 1 and np.isfinite(r2s[0])
+
+    def device_error(*a, **k):
+        raise RuntimeError("CUDA error: out of memory")
+    for name in ("_fit_log_ratio", "_harvest_buckets"):
+        with monkeypatch.context() as m:
+            m.setattr(tcal, name, device_error)
+            with pytest.raises(RuntimeError, match="out of memory"):
+                tcal.estimate_alpha_alvarado_autoregressive(H, P, **kw)
+
+    def no_optimum(*a, **k):
+        raise RuntimeError("Optimal parameters not found")
+    monkeypatch.setattr(tcal, "_fit_log_ratio", fit)
+    monkeypatch.setattr(scipy.optimize, "curve_fit", no_optimum)
+    rng = np.random.default_rng(0)
+    with pytest.raises(tcal.FitFailed, match="Optimal parameters"):
+        tcal._fit_log_ratio(rng.normal(2, 1, 500), rng.normal(-2, 1, 500),
+                            20)
+    _, r2s, n_fb = tcal.estimate_alpha_alvarado_autoregressive(H, P, **kw)
+    assert n_fb == 3 and np.isnan(r2s).all()
+
+
 def test_plot_written_only_when_asked(tmp_path, setup72):
     H, llrs = setup72["Z"]
     tcal.estimate_alpha_alvarado(H, 0.01, trials=200, llrs=llrs,

@@ -137,12 +137,14 @@ def test_layered_dispatch_from_converted_bundles(pool_setup, jax_flags):
     layered dispatch to the JAX flags, as the port's own bundles do."""
     decs = []
     for jdec in pool_setup["jdecs"]:
-        g, mp = jdec.lifted, jdec.maps
+        g, mp, tg = jdec.lifted, jdec.maps, jdec.graph
         arrays = dict(
             sel=mp.sel, gate_loc=mp.gate_loc,
             A_loc=np.asarray(mp.A_loc, np.float32),
             prior_grid=g.prior_grid, slot_mask=g.slot_mask, cmask=g.cmask,
-            out_gather=g.out_gather, residual=g.residual, H=jdec.H,
+            out_gather=g.out_gather, residual=g.residual,
+            row_cols=tg.row_cols, row_mask=tg.row_mask,
+            col_edges=tg.col_edges, col_mask=tg.col_mask, H=jdec.H,
             H_logical=np.asarray(jdec.H_logical, np.float32),
             logical_pack=jdec.logical_pack, prior=jdec.prior,
             alpha_seq=jdec.alpha_seq, basis_cols=jdec.basis_cols)
