@@ -51,8 +51,20 @@ on the card, then K1 + K2 with the fitted sequences) against the matched
 JAX record (0.119, 200/1686) within 3 sigma, K1 against its plain version
 under the fitted sequence, alpha_mode="alvarado" with scopt=True (alpha in
 (0.05, 1.5), beta < 0), and one 4096-shot dispatch each with damping 0.8
-and with tanh BP (K2 and no K1). Each path runs with every launch count
-set to 0 just before it and read just after. Exits non-zero, and prints
+and with tanh BP (K2 and no K1), (15) the multi-code path at full width
+([[90,8,10]] + [[108,8,10]], 10 cycles, p=0.004, maxIter 20, OSD order 2,
+1024 shots a round, 4 rounds a dispatch): K1 (both bases) and K2 (stage 1,
+prefix, full width) of each code against their plain versions, one pooled
+multi-code dispatch against each code's own dispatch on the same seeds,
+run_multi_code_simulation to 200 errors a code against the JAX records
+(VALIDATION.md:15, :17) within 3 sigma, launching K1 and K2 only, and a
+fixed three-dispatch run for the steady shots/s, (16) the shot mesh on the
+card: multihost_smoke --device cuda (two processes sharing the card in one
+gloo group against one process holding two shards, dynamical and
+calibrated), and a one-rank NCCL group whose run_simulation (all_reduce,
+all_gather and broadcast on CUDA tensors) equals the run without a group.
+Each path runs with every launch count set to 0 just before it and read
+just after. Exits non-zero, and prints
 no result, without a GPU, outside a checkout, or when any phase fails.
 """
 from __future__ import annotations
@@ -97,6 +109,13 @@ BF16_MAX_DIFFERING = 6  # phase 13: bfloat16 shots allowed to differ
 # [[144,12,12]] p=0.004 gated autoregressive alpha, maxIter 50, OSD order 2:
 # the JAX package's record (VALIDATION.md:106)
 AR_REF_ERRS, AR_REF_TRIALS = 200, 1686
+# phase 15: the multi-code configuration (scripts/multicode_bench.py), and
+# the JAX package's dynamical maxIter-20 records of its two codes
+MC_CODES = ("[[90, 8, 10]]", "[[108, 8, 10]]")
+MC_CYCLES, MC_MAXITER = 10, 20
+MC_REF = {"[[90, 8, 10]]": (200, 918, "VALIDATION.md:15"),
+          "[[108, 8, 10]]": (200, 1191, "VALIDATION.md:17")}
+MC_STEADY_DISPATCHES = 3  # the fixed-length run that gives steady shots/s
 
 
 def fail(msg: str):
@@ -129,10 +148,12 @@ def main():
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
         from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
-                                                 sample_gate_randoms)
-        from qldpc_tpu_torch.parallel import engine
+                                                 sample_gate_randoms,
+                                                 trial_batch)
+        from qldpc_tpu_torch.parallel import engine, mesh
         from qldpc_tpu_torch.scripts import (bp_breakdown, device_ms,
-                                             gather_bench, gather_probe)
+                                             gather_bench, gather_probe,
+                                             multihost_smoke)
         from qldpc_tpu_torch.utils.caching import (compute_cache_key,
                                                    save_matrices)
     except ImportError as e:
@@ -1296,6 +1317,269 @@ def main():
         if rd:
             fail(f"phase 14: {name}: {rd} rank-deficient shot-bases")
 
+    # ---- phase 15: multi-code at full width ----
+    # [[90,8,10]] + [[108,8,10]], 10 cycles, p=0.004, maxIter 20, OSD order
+    # 2, dynamical alpha, 1024 shots a round, 4 rounds a dispatch
+    t15 = time.time()
+    mc_specs, mc_M, mc = [], [], {}
+    seq_mc = alpha_schedule("dynamical", MC_MAXITER)
+    for name in MC_CODES:
+        c = qt.get_code(name)
+        circ_c = qt.SyndromeCircuit(c, num_cycles=MC_CYCLES)
+        M_c = qt.build_decoding_matrices(circ_c, c.Lx, c.Lz, P)
+        dz, dx = (engine._make_basis(circ_c, M_c, b, seq_mc,
+                                     osd_order=OSD_ORDER, device=dev)
+                  for b in "ZX")
+        mc_M.append(M_c)
+        mc_specs.append(dict(dec_z=dz, dec_x=dx,
+                             n_locs=circ_c.num_error_locs, error_rate=P,
+                             batch=BATCH, maxIter=MC_MAXITER,
+                             osd_order=OSD_ORDER))
+        # K1 (both bases) and K2 (each basis's BP-failed shots at stage 1,
+        # prefix and full width) against their plain versions, one batch
+        trials_c = trial_batch(torch.Generator(device=dev).manual_seed(SEED),
+                               P, dz.maps, dx.maps, circ_c.num_error_locs,
+                               BATCH)
+        mc[name] = {}
+        for basis, d in (("Z", dz), ("X", dx)):
+            syn = trials_c[f"syndrome_{basis.lower()}"]
+            args = (d.lifted, syn, d.prior, d.alpha_seq, MC_MAXITER)
+            a = bp_lift_cuda.decode_batch_lift_cuda(*args)
+            torch.cuda.synchronize()
+            b = bp_lift_cuda.decode_batch_lift_plain(*args)
+            for key in ("hard", "converged", "iterations", "values"):
+                if not torch.equal(a[key], b[key]):
+                    fail(f"phase 15: K1 {key} differs from the plain version "
+                         f"at {name} basis {basis}")
+            geo = bp_lift_cuda.flood_geometry(d.lifted, dev)
+            tabs = bp_lift_cuda.flood_tables(d.lifted, dev)
+            shot_iters = int((a["iterations"].long() + 1).sum())
+            kb, bb = bound(
+                nbytes(syn, a["values"], a["hard"], a["converged"],
+                       a["iterations"], d.prior, d.alpha_seq,
+                       geo["pos_info"], geo["wrap_words"],
+                       tabs["prior_grid"], tabs["out_gather"],
+                       tabs["residual"]),
+                K1_OPS_PER_EDGE_ITER * int(d.H.sum()) * shot_iters)
+            r = dict(k1_ms=cuda_ms(
+                lambda: bp_lift_cuda.decode_batch_lift_cuda(*args), 5),
+                k1_plain_ms=cuda_ms(
+                    lambda: bp_lift_cuda.decode_batch_lift_plain(*args), 1),
+                k1_bound_ms=kb, k1_bound_by=bb,
+                converged=int(a["converged"].sum()),
+                mean_iters=shot_iters / BATCH,
+                k1_shape=bp_lift_cuda.flood_launch_info(d.lifted, dev))
+            fail_b = ~a["converged"]
+            m_c, K_c, R_c = d.H.shape[0], d.K, d.basis_cols.shape[0]
+            res_c = (syn[fail_b].to(torch.int32)
+                     ^ ((a["hard"][fail_b].float() @ d.HT).to(torch.int32)
+                        & 1))
+            cols_c = torch.sort(a["values"][fail_b].abs(), dim=1,
+                                stable=True).indices
+            HT_c = d.H.T.contiguous()
+            Hb_c = torch.zeros((m_c, -(-R_c // 32) * 32), dtype=torch.uint8,
+                               device=dev)
+            Hb_c[:, :R_c] = d.H[:, d.basis_cols]
+            pref_c = osd._gather_pack(HT_c, cols_c[:, :K_c], K_c,
+                                      words_major=True)
+            widths_c = {
+                "stage1": (osd._gather_pack(HT_c, cols_c[:, :256], 256,
+                                            words_major=True), 256),
+                "prefix": (pref_c, K_c),
+                "full": (torch.cat([pref_c, osd._pack_columns(Hb_c).T
+                                    .contiguous()[None]
+                                    .expand(len(cols_c), -1, -1)], 1),
+                         K_c + R_c)}
+            for width, (Hp, Kw) in widths_c.items():
+                for exit_on_valid in (False, True):
+                    ka, kp = k2_exact(Hp, res_c, Kw, m_c,
+                                      f"phase 15: {name} {basis} {width}",
+                                      rank=d.rank,
+                                      exit_on_valid=exit_on_valid)
+                k2_err = max(k2_err, max(
+                    float((x.long() - y.long()).abs().max())
+                    for x, y in zip(ka, kp)))
+                k2b, k2by = bound(
+                    2 * nbytes(Hp, res_c) + nbytes(ka[4], ka[5]),
+                    K2_OPS_PER_ROW_STEP * m_c * int(ka[5].long().sum())
+                    + K2_OPS_PER_XOR_WORD * int(kp[6].sum()))
+                r[f"k2_{width}"] = dict(
+                    ms=cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(
+                        Hp, res_c, Kw, m_c, rank=d.rank), 5),
+                    words=Hp.shape[1], shots=len(Hp), bound_ms=k2b,
+                    bound_by=k2by, max_steps=int(ka[5].max()))
+            Hp, Kw = widths_c["stage1"]
+            r["k2_stage1"]["plain_ms"] = cuda_ms(
+                lambda: osd_cuda.eliminate_blocks_plain(Hp, res_c, Kw, m_c,
+                                                        rank=d.rank), 1)
+            mc[name][basis] = r
+            print(f"phase 15: {name} basis {basis} ({m_c} x {d.H.shape[1]}, "
+                  f"B={BATCH}, maxIter {MC_MAXITER}): K1 exact, "
+                  f"{r['k1_ms']:.3f} ms (plain {r['k1_plain_ms']:.1f} ms, "
+                  f"bound {kb:.4f} ms by {bb}; {r['k1_shape']['state_bytes']}"
+                  f" state bytes a shot in {r['k1_shape']['state_in']}, "
+                  f"{r['k1_shape']['blocks_per_sm']} blocks per SM), "
+                  f"{r['converged']}/{BATCH} converged, mean "
+                  f"{r['mean_iters']:.2f} iterations; K2 exact on "
+                  f"{len(cols_c)} failed shots with and without the validity "
+                  f"exit: " + ", ".join(
+                      f"{w} ({r[f'k2_{w}']['words']} words) "
+                      f"{r[f'k2_{w}']['ms']:.3f} ms (bound "
+                      f"{r[f'k2_{w}']['bound_ms']:.4f} ms by "
+                      f"{r[f'k2_{w}']['bound_by']})" for w in widths_c)
+                  + f"; stage-1 plain {r['k2_stage1']['plain_ms']:.1f} ms",
+                  flush=True)
+            del widths_c, pref_c, HT_c, Hb_c
+
+    # one pooled multi-code dispatch against each code's own pooled
+    # dispatch on the same generator seeds
+    fn_mc = engine.make_multi_code_pooled_round_fn(mc_specs, RPD)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_mc = fn_mc([mesh.generator(SEED, 0, i, device=dev)
+                    for i in range(len(MC_CODES))])
+    torch.cuda.synchronize()
+    mc_dispatch_s = time.time() - t0
+    c_mc = counts()
+    for i, (name, sp) in enumerate(zip(MC_CODES, mc_specs)):
+        own = engine.make_pooled_round_fn(
+            sp["dec_z"], sp["dec_x"], sp["n_locs"], P, BATCH, MC_MAXITER,
+            OSD_ORDER, RPD)(mesh.generator(SEED, 0, i, device=dev))
+        for key, v in own.items():
+            if v.shape != (RPD * BATCH,) or not torch.equal(v,
+                                                            out_mc[i][key]):
+                fail(f"phase 15: {name}'s flag {key} differs between the "
+                     "multi-code dispatch and its own dispatch")
+    print(f"phase 15: one multi-code dispatch ({RPD}x{BATCH} shots a code) "
+          f"in {mc_dispatch_s:.2f} s equals each code's own pooled dispatch "
+          f"on the same seeds; launches K1 {c_mc['k1']} K2 {c_mc['k2']}; "
+          "BP converged " + ", ".join(
+              f"{n} z {int(o['z_conv'].sum())} x {int(o['x_conv'].sum())}"
+              for n, o in zip(MC_CODES, out_mc)), flush=True)
+
+    # run_multi_code_simulation to 200 errors a code against the records,
+    # then a fixed-length run for the steady rate
+    mc_kw = dict(num_cycles=MC_CYCLES, maxIter=MC_MAXITER,
+                 osd_order=OSD_ORDER, batch_size=BATCH,
+                 rounds_per_dispatch=RPD, base_seed=SEED,
+                 precomputed_matrices=mc_M, verbose=False)
+    reset_counts()
+    t0 = time.time()
+    res_mc = qt.run_multi_code_simulation(
+        list(MC_CODES), P, target_logical_errors=200,
+        max_trials=LER_MAX_TRIALS, **mc_kw)
+    torch.cuda.synchronize()
+    mc_run_s = time.time() - t0
+    launches_mc = counts()
+    if launches_mc["k1"] <= 0 or launches_mc["k2"] <= 0 or any(
+            v for k, v in launches_mc.items() if k not in ("k1", "k2")):
+        fail(f"phase 15: the multi-code run did not run K1 and K2 alone: "
+             f"{launches_mc}")
+    for name in MC_CODES:
+        r = res_mc[name]
+        ler, n = r["logical_error_rate"], r["num_trials"]
+        ref_errs, ref_n, src = MC_REF[name]
+        ref = ref_errs / ref_n
+        z = (ler - ref) / np.sqrt(ler * (1 - ler) / max(n, 1)
+                                  + ref * (1 - ref) / ref_n)
+        mc[name]["run"] = dict(ler=ler, n=n, z=z)
+        print(f"phase 15: run_multi_code_simulation {name}: LER {ler:.5f} "
+              f"({r['logical_errors']}/{n}) against the JAX record {ref:.3f} "
+              f"({ref_errs}/{ref_n}, {src}): z {z:+.2f}; "
+              f"{r['osd_rank_deficient_shots']} rank-deficient shot-bases; "
+              f"shots/s {r['shots_per_sec']:.1f}, combined "
+              f"{r['combined_shots_per_sec']:.1f}", flush=True)
+        if r["logical_errors"] < 200 or abs(z) > 3:
+            fail(f"phase 15: {name} LER {ler:.5f} is not within 3 sigma of "
+                 f"the JAX record {ref:.3f}")
+    reset_counts()
+    steady_mc = qt.run_multi_code_simulation(
+        list(MC_CODES), P, max_trials=MC_STEADY_DISPATCHES * RPD * BATCH,
+        **mc_kw)
+    torch.cuda.synchronize()
+    launches_steady = counts()
+    print(f"phase 15: run to 200 errors a code: launches K1 "
+          f"{launches_mc['k1']} K2 {launches_mc['k2']} (nothing else), "
+          f"{mc_run_s:.1f} s; fixed {MC_STEADY_DISPATCHES}-dispatch run "
+          f"({MC_STEADY_DISPATCHES * RPD * BATCH} shots a code, the first "
+          f"dispatch excluded from the rates): " + ", ".join(
+              f"{n} {r['shots_per_sec']:.1f} shots/s (LER "
+              f"{r['logical_error_rate']:.5f})"
+              for n, r in steady_mc.items())
+          + f", combined {steady_mc[MC_CODES[0]]['combined_shots_per_sec']:.1f}"
+          f" shots/s; launches K1 {launches_steady['k1']} K2 "
+          f"{launches_steady['k2']}; phase {time.time() - t15:.1f} s",
+          flush=True)
+    del mc_specs, out_mc
+
+    # ---- phase 16: the shot mesh on the card ----
+    # two processes share the card in one gloo group (NCCL refuses two
+    # ranks on one GPU), against this process holding two shards
+    t16 = time.time()
+    verdict = multihost_smoke.main(["--device", "cuda"])
+    if not verdict["ok"]:
+        fail(f"phase 16: the two-process run differs from the two-shard "
+             f"run: {verdict}")
+    print(f"phase 16: multihost_smoke --device cuda: both configurations "
+          f"identical in two gloo processes (one shard each) and in one "
+          f"process (two shards): " + "; ".join(
+              f"{nm} {v['single']['num_trials']} trials, "
+              f"{v['single']['logical_errors']} errors"
+              for nm, v in verdict.items() if isinstance(v, dict))
+          + f" ({time.time() - t16:.1f} s)", flush=True)
+
+    # a one-rank NCCL group drives run_simulation through the all_reduce of
+    # the counts, the all_gather of the crossing round's flags and the
+    # broadcasts of the seed and the fitted sequences, on CUDA tensors; it
+    # must equal the same run without a process group
+    import torch.distributed as dist
+    cfg = multihost_smoke.CONFIGS["calibrated"]
+    alone = multihost_smoke.run_config(cfg, dev)
+    seen = {}
+    saved_coll = {nm: getattr(dist, nm)
+                  for nm in ("all_reduce", "all_gather", "broadcast")}
+
+    def recording(nm):
+        def call(tensor, *a, **kw):
+            t = tensor[0] if isinstance(tensor, list) else tensor
+            seen.setdefault(nm, set()).add(t.device.type)
+            return saved_coll[nm](tensor, *a, **kw)
+        return call
+
+    os.environ.update(QLDPC_COORDINATOR=f"localhost:"
+                      f"{multihost_smoke.free_port()}",
+                      QLDPC_NUM_PROCESSES="1", QLDPC_PROCESS_ID="0")
+    t0 = time.time()
+    try:
+        if not mesh.distributed_init_from_env():
+            fail("phase 16: distributed_init_from_env did not join a group")
+        if dist.get_backend() != "nccl":
+            fail(f"phase 16: the default backend on the card is "
+                 f"{dist.get_backend()}, not nccl")
+        for nm in saved_coll:
+            setattr(dist, nm, recording(nm))
+        in_group = multihost_smoke.run_config(cfg, dev)
+    finally:
+        for nm, f in saved_coll.items():
+            setattr(dist, nm, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("QLDPC_COORDINATOR", "QLDPC_NUM_PROCESSES",
+                  "QLDPC_PROCESS_ID"):
+            os.environ.pop(k, None)
+    if in_group != alone:
+        fail(f"phase 16: the one-rank NCCL run differs from the run without "
+             f"a group: {in_group} vs {alone}")
+    if set(seen) != set(saved_coll) or any(v != {"cuda"}
+                                           for v in seen.values()):
+        fail(f"phase 16: collectives seen in the NCCL run: {seen}")
+    print(f"phase 16: one-rank NCCL group: run_simulation (calibrated, "
+          f"{in_group['num_trials']} trials, {in_group['logical_errors']} "
+          f"errors) equals the run without a group; all_reduce, all_gather "
+          f"and broadcast ran on CUDA tensors ({time.time() - t0:.1f} s); "
+          f"NCCL across GPUs is not checked (one card)", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -1303,7 +1587,12 @@ def main():
              launches=launches["k1"], max_abs_err=k1["Z"]["max_abs_err"],
              ms=k1["Z"]["ms"], plain_ms=k1["Z"]["plain_ms"],
              bound_ms=k1["Z"]["bound_ms"], bound_by=k1["Z"]["bound_by"],
-             library_ms=None),
+             library_ms=None, multicode_launches=launches_mc["k1"],
+             at_multicode={n: {b: dict(ms=r["k1_ms"],
+                                       plain_ms=r["k1_plain_ms"],
+                                       bound_ms=r["k1_bound_ms"])
+                               for b, r in mc[n].items() if b in "ZX"}
+                           for n in MC_CODES}),
         dict(name="gf2_elim_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/gf2_elim.cu",
              replaces="qldpc_tpu/ops/osd_pallas.py:54",
@@ -1312,7 +1601,13 @@ def main():
              kernel_ms=k2["stage1"]["shape"]["kernel_ms"],
              plain_ms=k2["stage1"]["plain_ms"],
              bound_ms=k2["stage1"]["bound_ms"],
-             bound_by=k2["stage1"]["bound_by"], library_ms=None),
+             bound_by=k2["stage1"]["bound_by"], library_ms=None,
+             multicode_launches=launches_mc["k2"],
+             at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
+                                           bound_ms=r[f"k2_{w}"]["bound_ms"])
+                                   for w in ("stage1", "prefix", "full")}
+                               for b, r in mc[n].items() if b in "ZX"}
+                           for n in MC_CODES}),
         dict(name="bp_layered_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_layered.cu",
              replaces="qldpc_tpu/ops/bp_lift_pallas.py:255",

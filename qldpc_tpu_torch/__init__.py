@@ -5,7 +5,11 @@ round (sampling, min-sum BP, OSD, logical readout) runs on an NVIDIA GPU
 through hand-written CUDA kernels (``csrc/``), with a plain PyTorch twin of
 each kernel for CPU tensors. Calibration and the BP variants the JAX package
 runs as XLA (damped, tanh, graphs without a lift) are PyTorch ops on the
-same device.
+same device. ``run_simulation`` and ``run_multi_code_simulation`` run over
+a shot mesh (``parallel/mesh.py``): one process per GPU in a
+``torch.distributed`` group joined by ``distributed_init_from_env()`` from
+the ``QLDPC_COORDINATOR``, ``QLDPC_NUM_PROCESSES`` and ``QLDPC_PROCESS_ID``
+variables, or several shards in one process.
 
 Device rule: every entry point runs on ``cuda`` by default and raises when no
 GPU is present unless the caller passes ``device="cpu"``. Nothing falls back
@@ -34,7 +38,7 @@ def resolve_device(device=None) -> torch.device:
 
 def __getattr__(name):
     # lazy: the engine pulls in the whole decode stack
-    if name == "run_simulation":
-        from .parallel.engine import run_simulation
-        return run_simulation
+    if name in ("run_simulation", "run_multi_code_simulation"):
+        from .parallel import engine
+        return getattr(engine, name)
     raise AttributeError(name)

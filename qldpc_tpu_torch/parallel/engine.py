@@ -1,9 +1,10 @@
-"""Monte-Carlo logical-error-rate engine on one CUDA device.
+"""Monte-Carlo logical-error-rate engine on CUDA devices.
 
-Port of the JAX package's ``run_simulation``: per-basis alpha sequences
-(dynamical, or calibrated on the device: Alvarado, autoregressive
-Alvarado; optional SCOPT beta, reported), BP, pooled, residual-sorted OSD
-with the staged eliminator, logical readout, and exact sequential stopping.
+Port of the JAX package's ``run_simulation`` and
+``run_multi_code_simulation``: per-basis alpha sequences (dynamical, or
+calibrated on the device: Alvarado, autoregressive Alvarado; optional
+SCOPT beta, reported), BP, pooled, residual-sorted OSD with the staged
+eliminator, logical readout, and exact sequential stopping.
 One decode round = ``batch`` shots: sample gate faults -> signature matmul
 -> BP -> OSD on the shots BP did not converge (kernel K2, or K4 / K5 under
 ``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical comparison.
@@ -13,10 +14,13 @@ damped on a lifted graph, the roll decoder (ops/bp_lift.py); tanh BP and
 graphs without a lift, the padded-CSR decoder (ops/bp.py). Stopping
 reproduces the reference's sequential rule exactly: per-shot error flags
 are read in shot order and the run truncates at the trial where the target
-error count is reached.
+error count is reached. A multi-code run decodes every code's batch in
+each dispatch and stops each code at its own crossing trial.
 
-Not ported yet: a device mesh (raises NotImplementedError naming ROADMAP.md
-Queue A item 11).
+Both entry points run over a shot mesh (``parallel/mesh.py``): the shards
+of a ``torch.distributed`` process group, one process per GPU, or several
+shards in one process. Steady rounds read only all-reduced counts; the
+per-shot flags are gathered only in a crossing (or truncated final) round.
 """
 from __future__ import annotations
 
@@ -42,22 +46,13 @@ from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops.osd import choose_K, osd_batch
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
+from .mesh import (COUNT_KEYS, ShotMesh, broadcast_from_rank0,
+                   gather_flags, generator, shard_rounds, shot_mesh)
 
 logger = logging.getLogger(__name__)
 
 _SAMPLER_KEYS = ("z_loc_gate_loc", "z_loc_role", "z_loc_class",
                  "x_loc_gate_loc", "x_loc_role", "x_loc_class")
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to qldpc_tpu_torch yet (ROADMAP.md Queue A "
-        f"{item}); use the JAX package qldpc_tpu for it")
-
-
-def _check_supported(mesh=None):
-    if mesh is not None:
-        raise _unported("a device mesh", "item 11 (multi-device)")
 
 
 def ensure_sampler_metadata(matrices: Dict, circ: SyndromeCircuit, Lx, Lz,
@@ -347,9 +342,11 @@ def _calibrate_basis_sequences(matrices, error_rate, alpha_mode,
     (seq_z, seq_x, result_extra); result_extra holds the fit values and
     ``alpha_z`` / ``alpha_x``.
 
-    On several processes the JAX package broadcasts the fitted sequences
-    from process 0; the port's multi-device runs (ROADMAP Queue A item 11)
-    will add that broadcast here."""
+    Under a process group the fitted sequences are broadcast from rank 0 as
+    float32, as the JAX package does from process 0: every rank must decode
+    with the same sequences, and each rank's fit is not trusted to agree
+    bit for bit. ``alpha_seq_*`` records the sequences after the
+    broadcast."""
     llrs_z = channel_llrs(matrices["channel_probsZ"])
     llrs_x = channel_llrs(matrices["channel_probsX"])
     result_extra: Dict[str, Any] = {}
@@ -409,6 +406,9 @@ def _calibrate_basis_sequences(matrices, error_rate, alpha_mode,
         raise ValueError(f"Unsupported alpha_mode: {alpha_mode}")
 
     if alpha_mode != "dynamical":
+        seq_z, seq_x = broadcast_from_rank0(
+            np.stack([np.asarray(seq_z, np.float32),
+                      np.asarray(seq_x, np.float32)]))
         # the per-iteration sequences the decoder consumes
         result_extra["alpha_seq_z"] = np.asarray(seq_z, np.float32).tolist()
         result_extra["alpha_seq_x"] = np.asarray(seq_x, np.float32).tolist()
@@ -444,18 +444,22 @@ def _crossing_take(a: np.ndarray, remaining: int) -> int:
     return int(np.searchsorted(np.cumsum(a), remaining)) + 1
 
 
-_COUNT_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
-
-
-def _drive_stopping_rounds(dispatch, n_streams: int, round_shots: int,
-                           max_trials: int, target_logical_errors,
-                           verbose: bool, names, on_progress=None):
-    """The sequential-stopping round loop. ``dispatch(round_idx)`` -> list
-    of per-stream flag dicts. Trials are accounted in shot order; each
-    stream truncates at the exact trial where its
-    ``target_logical_errors``-th error occurs, and the run ends when every
-    stream is done. Steady rounds read five counts per stream; per-shot
-    flags are read only in a crossing (or truncated final) round.
+def _drive_stopping_rounds(dispatch, gather, n_streams: int,
+                           round_shots: int, max_trials: int,
+                           target_logical_errors, verbose: bool, names,
+                           on_progress=None):
+    """The sequential-stopping round loop, shared by ``run_simulation`` (one
+    stream) and ``run_multi_code_simulation`` (one stream per code).
+    ``dispatch(round_idx)`` -> list of per-stream flag dicts from
+    :func:`~qldpc_tpu_torch.parallel.mesh.shard_rounds` (this process's
+    per-shot flags and the group's ``<flag>_count`` totals). Trials are
+    accounted in global shot order; each stream truncates at the exact
+    trial where its ``target_logical_errors``-th error occurs, and the run
+    ends when every stream is done (a finished code keeps being decoded and
+    its share discarded until the slowest finishes). Steady rounds read
+    only the counts; the per-shot flags go through ``gather`` (every
+    shard's, in shard order) only in a crossing (or truncated final) round,
+    which every rank reaches together.
 
     Returns dict with lists ``trials``, ``z_errs``, ``x_errs``,
     ``tot_errs``, ``rankdef``, ``steady_trials`` and scalars ``elapsed``,
@@ -477,13 +481,14 @@ def _drive_stopping_rounds(dispatch, n_streams: int, round_shots: int,
             if done[i]:
                 continue
             take = min(round_shots, max_trials - trials[i])
-            a_cnt, z_inc, x_inc, rz, rx = torch.stack(
-                [o[k].sum() for k in _COUNT_KEYS]).tolist()  # one host read
+            a_cnt, z_inc, x_inc, rz, rx = (o[f"{k}_count"]
+                                           for k in COUNT_KEYS)
             rd = rz + rx
             crossing = (stop_on_errors
                         and tot[i] + a_cnt >= target_logical_errors)
             if crossing or take < round_shots:
-                g = {k: o[k][:take].cpu().numpy() for k in _COUNT_KEYS}
+                g = gather({k: o[k] for k in COUNT_KEYS})
+                g = {k: v[:take] for k, v in g.items()}
                 a = g["any_err"]
                 if stop_on_errors and a.size and \
                         tot[i] + int(a.sum()) >= target_logical_errors:
@@ -506,6 +511,12 @@ def _drive_stopping_rounds(dispatch, n_streams: int, round_shots: int,
             if (stop_on_errors and tot[i] >= target_logical_errors) or \
                     trials[i] >= max_trials:
                 done[i] = True
+                if verbose and n_streams > 1 and not all(done):
+                    logger.info(
+                        "multi-code: %s reached its target after %d trials; "
+                        "its share of each remaining launch is discarded "
+                        "until the slowest code finishes",
+                        names[i], trials[i])
             if on_progress is not None:
                 on_progress(i, trials[i], tot[i])
         if t_steady is None:  # the first round carries the kernel builds
@@ -522,6 +533,163 @@ def _drive_stopping_rounds(dispatch, n_streams: int, round_shots: int,
                 steady_elapsed=steady_elapsed)
 
 
+def _shared_seed(base_seed: Optional[int]) -> int:
+    """The run's base seed, drawn when None and taken from rank 0 under a
+    process group, so every rank samples the same streams."""
+    if base_seed is None:
+        base_seed = int(np.random.randint(0, 2**31))
+    return int(broadcast_from_rank0(np.array([base_seed], np.int64))[0])
+
+
+def make_multi_code_pooled_round_fn(specs, n_rounds: int):
+    """Several codes' rounds in one dispatch: ``n_rounds`` rounds of every
+    code, each code with cross-round OSD compaction over its own pool
+    (codes have different shapes, so pools are per code, as in the JAX
+    package).
+
+    ``specs``: list of dicts with keys dec_z, dec_x, n_locs, error_rate,
+    batch, maxIter, osd_order. Returns ``pooled(gens, randoms=None)`` ->
+    list of per-code flattened (n_rounds * batch,) flag dicts; ``gens`` has
+    one generator per code, and ``randoms[i]`` (code-major: a list per
+    round of (err, pauli, cat2)) replaces code i's draws. Each code runs
+    exactly :func:`make_pooled_round_fn` with the JAX multi-code defaults
+    (flooding min-sum, damping 1), so its flags are those of its own
+    single-code dispatch on the same draws."""
+    fns = [make_pooled_round_fn(sp["dec_z"], sp["dec_x"], sp["n_locs"],
+                                sp["error_rate"], sp["batch"], sp["maxIter"],
+                                sp["osd_order"], n_rounds) for sp in specs]
+
+    def pooled(gens, randoms=None):
+        return [fn(gen, None if randoms is None else randoms[i])
+                for i, (fn, gen) in enumerate(zip(fns, gens))]
+
+    return pooled
+
+
+def make_multi_code_round_fn(specs):
+    """One round of every code: ``fn(gens, randoms=None)`` with
+    ``randoms[i]`` one (err, pauli, cat2) per code (the one-round pool of
+    :func:`make_multi_code_pooled_round_fn`)."""
+    pooled = make_multi_code_pooled_round_fn(specs, 1)
+    return lambda gens, randoms=None: pooled(
+        gens, None if randoms is None else [[r] for r in randoms])
+
+
+def _gens(base_seed: int, mesh: ShotMesh, dev, n_codes: Optional[int] = None):
+    """This process's generators: one per shard, or (multi-code) a list of
+    one per code per shard; shard s, code i seeded from (base_seed, s, i)."""
+    if n_codes is None:
+        return [generator(base_seed, s, device=dev) for s in mesh.shards]
+    return [[generator(base_seed, s, i, device=dev) for i in range(n_codes)]
+            for s in mesh.shards]
+
+
+def run_multi_code_simulation(
+    codes, error_rate, num_cycles=None, maxIter=50, osd_order=0,
+    alpha_mode="dynamical", alvarado_alpha=None,
+    target_logical_errors=None, max_trials=None,
+    batch_size: Optional[int] = None,
+    rounds_per_dispatch: Optional[int] = None,
+    precomputed_matrices=None, base_seed=None, verbose: bool = True,
+    mesh: Optional[ShotMesh] = None, alpha_estimation_trials=None,
+    alpha_estimation_bins=50, estimation_plot_dir=None, device=None,
+) -> Dict[str, Dict[str, Any]]:
+    """Several codes' Monte-Carlo LER estimates from one dispatch per round,
+    with the JAX package's signature (plus ``device``: None = "cuda"; "cpu"
+    runs the plain PyTorch versions) and result keys.
+
+    Every dispatch decodes a batch (per shard) for every code; the run goes
+    on until every code has reached ``target_logical_errors`` (or
+    ``max_trials``), and each code's tally is cut at its own crossing
+    trial. A code that finishes early keeps being decoded, its share
+    discarded, until the slowest finishes (logged).
+
+    Args:
+      codes: list of code objects (e.g. ``get_code(name)``) or registry
+        names.
+      num_cycles: per-code cycles; None uses each code's distance.
+      precomputed_matrices: optional list, aligned with ``codes``.
+      alpha_mode: "dynamical", "alvarado" or "alvarado-autoregressive";
+        calibration runs once per code with seed ``base_seed + 101*i``.
+      mesh: a :class:`~qldpc_tpu_torch.parallel.mesh.ShotMesh`; None means
+        ``shot_mesh()`` (one shard per rank of the process group, or one).
+
+    Returns {code.name: result dict} with the run_simulation keys;
+    ``shots_per_sec`` is that code's own steady rate, and
+    ``combined_shots_per_sec`` the dispatch-level aggregate over codes."""
+    from ..models.bb import get_code
+
+    dev = resolve_device(device)
+    base_seed = _shared_seed(base_seed)
+    mesh = mesh if mesh is not None else shot_mesh()
+    if max_trials is None:
+        max_trials = 1_000_000 if target_logical_errors else 10_000
+    stop_on_errors = (target_logical_errors is not None
+                      and target_logical_errors > 0)
+    on_gpu = dev.type == "cuda"
+    if batch_size is None:
+        batch_size = 512 if on_gpu else 64
+    if rounds_per_dispatch is None:
+        rounds_per_dispatch = 4 if on_gpu else 1
+
+    resolved = [get_code(c) if isinstance(c, str) else c for c in codes]
+    specs, names, extras = [], [], []
+    for i, c in enumerate(resolved):
+        cycles = num_cycles or c.distance or 12
+        circ = SyndromeCircuit(c, num_cycles=cycles)
+        M = (precomputed_matrices[i] if precomputed_matrices else
+             build_decoding_matrices(circ, c.Lx, c.Lz, error_rate))
+        M = ensure_sampler_metadata(M, circ, c.Lx, c.Lz, error_rate)
+        name = getattr(c, "name", f"code{i}")
+        seq_z, seq_x, extra = _calibrate_basis_sequences(
+            M, error_rate, alpha_mode, alvarado_alpha, maxIter,
+            alpha_estimation_trials, alpha_estimation_bins,
+            base_seed + 101 * i, estimation_plot_dir,
+            plot_tag=name.replace(" ", ""), device=dev)
+        specs.append(dict(
+            dec_z=_make_basis(circ, M, "Z", seq_z, osd_order=osd_order,
+                              device=dev),
+            dec_x=_make_basis(circ, M, "X", seq_x, osd_order=osd_order,
+                              device=dev),
+            n_locs=circ.num_error_locs, error_rate=error_rate,
+            batch=batch_size, maxIter=maxIter, osd_order=osd_order))
+        names.append(name)
+        extras.append(extra)
+
+    sharded = shard_rounds(
+        make_multi_code_pooled_round_fn(specs, rounds_per_dispatch), mesh)
+    gens = _gens(base_seed, mesh, dev, len(specs))
+    round_shots = batch_size * mesh.n_shards * rounds_per_dispatch
+    st = _drive_stopping_rounds(
+        lambda ri: sharded(gens), gather_flags, len(specs),
+        round_shots, max_trials,
+        target_logical_errors if stop_on_errors else None, verbose, names)
+
+    trials, steady = st["trials"], st["steady_trials"]
+    elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
+    steady_done = sum(trials) - sum(steady)
+    combined_rate = (steady_done / steady_elapsed if steady_done
+                     else sum(trials) / max(elapsed, 1e-9))
+    results = {}
+    for i, nm in enumerate(names):
+        code_steady = trials[i] - steady[i]
+        results[nm] = {
+            "logical_error_rate": st["tot_errs"][i] / max(1, trials[i]),
+            "z_logical_error_rate": st["z_errs"][i] / max(1, trials[i]),
+            "x_logical_error_rate": st["x_errs"][i] / max(1, trials[i]),
+            "num_trials": trials[i],
+            "logical_errors": st["tot_errs"][i],
+            "shots_per_sec": (code_steady / steady_elapsed if code_steady
+                              else trials[i] / max(elapsed, 1e-9)),
+            "combined_shots_per_sec": combined_rate,
+            "elapsed_sec": elapsed,
+            "num_devices": mesh.n_shards,
+            "osd_rank_deficient_shots": st["rankdef"][i],
+        }
+        results[nm].update(extras[i])
+    return results
+
+
 def run_simulation(
     Hx, Hz, Lx, Lz, error_rate, num_trials=1000, num_cycles=12,
     maxIter=50, osd_order=0, use_dynamic_alpha=True,
@@ -531,7 +699,8 @@ def run_simulation(
     use_jit=True,
     target_logical_errors=None, max_trials=None, scopt=False,
     estimation_plot_dir=None,
-    batch_size: Optional[int] = None, mesh=None, damping: float = 1.0,
+    batch_size: Optional[int] = None, mesh: Optional[ShotMesh] = None,
+    damping: float = 1.0,
     rounds_per_dispatch: Optional[int] = None,
     verbose: bool = True, bp_variant: str = "minsum",
     osd_cross_round: Optional[bool] = None,
@@ -540,18 +709,20 @@ def run_simulation(
     **bb_params,
 ) -> Dict[str, Any]:
     """Reference-compatible Monte-Carlo LER estimation with the JAX
-    package's signature and result dict, on one CUDA device (``device``:
-    None = "cuda"; pass "cpu" for the plain PyTorch versions). Calibration
-    (``alpha_mode`` "alvarado" / "alvarado-autoregressive", ``scopt``) runs
-    on the same device. ``num_workers`` and ``use_jit`` are accepted for
-    compatibility; a ``mesh`` raises NotImplementedError."""
+    package's signature and result dict (``device``: None = "cuda"; pass
+    "cpu" for the plain PyTorch versions). Calibration (``alpha_mode``
+    "alvarado" / "alvarado-autoregressive", ``scopt``) runs on the same
+    device. ``mesh``: a :class:`~qldpc_tpu_torch.parallel.mesh.ShotMesh`;
+    None means ``shot_mesh()`` (one shard per rank of the process group,
+    or a single shard); ``batch_size`` is per shard. ``num_workers`` and
+    ``use_jit`` are accepted for compatibility."""
     del num_workers, use_jit
     dev = resolve_device(device)
     if alpha_mode is None:
         alpha_mode = "dynamical" if use_dynamic_alpha else "alvarado"
-    _check_supported(mesh=mesh)
-    if base_seed is None:
-        base_seed = int(np.random.randint(0, 2**31))
+    base_seed = _shared_seed(base_seed)
+    mesh = mesh if mesh is not None else shot_mesh()
+    n_shards = mesh.n_shards
 
     code = make_code(Hx, Hz, Lx, Lz, **bb_params)
     circ = SyndromeCircuit(code, num_cycles=num_cycles)
@@ -583,12 +754,13 @@ def run_simulation(
     if batch_size is None:
         # larger batches amortize the per-round fixed cost on the GPU; the
         # CPU keeps smaller rounds for stopping granularity
-        batch_size = min(1024 if on_gpu else 512, max(128, max_trials))
+        batch_size = min(1024 if on_gpu else 512,
+                         max(128, -(-max_trials // n_shards)))
     if rounds_per_dispatch is None:
         rounds_per_dispatch = 4 if on_gpu else 1
         # don't overshoot small trial budgets with a huge pooled dispatch
-        while (rounds_per_dispatch > 1
-               and batch_size * rounds_per_dispatch > max_trials * 2):
+        while (rounds_per_dispatch > 1 and batch_size * n_shards
+               * rounds_per_dispatch > max_trials * 2):
             rounds_per_dispatch //= 2
     if osd_cross_round is None:
         osd_cross_round = rounds_per_dispatch > 1
@@ -603,17 +775,18 @@ def run_simulation(
                             maxIter, osd_order, damping,
                             bp_variant=bp_variant)
 
-        def round_fn(g, rpd=rounds_per_dispatch):
-            outs = [one(g) for _ in range(rpd)]
+        def round_fn(g, randoms=None, rpd=rounds_per_dispatch):
+            outs = [one(g, None if randoms is None else randoms[r])
+                    for r in range(rpd)]
             return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-    round_shots = batch_size * rounds_per_dispatch
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(base_seed)
+    sharded = shard_rounds(round_fn, mesh)
+    gens = _gens(base_seed, mesh, dev)
+    round_shots = batch_size * n_shards * rounds_per_dispatch
 
     st = _drive_stopping_rounds(
-        lambda ri: [round_fn(gen)], 1, round_shots, max_trials,
-        target_logical_errors if stop_on_errors else None, verbose,
-        [f"p={error_rate:g}"])
+        lambda ri: [sharded(gens)], gather_flags, 1, round_shots,
+        max_trials, target_logical_errors if stop_on_errors else None,
+        verbose, [f"p={error_rate:g}"])
     trials_run, tot_errs = st["trials"][0], st["tot_errs"][0]
     elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
     # steady-state throughput excludes the first round (kernel builds)
@@ -627,7 +800,7 @@ def run_simulation(
         "shots_per_sec": (steady_done / steady_elapsed if steady_done
                           else trials_run / max(elapsed, 1e-9)),
         "elapsed_sec": elapsed,
-        "num_devices": 1,
+        "num_devices": n_shards,
         "osd_rank_deficient_shots": st["rankdef"][0],
     }
     result.update(result_extra)

@@ -1,6 +1,7 @@
 """Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU,
-and the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
-calibration histogram) against themselves on the CPU.
+the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
+calibration histogram) against themselves on the CPU, and the multi-code
+and shot-mesh paths on the card (K1 and K2 at the multi-code shapes).
 
 Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
 on first use); every test skips without a card. Imports neither jax nor the
@@ -15,8 +16,9 @@ import qldpc_tpu_torch as qt
 from qldpc_tpu_torch.ops import (bp, bp_lift_cuda, bp_lift_layered_cuda,
                                  calibrate, gather, osd_cuda)
 from qldpc_tpu_torch.ops.bp import alpha_schedule
-from qldpc_tpu_torch.ops.osd import _gather_pack
-from qldpc_tpu_torch.parallel import engine
+from qldpc_tpu_torch.ops.osd import _gather_pack, _pack_columns
+from qldpc_tpu_torch.ops.sampler import trial_batch
+from qldpc_tpu_torch.parallel import engine, mesh
 
 torch.set_num_threads(1)
 
@@ -543,3 +545,128 @@ def test_calibration_histogram_on_card(cuda):
     got = calibrate._histogram(torch.as_tensor(x, device=cuda), lo, hi, 50)
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+# --- multi-code and the shot mesh ------------------------------------------
+
+MULTI_CODES = ("[[90, 8, 10]]", "[[108, 8, 10]]")
+
+
+@pytest.fixture(scope="module")
+def multicode_bundles(cuda):
+    """The multi-code configuration's codes at 10 cycles, p=0.004, maxIter
+    20, OSD order 2: per code, (circuit, [dec_z, dec_x]) on the card."""
+    seq = alpha_schedule("dynamical", 20)
+    out = {}
+    for name in MULTI_CODES:
+        code = qt.get_code(name)
+        circ = qt.SyndromeCircuit(code, num_cycles=10)
+        M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.004)
+        out[name] = (circ, [engine._make_basis(circ, M, b, seq, osd_order=2,
+                                               device=cuda) for b in "ZX"])
+    return out
+
+
+@pytest.mark.parametrize("name", MULTI_CODES)
+def test_kernels_at_multi_code_shapes(cuda, multicode_bundles, name):
+    """K1 (both bases, 256 sampled shots, maxIter 20) and K2 (its BP-failed
+    shots at the stage-1, prefix and full widths) against their plain
+    versions on every output."""
+    circ, decs = multicode_bundles[name]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    trials = trial_batch(gen, 0.004, decs[0].maps, decs[1].maps,
+                         circ.num_error_locs, 256)
+    for basis, dec in zip("zx", decs):
+        syn = trials[f"syndrome_{basis}"]
+        args = (dec.lifted, syn, dec.prior, dec.alpha_seq, 20)
+        a = bp_lift_cuda.decode_batch_lift_cuda(*args)
+        torch.cuda.synchronize()
+        b = bp_lift_cuda.decode_batch_lift_plain(*args)
+        for k in ("hard", "converged", "iterations", "values"):
+            assert torch.equal(a[k], b[k]), (basis, k)
+        fail = ~a["converged"]
+        assert fail.any() and not fail.all()
+        m, K, R = dec.H.shape[0], dec.K, dec.basis_cols.shape[0]
+        residual = (syn[fail].to(torch.int32)
+                    ^ ((a["hard"][fail].float() @ dec.HT).to(torch.int32)
+                       & 1))
+        cols = torch.sort(a["values"][fail].abs(), dim=1,
+                          stable=True).indices
+        HT = dec.H.T.contiguous()
+        Hb = torch.zeros((m, -(-R // 32) * 32), dtype=torch.uint8,
+                         device=cuda)
+        Hb[:, :R] = dec.H[:, dec.basis_cols]
+        prefix = _gather_pack(HT, cols[:, :K], K, words_major=True)
+        full = torch.cat([prefix, _pack_columns(Hb).T.contiguous()[None]
+                          .expand(len(cols), -1, -1)], 1)
+        for Hp, Kw in ((_gather_pack(HT, cols[:, :256], 256,
+                                     words_major=True), 256),
+                       (prefix, K), (full, K + R)):
+            for exit_on_valid in (False, True):
+                _elim_against_plain("K2", Hp, residual, Kw, m, rank=dec.rank,
+                                    exit_on_valid=exit_on_valid)
+
+
+def test_run_multi_code_simulation_on_card(cuda):
+    """Two codes on the card through K1 and K2 only, each stopped at its
+    target; code 0 draws run_simulation's stream, so its tally equals a
+    single-code run_simulation's on the same settings."""
+    kw = dict(num_cycles=2, maxIter=5, osd_order=2, target_logical_errors=6,
+              max_trials=400, batch_size=16, rounds_per_dispatch=2,
+              base_seed=9, verbose=False)
+    wrappers = (bp_lift_cuda.decode_batch_lift_cuda,
+                osd_cuda.eliminate_blocks_v1,
+                bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
+                osd_cuda.eliminate_blocks_fused, osd_cuda.eliminate_blocks_pair)
+    before = [w.launches for w in wrappers]
+    res = qt.run_multi_code_simulation(["[[72, 12, 6]]", "[[90, 8, 10]]"],
+                                       0.01, **kw)
+    used = [w.launches - b for w, b in zip(wrappers, before)]
+    assert used[0] > 0 and used[1] > 0 and not any(used[2:]), used
+    for name, r in res.items():
+        assert r["logical_errors"] == 6 or r["num_trials"] == 400, (name, r)
+        assert r["num_devices"] == 1
+    code = qt.get_code("[[72, 12, 6]]")
+    kw.pop("num_cycles")
+    one = qt.run_simulation(code.Hx, code.Hz, code.Lx, code.Lz, 0.01,
+                            num_cycles=2, ell=code.ell, m=code.m,
+                            a_x_powers=code.a_x_powers,
+                            a_y_powers=code.a_y_powers,
+                            b_y_powers=code.b_y_powers,
+                            b_x_powers=code.b_x_powers, **kw)
+    r0 = res["[[72, 12, 6]]"]
+    assert (one["num_trials"], one["logical_errors"]) == \
+        (r0["num_trials"], r0["logical_errors"])
+
+
+def test_two_shard_mesh_on_card(cuda, bundles):
+    """Two shards on one card: shard 0 decodes the one-shard stream, the
+    counts equal the flags' sums, the gather returns the flags in shard
+    order, and run_simulation over the mesh stops exactly at its target."""
+    circ, M, decs = bundles
+    dz, dx = decs[str(cuda)]
+    fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006, 64,
+                                     50, 2, 2)
+    two = mesh.shot_mesh(2)
+    out = mesh.shard_rounds(fn, two)(engine._gens(7, two, cuda))
+    one = fn(mesh.generator(7, device=cuda))
+    for k, v in one.items():
+        assert out[k].shape == (256,) and torch.equal(out[k][:128], v), k
+    keys = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
+    g = mesh.gather_flags({k: out[k] for k in keys})
+    for k in keys:
+        assert out[f"{k}_count"] == int(out[k].sum()), k
+        assert np.array_equal(g[k], out[k].cpu().numpy()), k
+    code = qt.get_code("[[72, 12, 6]]")
+    res = qt.run_simulation(code.Hx, code.Hz, code.Lx, code.Lz, 0.006,
+                            num_cycles=6, maxIter=50, osd_order=2,
+                            precomputed_matrices=M, target_logical_errors=40,
+                            max_trials=4000, batch_size=32,
+                            rounds_per_dispatch=2, base_seed=7, mesh=two,
+                            verbose=False, ell=code.ell, m=code.m,
+                            a_x_powers=code.a_x_powers,
+                            a_y_powers=code.a_y_powers,
+                            b_y_powers=code.b_y_powers,
+                            b_x_powers=code.b_x_powers)
+    assert res["logical_errors"] == 40 and res["num_devices"] == 2
+

@@ -127,17 +127,6 @@ def test_crossing_take():
     assert tengine._crossing_take(a, 1) == 2
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=object()), "item 11"),
-])
-def test_unported_modes_raise(kwargs, item):
-    code = qt.get_code("[[72, 12, 6]]")
-    with pytest.raises(NotImplementedError, match=item):
-        qt.run_simulation(code.Hx, code.Hz, code.Lx, code.Lz, 0.006,
-                          num_cycles=2, max_trials=8, verbose=False,
-                          device="cpu", **kwargs, **_bb_kwargs(code))
-
-
 def test_reference_format_precomputed_matrices():
     """A reference-style matrix dict (no sampler tables) is back-filled; a
     mismatched one is rejected."""

@@ -153,12 +153,14 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert qldpc_tpu_torch.run_simulation is not None\n"
+        "assert qldpc_tpu_torch.run_multi_code_simulation is not None\n"
         "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    for name in ("parallel.engine", "ops.osd_cuda", "ops.gather",
+    for name in ("parallel.engine", "parallel.mesh",
+                 "scripts.multihost_smoke", "ops.osd_cuda", "ops.gather",
                  "ops.bp", "ops.calibrate",
                  "models.builder", "profile_round", "utils.caching",
                  "scripts.bp_breakdown", "scripts.gather_bench",
