@@ -15,8 +15,8 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all seven kernels (an eliminator that
-spills fails), (2) flooding BP kernel
+Phases: (1) device and build of all seven kernels (an eliminator or P1
+instance that spills fails), (2) flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
 (3) GF(2) elimination kernel K2 vs its plain
 version at the stage-1, prefix and full widths, with its launch shape, its
@@ -36,8 +36,14 @@ K2), (8) the
 main path (a pooled dispatch and run_simulation) under QLDPC_OSD_KERNEL=2
 and 3 (K1 + K4, K1 + K5), (9) the gather_bench entry point (P1, the
 iterated on-chip gather) and P1 vs its plain version at every case of its
-ladder, (10) the gather_probe entry point (P2, take-along-axis) and P2 vs
-its plain version and torch.take_along_dim at every probe case, (11) the
+ladder, with its time alone on the card (CUDA graphs), its load and store
+(no round), its round beside the conflict-free bound and the
+conflict-aware floor of this run's indices, its plan (lanes a block,
+cluster size, threads) and the clusters the card holds at once, and every
+cluster size at (35280, 128), (10) the gather_probe entry point (P2,
+take-along-axis) and P2 vs its plain version and torch.take_along_dim at
+every probe case, with P2 and take_along_dim alone on the card, P2's launch
+floor at (8, 128) and a call on the host clock, (11) the
 bp_breakdown entry point at [[144,12,12]], B=1024 (K1), (12) the main
 path's run_simulation against two matched JAX LER records ([[144,12,12]]
 p=0.004 maxIter 20 to 200 errors, [[72,12,6]] p=0.004 maxIter 50 to 100),
@@ -153,7 +159,8 @@ def main():
         from qldpc_tpu_torch.parallel import engine, mesh
         from qldpc_tpu_torch.scripts import (bp_breakdown, device_ms,
                                              gather_bench, gather_probe,
-                                             multihost_smoke)
+                                             gather_timing, multihost_smoke,
+                                             wall_ms)
         from qldpc_tpu_torch.utils.caching import (compute_cache_key,
                                                    save_matrices)
     except ImportError as e:
@@ -190,9 +197,11 @@ def main():
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-            # the eliminators K2, K4, K5 must not spill in any instantiation
+            # the eliminators K2, K4, K5 and P1 must not spill in any
+            # instantiation
             spills = re.findall(r"(\d+) bytes spill", line)
-            if name.startswith("gf2_elim") and any(int(x) for x in spills):
+            if (name.startswith("gf2_elim") or name == "gather_iter") \
+                    and any(int(x) for x in spills):
                 fail(f"phase 1: {name} spills: {line.strip()}")
 
     code = qt.get_code(CODE)
@@ -906,8 +915,8 @@ def main():
         fail(f"phase 9: gather_bench did not run P1 alone: {c}")
     p1_launches = c["p1"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem_bytes_per_s = (SMEM_BYTES_PER_CLK_SM * sms
-                        * float(sm_clock.split()[0]) * 1e6)
+    clock_hz = float(sm_clock.split()[0]) * 1e6
+    smem_bytes_per_s = SMEM_BYTES_PER_CLK_SM * sms * clock_hz
     p1 = {}
     for (dtype, x, idx), row in zip(gather_bench.ladder_inputs(device=dev),
                                     bench):
@@ -931,27 +940,64 @@ def main():
                 acc = torch.gather(acc, 0, index)
             return acc
 
+        info = gather.launch_info(*x.shape, dtype, dev)
         t_dev = nbytes(x, idx, total, tile) / HBM_BYTES_PER_S
         t_smem = 2 * x.numel() * x.element_size() * it / smem_bytes_per_s
-        # the rounds alone: the same launch with no round (load, sum, store)
-        zero_ms = cuda_ms(lambda: gather.gather_iterate(x, idx, 0), 10)
+        wavefronts = gather_timing.round_wavefronts(
+            idx.cpu().numpy(), info["lanes"], x.element_size())
         p1[where] = dict(
             ms=row["P1_ms"], plain_ms=row["gather_ms"],
-            round_ms=(row["P1_ms"] - zero_ms) / it,
-            round_bound_ms=t_smem / it * 1e3,
+            **gather_timing.p1_times(gather, x, idx, it, dev),
+            round_bound_us=t_smem / it * 1e6,
+            round_floor_us=wavefronts / clock_hz * 1e6,
             library_ms=cuda_ms(gathers, 10),
             bound_ms=max(t_dev, t_smem) * 1e3, bound_by="bytes",
             bound_from="shared memory" if t_smem > t_dev else "device memory",
-            max_abs_err=float((total.float() - p_total.float()).abs().max()))
+            max_abs_err=float((total.float() - p_total.float()).abs().max()),
+            plan=[info["lanes"], info["cluster"], info["threads"]],
+            active_clusters=info["active_clusters"],
+            clusters=info["clusters"])
         r = p1[where]
         print(f"phase 9: P1 {where}: tile exact, sums within rtol {rtol} "
-              f"(max abs err {r['max_abs_err']:.3g}); {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.3f} ms, {it} torch.gather calls "
-              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_from']} bytes at {sm_clock}); one round "
-              f"{r['round_ms'] * 1e3:.2f} us (bound "
-              f"{r['round_bound_ms'] * 1e3:.2f} us)", flush=True)
+              f"(max abs err {r['max_abs_err']:.3g}); kernel "
+              f"{r['kernel_ms']:.4f} ms alone ({r['ms']:.4f} ms a call in "
+              f"gather_bench; plain {r['plain_ms']:.3f} ms, {it} "
+              f"torch.gather calls {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_from']} bytes at "
+              f"{sm_clock}); load and store {r['load_store_ms']:.4f} ms; one "
+              f"round {r['round_us']:.3f} us (conflict-free bound "
+              f"{r['round_bound_us']:.3f} us, conflict-aware floor "
+              f"{r['round_floor_us']:.3f} us, {wavefronts} wavefronts); plan "
+              f"L={info['lanes']} C={info['cluster']} threads="
+              f"{info['threads']} E={info['stage']}, {info['registers']} "
+              f"registers, {info['clusters']} clusters, "
+              f"{info['active_clusters']} active at once", flush=True)
     p1_top = p1["(35280, 128) float32"]
+    # every cluster size at the top case: wider clusters cover more of a
+    # sector a row, narrower ones fit the GPCs in fewer waves; the plan
+    # takes the widest of those with the fewest waves
+    x, idx = next(gather_bench.ladder_inputs(((35280, 128),), dev))[1:]
+    base = gather.Plan(p1_top["plan"][0], 1, p1_top["plan"][2])
+    by_cluster = []
+    for cl in (8, 4, 2, 1):
+        plan_c = base._replace(cluster=cl)
+        if not torch.equal(gather._launch(x, idx, 3, plan_c)[1],
+                           gather.gather_iterate_plain(x, idx, 3)[1]):
+            fail(f"phase 9: P1 with clusters of {cl} differs from its plain "
+                 f"version")
+        active = gather._launch_info(*x.shape, plan_c, 0,
+                                     torch.cuda.current_device())
+        ms_c = gather_timing.graph_ms(
+            lambda: gather._launch(x, idx, gather_bench.ITERS, plan_c), 20,
+            dev)
+        zero_c = gather_timing.graph_ms(
+            lambda: gather._launch(x, idx, 0, plan_c), 20, dev)
+        by_cluster.append(
+            f"C={cl}: {ms_c:.4f} ms, load and store {zero_c:.4f} ms, "
+            f"{active['blocks'] // cl} clusters, "
+            f"{active['active_clusters']} active at once")
+    print(f"phase 9: P1 (35280, 128) float32 by cluster size (the plan takes "
+          f"C={p1_top['plan'][1]}): " + "; ".join(by_cluster), flush=True)
 
     # ---- phase 10: P2, take-along-axis ----
     reset_counts()
@@ -971,22 +1017,29 @@ def main():
                                                           axis)):
             fail(f"phase 10: P2 differs from its plain version or "
                  f"torch.take_along_dim ({name})")
-        if shape == (1024, 128) and dtype == torch.float32:
+        if shape in gather_timing.P2_SHAPES and dtype == torch.float32:
             index = idx.long()
-            p2[axis] = dict(
+            p2[shape, axis] = dict(
                 ms=cuda_ms(lambda: gather.take_along(x, idx, axis), 50),
                 plain_ms=cuda_ms(
                     lambda: gather.take_along_plain(x, idx, axis), 50),
                 library_ms=cuda_ms(
                     lambda: torch.take_along_dim(x, index, axis), 50),
-                bound_ms=nbytes(x, idx, out) / HBM_BYTES_PER_S * 1e3)
+                bound_ms=nbytes(x, idx, out) / HBM_BYTES_PER_S * 1e3,
+                **gather_timing.p2_times(gather, wall_ms, x, idx, axis, dev))
+    p2_top = p2[(1024, 128), 0]
     print(f"phase 10: P2 equals its plain version and torch.take_along_dim "
           f"at all {len(list(gather_probe.cases()))} probe cases; "
           f"(1024, 128) float32: " + "; ".join(
-              f"axis {ax} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-              f"take_along_dim {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.5f} ms by bytes)" for ax, r in p2.items()),
-          flush=True)
+              f"axis {ax} kernel {r['kernel_ms'] * 1e3:.2f} us alone (launch "
+              f"floor at (8, 128) {p2[(8, 128), ax]['kernel_ms'] * 1e3:.2f} "
+              f"us), a call {r['wall_ms'] * 1e3:.2f} us on the host clock, "
+              f"{r['ms'] * 1e3:.2f} us back to back; take_along_dim "
+              f"{r['library_kernel_ms'] * 1e3:.2f} us alone, "
+              f"{r['library_wall_ms'] * 1e3:.2f} us a call; plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms'] * 1e3:.3f} us "
+              f"by bytes" for (shp, ax), r in p2.items()
+              if shp == (1024, 128)), flush=True)
 
     # ---- phase 11: the bp_breakdown entry point (K1) at B=1024 ----
     save_matrices(str(bp_breakdown.CACHE_DIR),
@@ -1634,15 +1687,18 @@ def main():
              source="qldpc_tpu_torch/csrc/gather_iter.cu",
              replaces="scripts/pallas_gather_bench.py:35",
              launches=p1_launches, max_abs_err=p1_top["max_abs_err"],
-             ms=p1_top["ms"], plain_ms=p1_top["plain_ms"],
+             ms=p1_top["ms"], kernel_ms=p1_top["kernel_ms"],
+             load_store_ms=p1_top["load_store_ms"],
+             round_us=p1_top["round_us"], plain_ms=p1_top["plain_ms"],
              bound_ms=p1_top["bound_ms"], bound_by=p1_top["bound_by"],
              library_ms=p1_top["library_ms"]),
         dict(name="take_along_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/take_along.cu",
              replaces="scripts/pallas_gather_probe.py:26",
-             launches=p2_launches, max_abs_err=0.0, ms=p2[0]["ms"],
-             plain_ms=p2[0]["plain_ms"], bound_ms=p2[0]["bound_ms"],
-             bound_by="bytes", library_ms=p2[0]["library_ms"]),
+             launches=p2_launches, max_abs_err=0.0, ms=p2_top["ms"],
+             kernel_ms=p2_top["kernel_ms"], plain_ms=p2_top["plain_ms"],
+             bound_ms=p2_top["bound_ms"], bound_by="bytes",
+             library_ms=p2_top["library_ms"]),
     ]
     print(f"max SM clock {sm_clock}, {sms} SMs; every phase passed in "
           f"{time.time() - t_start:.1f} s")

@@ -16,6 +16,8 @@ kernels do not check them.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,10 +26,53 @@ from .. import _kernels
 # dynamic shared bytes a block may take: less room for the kernel's static
 # reduction buffer and the tile's alignment pad
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024
-_THREADS = 1024
-_MAX_STAGE = 36        # GI_MAX_STAGE in csrc/gather_iter.cu
+_MAX_ELEMS = 36864     # GI_MAX_ELEMS in csrc/gather_iter.cu (uint16 offsets)
+_WIDE_THREADS = 1024   # GI_WIDE_THREADS: up to _WIDE_STAGE elements a thread
+_WIDE_STAGE = 24       # (64 registers a thread hold E values and E/2 offsets)
+_DEEP_THREADS = 512    # GI_DEEP_THREADS: up to 72 elements, 128 registers
+_MAX_CLUSTER = 8       # GI_MAX_CLUSTER: the portable cluster size
+_SEGMENT_BYTES = 32    # a device-memory sector: the row a cluster should cover
 _GATHER_DTYPES = (torch.float32, torch.bfloat16)
 _TAKE_DTYPES = (torch.float32, torch.int32)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind(source: str, name: str, argtypes: list):
+    fn = getattr(_kernels.load(source), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _p1_launch():
+    return _bind("gather_iter", "gather_iter_launch",
+                 [_P] * 4 + [_I] * 7 + [_P])
+
+
+@functools.cache
+def _p1_info():
+    return _bind("gather_iter", "gather_iter_info", [_I] * 6 + [_P])
+
+
+@functools.cache
+def _p2_launch():
+    return _bind("take_along", "take_along_launch", [_P] * 3 + [_I] * 3 + [_P])
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _operands(x, idx):
+    """x and idx as the kernels take them: copied only where x is not
+    contiguous or idx is not contiguous int32 on x's device."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if idx.dtype != torch.int32 or idx.device != x.device \
+            or not idx.is_contiguous():
+        idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
+    return x, idx
 
 
 def _check_iterate(x, idx, iters: int):
@@ -40,20 +85,91 @@ def _check_iterate(x, idx, iters: int):
         raise ValueError(f"iters must be >= 0, got {iters}")
 
 
-def lanes_per_block(rows: int, lanes: int, itemsize: int, sms: int) -> int:
-    """Lane columns one P1 block keeps in shared memory: as many as fit
-    (tile plus uint16 offsets within the block's shared memory, at most
-    ``_MAX_STAGE`` elements per thread) but no more than spread the lanes
-    over the card's ``sms`` multiprocessors. Raises when one column does
-    not fit: the kernel never falls back to device memory."""
-    fit = min(_SMEM_LIMIT // (rows * (itemsize + 2)),
-              _THREADS * _MAX_STAGE // rows)
+class Plan(NamedTuple):
+    """P1's launch: L lane columns a block, C blocks a cluster, threads."""
+    lanes: int
+    cluster: int
+    threads: int
+
+
+def launch_plan(rows: int, lanes: int, itemsize: int, sms: int,
+                active_clusters=None) -> Plan:
+    """P1's launch at (rows, lanes) on a card of ``sms`` multiprocessors.
+
+    L: as many lane columns as a block holds (the tile plus its uint16
+    offsets within its shared memory, at most ``_MAX_ELEMS`` elements) but
+    no more than spread the lanes over the multiprocessors. Threads: 1024
+    while 24 elements a thread hold the tile (fewer when one does), else
+    512. C: the fewest blocks (a power of two, at most 8) whose C x L
+    adjacent lanes make a 32-byte row segment, so the cluster's loads and
+    stores cover whole sectors; given ``active_clusters(C)``, the clusters
+    of C blocks the card holds at once, the largest C that runs the launch
+    in the fewest waves (an H100's GPCs hold 15 clusters of 8 blocks of one
+    an SM, 120 blocks, where 128 lanes of tall columns need 128). Raises
+    when one column does not fit: the kernel never falls back to device
+    memory."""
+    fit = min(_SMEM_LIMIT // (rows * (itemsize + 2)), _MAX_ELEMS // rows)
     if fit < 1:
         raise ValueError(
             f"a column of {rows} rows of {itemsize}-byte elements exceeds "
             f"what one block holds on-chip ({_SMEM_LIMIT} bytes of shared "
-            f"memory, {_THREADS * _MAX_STAGE} elements)")
-    return max(1, min(fit, lanes // sms))
+            f"memory, {_MAX_ELEMS} elements)")
+    L = max(1, min(fit, lanes // sms))
+    n = rows * L
+    threads = (min(_WIDE_THREADS, -(-n // 32) * 32)
+               if n <= _WIDE_THREADS * _WIDE_STAGE else _DEEP_THREADS)
+    C = 1
+    while C < _MAX_CLUSTER and C * L * itemsize < _SEGMENT_BYTES:
+        C *= 2
+    if active_clusters is not None:
+        blocks = -(-lanes // L)
+        waves = {}
+        for c in (C >> k for k in range(C.bit_length())):  # C, C / 2, .., 1
+            clusters = -(-blocks // c)
+            waves[c] = -(-clusters // max(1, active_clusters(c)))
+        C = next(c for c, w in waves.items() if w == min(waves.values()))
+    return Plan(L, C, threads)
+
+
+def _launch_info(rows, lanes, plan, is_bf16, index) -> dict:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        code = _p1_info()(rows, lanes, plan.lanes, plan.cluster, is_bf16,
+                          plan.threads, out)
+    _kernels.check(code, "gather_iter_info")
+    return dict(zip(("active_clusters", "registers", "local_bytes", "stage",
+                     "blocks", "smem_bytes"), out))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(rows, lanes, itemsize, is_bf16, index) -> Plan:
+    """The plan on card ``index``, its cluster size fitted to the clusters
+    the card holds at once."""
+    sms = _sm_count(index)
+    first = launch_plan(rows, lanes, itemsize, sms)
+
+    def active(c):
+        return _launch_info(rows, lanes, first._replace(cluster=c), is_bf16,
+                            index)["active_clusters"]
+
+    return launch_plan(rows, lanes, itemsize, sms, active)
+
+
+def launch_info(rows: int, lanes: int, dtype=torch.float32,
+                device="cuda") -> dict:
+    """P1's launch at (rows, lanes) on a CUDA ``device``: its plan and what
+    the card makes of it: ``active_clusters`` (clusters of this launch the
+    card holds at once), ``clusters`` (the launch's), ``registers`` and
+    ``local_bytes`` (spilled) a thread, ``stage`` (E, elements a thread),
+    ``blocks`` and ``smem_bytes`` a block."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    is_bf16 = int(dtype == torch.bfloat16)
+    plan = _device_plan(rows, lanes, itemsize, is_bf16, index)
+    info = _launch_info(rows, lanes, plan, is_bf16, index)
+    return dict(plan._asdict(), clusters=info["blocks"] // plan.cluster,
+                **info)
 
 
 def gather_iterate(x, idx, iters: int):
@@ -69,28 +185,28 @@ def gather_iterate(x, idx, iters: int):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows, lanes = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    L = lanes_per_block(rows, lanes, x.element_size(), sms)
-    x = x.contiguous()
-    idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
-    total = torch.empty((1, lanes), dtype=x.dtype, device=x.device)
-    tile = torch.empty_like(x)
-    threads = min(_THREADS, max(32, -(-rows * L // 32) * 32))
-    fn = _kernels.load("gather_iter").gather_iter_launch
-    if not fn.argtypes:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 4 + [I] * 6 + [P]
-        fn.restype = ctypes.c_int
-    code = fn(x.data_ptr(), idx.data_ptr(), total.data_ptr(),
-              tile.data_ptr(), rows, lanes, L, iters,
-              int(x.dtype == torch.bfloat16), threads,
-              _kernels.stream_ptr(x.device))
-    _kernels.check(code, "gather_iter_launch")
+    plan = _device_plan(rows, lanes, x.element_size(),
+                        int(x.dtype == torch.bfloat16), x.device.index)
+    out = _launch(x, idx, iters, plan)
     gather_iterate.launches += 1
-    return total, tile
+    return out
 
 
 gather_iterate.launches = 0
+
+
+def _launch(x, idx, iters: int, plan: Plan):
+    """One P1 launch of ``plan`` on CUDA tensors: (total, tile)."""
+    rows, lanes = x.shape
+    x, idx = _operands(x, idx)
+    total = torch.empty((1, lanes), dtype=x.dtype, device=x.device)
+    tile = torch.empty_like(x)
+    code = _p1_launch()(x.data_ptr(), idx.data_ptr(), total.data_ptr(),
+                        tile.data_ptr(), rows, lanes, plan.lanes,
+                        plan.cluster, iters, int(x.dtype == torch.bfloat16),
+                        plan.threads, _kernels.stream_ptr(x.device))
+    _kernels.check(code, "gather_iter_launch")
+    return total, tile
 
 
 def gather_iterate_plain(x, idx, iters: int):
@@ -126,17 +242,11 @@ def take_along(x, idx, axis: int):
         return take_along_plain(x, idx, axis)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    rows, cols = x.shape
-    x = x.contiguous()
-    idx = idx.to(device=x.device, dtype=torch.int32).contiguous()
+    x, idx = _operands(x, idx)
     out = torch.empty_like(x)
-    fn = _kernels.load("take_along").take_along_launch
-    if not fn.argtypes:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 3 + [I] * 3 + [P]
-        fn.restype = ctypes.c_int
-    code = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
-              axis, _kernels.stream_ptr(x.device))
+    code = _p2_launch()(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                        x.shape[0], x.shape[1], axis,
+                        _kernels.stream_ptr(x.device))
     _kernels.check(code, "take_along_launch")
     take_along.launches += 1
     return out

@@ -8,6 +8,8 @@ package's ``scripts/pallas_gather_bench.py``, ``pallas_gather_probe.py`` and
 
 Each runs on ``cuda`` by default and raises without a GPU; ``--device cpu``
 runs the plain versions (times are then host times, not device metrics).
+``gather_timing.py`` times P1 and P2 alone on the card (CUDA graphs), for
+this checkout or, with ``--root``, another one's package.
 """
 from __future__ import annotations
 

@@ -439,11 +439,13 @@ def test_pooled_round_variants_gpu_matches_cpu(cuda, bundles, monkeypatch,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows, lanes", [
-    (1024, 128), (35280, 128), (8192, 512), (1000, 400), (37, 5)])
+    (1024, 128), (35280, 128), (8192, 512), (1000, 400), (37, 5),
+    (35280, 130), (1000, 13)])
 def test_gather_iter_kernel_matches_plain(cuda, dtype, rows, lanes):
     """P1 with indices that differ per lane, blocks of one and of several
-    lanes, and a ragged last block: the tile exact, the sums within the
-    summation-order tolerance."""
+    lanes, a ragged last block and a ragged last cluster (130 lanes), and
+    row strides off a 16-byte boundary (5 and 13 lanes): the tile exact,
+    the sums within the summation-order tolerance."""
     rng = np.random.default_rng(rows + lanes)
     x = torch.as_tensor(rng.standard_normal((rows, lanes)),
                         device=cuda).to(dtype)
@@ -460,6 +462,34 @@ def test_gather_iter_kernel_matches_plain(cuda, dtype, rows, lanes):
     assert torch.allclose(total.float(), p_total.float(), rtol=rtol, atol=0)
 
 
+@pytest.mark.parametrize("iters", [0, 1])
+def test_gather_iter_kernel_zero_and_one_round(cuda, iters):
+    """P1 in bfloat16 at 35,280 rows with no round (the cluster's load and
+    store alone) and with one."""
+    rng = np.random.default_rng(iters)
+    x = torch.as_tensor(rng.standard_normal((35280, 128)),
+                        device=cuda).to(torch.bfloat16)
+    idx = torch.as_tensor(rng.integers(0, 35280, (35280, 128)),
+                          dtype=torch.int32, device=cuda)
+    total, tile = gather.gather_iterate(x, idx, iters)
+    torch.cuda.synchronize()
+    p_total, p_tile = gather.gather_iterate_plain(x, idx, iters)
+    assert torch.equal(tile, p_tile)
+    assert torch.allclose(total.float(), p_total.float(), rtol=1e-2, atol=0)
+
+
+def test_gather_iter_launch_uses_a_cluster(cuda):
+    """[[144]]'s edge-slot grid launches in clusters, each block one lane
+    column on 512 threads, 72 elements a thread, without spills, and all
+    its clusters on the card at once (one wave)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        info = gather.launch_info(35280, 128, dtype, cuda)
+        assert (info["lanes"], info["threads"], info["stage"]) == (1, 512, 72)
+        assert info["cluster"] >= 2 and info["blocks"] == 128
+        assert info["local_bytes"] == 0
+        assert info["active_clusters"] >= info["clusters"]
+
+
 def test_gather_iter_kernel_refuses_a_column_too_tall(cuda):
     x = torch.zeros((40000, 8), device=cuda)
     idx = torch.zeros((40000, 8), dtype=torch.int32, device=cuda)
@@ -470,7 +500,7 @@ def test_gather_iter_kernel_refuses_a_column_too_tall(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("shape", [(8, 128), (1024, 128), (64, 256),
-                                   (33, 70)])
+                                   (33, 70), (4096, 1024), (1, 1)])
 def test_take_along_kernel_matches_plain(cuda, dtype, axis, shape):
     rng = np.random.default_rng(shape[0] * 7 + axis)
     x = torch.as_tensor(rng.integers(-1000, 1000, shape),

@@ -111,19 +111,41 @@ def test_gather_iterate_per_lane_indices():
 
 
 def test_lanes_per_block_fits_the_ladder_and_refuses_more():
-    for rows, lanes in gather_bench.LADDER:
+    """P1's launch plan: L lanes a block that fit its shared memory and its
+    element cap, C blocks a cluster covering a 32-byte row segment (or 8),
+    and threads enough for the tile at 24 (1024 threads) or 72 (512)
+    elements a thread."""
+    for rows, lanes in gather_bench.LADDER + ((1000, 400), (37, 5),
+                                              (35280, 130)):
         for itemsize in (4, 2):
-            L = gather.lanes_per_block(rows, lanes, itemsize, 132)
+            L, C, threads = gather.launch_plan(rows, lanes, itemsize, 132)
             assert 1 <= L <= lanes
             assert rows * L * (itemsize + 2) <= gather._SMEM_LIMIT
-            assert rows * L <= gather._THREADS * gather._MAX_STAGE
-    # [[144]]'s edge-slot grid: one float32 column of 141 KB per block
-    assert gather.lanes_per_block(35280, 128, 4, 132) == 1
-    assert gather.lanes_per_block(1024, 4096, 4, 132) == 31
+            assert rows * L <= gather._MAX_ELEMS
+            assert C * L * itemsize >= 32 or C == gather._MAX_CLUSTER
+            assert C == 1 or (C // 2) * L * itemsize < 32
+            stage = -(-rows * L // threads)
+            assert threads % 32 == 0
+            assert stage <= (24 if threads == 1024 else 72)
+            assert threads in (512, 1024) or stage == 1
+    # [[144]]'s edge-slot grid: one float32 column of 141 KB per block, in
+    # clusters of 8 (32-byte rows), 69 elements a thread on 512 threads
+    assert gather.launch_plan(35280, 128, 4, 132) == (1, 8, 512)
+    assert gather.launch_plan(35280, 128, 2, 132) == (1, 8, 512)
+    assert gather.launch_plan(8192, 512, 4, 132) == (3, 4, 1024)
+    assert gather.launch_plan(1024, 4096, 4, 132) == (31, 1, 512)
+    assert gather.launch_plan(37, 5, 4, 132) == (1, 8, 64)
+    # an H100 holds 15 clusters of 8 such blocks, 30 of 4, 66 of 2: 128
+    # lanes run in one wave only in clusters of 2 (or 1)
+    held = {8: 15, 4: 30, 2: 66, 1: 132}.get
+    assert gather.launch_plan(35280, 128, 4, 132, held) == (1, 2, 512)
+    assert gather.launch_plan(35280, 256, 4, 132, held) == (1, 2, 512)
+    assert gather.launch_plan(35280, 120, 4, 132, held) == (1, 8, 512)
+    assert gather.launch_plan(8192, 512, 4, 132, held) == (3, 4, 1024)
     with pytest.raises(ValueError, match="exceeds"):
-        gather.lanes_per_block(40000, 128, 4, 132)   # shared memory
+        gather.launch_plan(40000, 128, 4, 132)   # shared memory
     with pytest.raises(ValueError, match="exceeds"):
-        gather.lanes_per_block(37000, 128, 2, 132)   # registers per thread
+        gather.launch_plan(37000, 128, 2, 132)   # elements (uint16 offsets)
 
 
 def test_wrappers_reject_bad_inputs():
