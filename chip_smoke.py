@@ -68,7 +68,19 @@ fixed three-dispatch run for the steady shots/s, (16) the shot mesh on the
 card: multihost_smoke --device cuda (two processes sharing the card in one
 gloo group against one process holding two shards, dynamical and
 calibrated), and a one-rank NCCL group whose run_simulation (all_reduce,
-all_gather and broadcast on CUDA tensors) equals the run without a group.
+all_gather and broadcast on CUDA tensors) equals the run without a group,
+(17) BatchDecoder at the bench configuration: phase 4's dispatch randoms
+decoded through BatchDecoder.decode in each basis (batch_size 1024), with
+the flooding and the layered schedule, equal to the pooled dispatches of
+phases 4 and 7 shot for shot (error, converged, rank_deficient), K1 or K3
+and K2 alone, (18) run_code_capacity on the Steane code (p=0.005, 10,000
+shots: LER < 0.01, converged > 0.9) and the code-capacity round on the
+card against the CPU on the same draws (Steane, and [[144,12,12]]'s Hz
+with Lx at p=0.05, B=1024; K2 launched), (19) bench_cuda.py as a
+subprocess (two 2-second windows, no [[288]]): its headline line first and
+its full line last, (20) python -m qldpc_tpu_torch on [[72,12,6]] p=0.006
+maxIter 20 to 100 errors against the JAX record (VALIDATION.md:12) within
+3 sigma, its results.npz loaded, and the explainer gallery on the card.
 Each path runs with every launch count set to 0 just before it and read
 just after. Exits non-zero, and prints
 no result, without a GPU, outside a checkout, or when any phase fails.
@@ -122,6 +134,10 @@ MC_CYCLES, MC_MAXITER = 10, 20
 MC_REF = {"[[90, 8, 10]]": (200, 918, "VALIDATION.md:15"),
           "[[108, 8, 10]]": (200, 1191, "VALIDATION.md:17")}
 MC_STEADY_DISPATCHES = 3  # the fixed-length run that gives steady shots/s
+# phase 20: the CLI at the JAX package's dynamical maxIter-20 record
+# (VALIDATION.md:12: [[72,12,6]] p=0.006, 0.595 = 200/336)
+CLI_CODE, CLI_P, CLI_ERRORS = "[[72, 12, 6]]", 0.006, 100
+CLI_REF_ERRS, CLI_REF_TRIALS = 200, 336
 
 
 def fail(msg: str):
@@ -1633,6 +1649,204 @@ def main():
           f"and broadcast ran on CUDA tensors ({time.time() - t0:.1f} s); "
           f"NCCL across GPUs is not checked (one card)", flush=True)
 
+    # ---- phase 17: BatchDecoder at full width ----
+    # phase 4's pooled dispatch randoms (4 x 1024 shots), their syndromes
+    # decoded through the public API in each basis, against the flags of
+    # phase 4's (flooding) and phase 7's (layered) pooled dispatches
+    t17 = time.time()
+    trials = [trial_batch(None, P, decs[0].maps, decs[1].maps, n_locs, BATCH,
+                          randoms=r) for r in randoms]
+    api = {}
+    for variant, ref_out, bp_key in (("minsum", out_k, "k1"),
+                                     ("layered", out_l, "k3")):
+        bdec = qt.BatchDecoder(code.Hx, code.Hz, code.Lx, code.Lz, P,
+                               num_cycles=CYCLES, maxIter=MAXITER,
+                               osd_order=OSD_ORDER, precomputed_matrices=M,
+                               device=dev, bp_variant=variant, **bb_params)
+        bdec.decode(torch.cat([t["syndrome_z"] for t in trials])[:BATCH]
+                    .cpu().numpy(), "Z", BATCH)  # warm-up: allocator
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = {}
+        for b in "zx":
+            syn = torch.cat([t[f"syndrome_{b}"] for t in trials]).cpu()
+            got[b] = bdec.decode(syn.numpy(), b.upper(), batch_size=BATCH)
+        api_s = time.time() - t0
+        c17 = counts()
+        for b in "zx":
+            true = torch.cat([t[f"true_{b}"] for t in trials]).cpu().numpy()
+            err = (got[b]["logicals"] != true).any(1)
+            for name, mine, key in (
+                    ("error", err, f"{b}_err"),
+                    ("converged", got[b]["converged"], f"{b}_conv"),
+                    ("rank_deficient", got[b]["rank_deficient"],
+                     f"{b}_rankdef")):
+                if not np.array_equal(mine, ref_out[key].cpu().numpy()):
+                    fail(f"phase 17: BatchDecoder({variant}) {name} differs "
+                         f"from the pooled dispatch's {key} in basis "
+                         f"{b.upper()}")
+        if c17[bp_key] <= 0 or c17["k2"] <= 0 or any(
+                v for k, v in c17.items() if k not in (bp_key, "k2")):
+            fail(f"phase 17: BatchDecoder({variant}) did not run "
+                 f"{bp_key.upper()} and K2 alone: {c17}")
+        api[variant] = dict(shots_per_s=RPD * BATCH / api_s, launches=c17)
+        print(f"phase 17: BatchDecoder(bp_variant={variant!r}).decode of "
+              f"{RPD}x{BATCH} shots a basis (batch_size {BATCH}) equals the "
+              f"pooled dispatch shot for shot (error, converged, "
+              f"rank_deficient, both bases); {RPD * BATCH / api_s:.1f} "
+              f"decoded shots/s (both bases, {api_s:.2f} s); launches "
+              f"{bp_key.upper()} {c17[bp_key]} K2 {c17['k2']}", flush=True)
+    del trials
+    print(f"phase 17: {time.time() - t17:.1f} s", flush=True)
+
+    # ---- phase 18: run_code_capacity ----
+    from qldpc_tpu_torch.parallel import code_capacity as ccap
+    t18 = time.time()
+    Hs, _, Ls, _ = ccap.steane_code()
+    reset_counts()
+    cap = ccap.run_code_capacity(Hs, 0.005, num_shots=10_000, L=Ls,
+                                 device=dev)
+    c18 = counts()
+    print(f"phase 18: run_code_capacity Steane [[7,1,3]] p=0.005, "
+          f"{cap['num_shots']} shots: LER {cap['logical_error_rate']:.5f}, "
+          f"converged {cap['converged_rate']:.4f}, "
+          f"{cap['shots_per_sec']:.1f} shots/s; launches K2 {c18['k2']}",
+          flush=True)
+    if not (cap["num_shots"] == 10_000 and cap["logical_error_rate"] < 0.01
+            and cap["converged_rate"] > 0.9) or c18["k2"] <= 0 or any(
+                v for k, v in c18.items() if k != "k2"):
+        fail(f"phase 18: implausible code-capacity result {cap} or launches "
+             f"{c18}")
+    code_cap = dict(steane_shots_per_s=cap["shots_per_sec"],
+                    steane_ler=cap["logical_error_rate"])
+    for name, H18, L18, B18 in (
+            ("Steane", Hs, Ls, 4096),
+            (f"{CODE} Hz", code.Hz, code.Lx, BATCH)):
+        e18 = torch.rand((B18, H18.shape[1]), generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev) < 0.05
+        cc_dev = ccap.capacity_decoder(H18, 0.05, L18, MAXITER, OSD_ORDER,
+                                       device=dev)
+        cc_cpu = ccap.capacity_decoder(H18, 0.05, L18, MAXITER, OSD_ORDER,
+                                       device="cpu")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got18 = ccap._code_capacity_round(e18, cc_dev)
+        torch.cuda.synchronize()
+        round_s = time.time() - t0
+        k2_18 = counts()["k2"]
+        want18 = ccap._code_capacity_round(e18.cpu(), cc_cpu)
+        for key in ("fail", "conv"):
+            if not torch.equal(got18[key].cpu(), want18[key]):
+                fail(f"phase 18: the {name} code-capacity round's {key} "
+                     "differs between the card and the CPU")
+        n_conv = int(want18["conv"].sum())
+        if k2_18 <= 0:
+            fail(f"phase 18: the {name} round did not launch K2")
+        code_cap[name] = dict(round_s=round_s, k2=k2_18, conv=n_conv,
+                              fail=int(want18["fail"].sum()))
+        print(f"phase 18: {name} code-capacity round (p=0.05, B={B18}, "
+              f"maxIter {MAXITER}, OSD order {OSD_ORDER}): card equals CPU "
+              f"(fail {int(want18['fail'].sum())}, BP converged {n_conv}); "
+              f"K2 launches {k2_18}; card round {round_s * 1e3:.1f} ms",
+              flush=True)
+    if code_cap[f"{CODE} Hz"]["conv"] >= BATCH:
+        fail("phase 18: BP converged on every shot of the wide round")
+    print(f"phase 18: {time.time() - t18:.1f} s", flush=True)
+
+    # ---- phase 19: bench_cuda.py as a subprocess ----
+    import tempfile
+    t19 = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        bench = subprocess.run(
+            [sys.executable, os.path.join(root, "bench_cuda.py"),
+             "--seconds", "2", "--windows", "2", "--baseline-cache",
+             os.path.join(tmp, "baseline.json")],
+            capture_output=True, text=True, timeout=300, cwd=tmp,
+            env=dict(os.environ, BENCH_288="0"))
+    lines = bench.stdout.strip().splitlines()
+    if bench.returncode or len(lines) < 2:
+        fail(f"phase 19: bench_cuda.py exited {bench.returncode}: "
+             f"{bench.stdout[-2000:]} {bench.stderr[-3000:]}")
+    head, full = json.loads(lines[0]), json.loads(lines[-1])
+    if (full.get("metric") != "decoded_shots_per_sec_per_chip_[[144,12,12]]"
+            or not full.get("value", 0) > 0 or "vs_baseline" not in full
+            or "extra" in head or {k: full[k] for k in head} != head
+            or "extra" not in full):
+        fail(f"phase 19: bench_cuda.py lines do not parse as its contract: "
+             f"{lines[0]} ... {lines[-1][:500]}")
+    win = full["extra"]["windows_shots_per_sec"]
+    stages19 = full["extra"]["stages_[[144,12,12]]"]["stage_ms_per_dispatch"]
+    windows19 = ", ".join(f"{r:.1f}" for r in win["all"])
+    print(f"phase 19: bench_cuda.py (2 windows of 2 s, no [[288]]): value "
+          f"{full['value']} shots/s (windows {windows19}), "
+          f"vs_baseline {full['vs_baseline']}; stages (ms a dispatch) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages19.items())
+          + f"; phase 4's run_simulation {res['shots_per_sec']:.1f} shots/s;"
+          f" {time.time() - t19:.1f} s", flush=True)
+
+    # ---- phase 20: the CLI and the gallery ----
+    t20 = time.time()
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        cli = subprocess.run(
+            [sys.executable, "-m", "qldpc_tpu_torch", "--codes",
+             CLI_CODE, "--error-rates", str(CLI_P), "--max-iter", "20",
+             "--target-logical-errors", str(CLI_ERRORS), "--base-seed",
+             str(SEED), "--output-dir", os.path.join(tmp, "out"),
+             "--cache-dir", os.path.join(tmp, "cache")],
+            capture_output=True, text=True, timeout=300, cwd=root)
+        runs = sorted(os.listdir(os.path.join(tmp, "out"))) \
+            if os.path.isdir(os.path.join(tmp, "out")) else []
+        if cli.returncode or not runs:
+            fail(f"phase 20: python -m qldpc_tpu_torch exited "
+                 f"{cli.returncode}: {cli.stderr[-3000:]}")
+        from qldpc_tpu_torch.utils.results import load_results
+        r20 = load_results(os.path.join(tmp, "out", runs[-1], "results.npz")
+                           )["results"]["72"][CLI_P]
+        ler20, n20 = r20["logical_error_rate"], r20["num_trials"]
+        ref20 = CLI_REF_ERRS / CLI_REF_TRIALS
+        z20 = (ler20 - ref20) / np.sqrt(ler20 * (1 - ler20) / max(n20, 1)
+                                        + ref20 * (1 - ref20)
+                                        / CLI_REF_TRIALS)
+        print(f"phase 20: python -m qldpc_tpu_torch {CLI_CODE} p={CLI_P} "
+              f"maxIter 20: LER {ler20:.5f} ({r20['logical_errors']}/{n20}) "
+              f"against the JAX record {ref20:.3f} ({CLI_REF_ERRS}/"
+              f"{CLI_REF_TRIALS}, VALIDATION.md:12): z {z20:+.2f}; "
+              f"results.npz loads", flush=True)
+        if r20["logical_errors"] != CLI_ERRORS or abs(z20) > 3:
+            fail(f"phase 20: the CLI's LER {ler20:.5f} is not within 3 "
+                 f"sigma of {ref20:.3f}: {r20}")
+        from qldpc_tpu_torch.utils import gallery
+        if gallery.plt is not None:
+            figs = gallery.generate_gallery(os.path.join(tmp, "gallery"),
+                                            verbose=False, device=dev)
+            if len(figs) != 15 or not all(os.path.getsize(f) > 5000
+                                          for f in figs):
+                fail(f"phase 20: the gallery wrote {len(figs)} figures")
+            done20 = "generate_gallery on the card wrote 15 figures"
+        else:
+            # no matplotlib on this machine: the gallery's device work
+            # (the sampled trials and BP decodes of figures 01c, 06, 07
+            # and 10) on the card, its decisions against the CPU's
+            c20 = qt.get_code(CLI_CODE)
+            circ20 = qt.SyndromeCircuit(c20, num_cycles=4)
+            M20 = qt.build_decoding_matrices(circ20, c20.Lx, c20.Lz, CLI_P)
+            syn20, _ = gallery._trials(circ20, M20, dev, CLI_P, 5, 8)
+            card20 = gallery._bp_z(M20, syn20, 30)
+            cpu20 = gallery._bp_z(M20, syn20.cpu(), 30)
+            for key in ("hard", "converged"):
+                if not torch.equal(card20[key].cpu(), cpu20[key]):
+                    fail(f"phase 20: the gallery's BP {key} differs between "
+                         "the card and the CPU")
+            done20 = ("matplotlib is not installed here, so the gallery "
+                      "writes no figure; its sampled trials and BP decodes "
+                      f"ran on the card ({int(syn20.sum())} syndrome bits "
+                      "in 8 shots) and equal the CPU's decisions")
+    print(f"phase 20: {done20}; {time.time() - t20:.1f} s", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -1641,6 +1855,7 @@ def main():
              ms=k1["Z"]["ms"], plain_ms=k1["Z"]["plain_ms"],
              bound_ms=k1["Z"]["bound_ms"], bound_by=k1["Z"]["bound_by"],
              library_ms=None, multicode_launches=launches_mc["k1"],
+             batch_decoder_launches=api["minsum"]["launches"]["k1"],
              at_multicode={n: {b: dict(ms=r["k1_ms"],
                                        plain_ms=r["k1_plain_ms"],
                                        bound_ms=r["k1_bound_ms"])
@@ -1656,6 +1871,8 @@ def main():
              bound_ms=k2["stage1"]["bound_ms"],
              bound_by=k2["stage1"]["bound_by"], library_ms=None,
              multicode_launches=launches_mc["k2"],
+             batch_decoder_launches=api["minsum"]["launches"]["k2"],
+             code_capacity_launches=c18["k2"],
              at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
                                            bound_ms=r[f"k2_{w}"]["bound_ms"])
                                    for w in ("stage1", "prefix", "full")}
@@ -1667,7 +1884,8 @@ def main():
              launches=launches_l["k3"], max_abs_err=k3["Z"]["max_abs_err"],
              ms=k3["Z"]["ms"], plain_ms=k3["Z"]["plain_ms"],
              bound_ms=k3["Z"]["bound_ms"], bound_by=k3["Z"]["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             batch_decoder_launches=api["layered"]["launches"]["k3"]),
     ]
     for key, name, src, line in (
             ("k4", "gf2_elim_fused_kernel", "gf2_elim_fused.cu", 158),

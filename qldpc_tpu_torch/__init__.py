@@ -9,7 +9,10 @@ same device. ``run_simulation`` and ``run_multi_code_simulation`` run over
 a shot mesh (``parallel/mesh.py``): one process per GPU in a
 ``torch.distributed`` group joined by ``distributed_init_from_env()`` from
 the ``QLDPC_COORDINATOR``, ``QLDPC_NUM_PROCESSES`` and ``QLDPC_PROCESS_ID``
-variables, or several shards in one process.
+variables, or several shards in one process. ``BatchDecoder`` decodes
+measured syndromes through the same path, ``parallel.code_capacity``
+runs iid errors on a raw parity-check matrix, and ``python -m
+qldpc_tpu_torch`` is the sweep driver.
 
 Device rule: every entry point runs on ``cuda`` by default and raises when no
 GPU is present unless the caller passes ``device="cpu"``. Nothing falls back
@@ -38,6 +41,9 @@ def resolve_device(device=None) -> torch.device:
 
 def __getattr__(name):
     # lazy: the engine pulls in the whole decode stack
+    if name == "BatchDecoder":
+        from .parallel.decoder import BatchDecoder
+        return BatchDecoder
     if name in ("run_simulation", "run_multi_code_simulation"):
         from .parallel import engine
         return getattr(engine, name)

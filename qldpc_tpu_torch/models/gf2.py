@@ -1,4 +1,6 @@
-"""Host-side GF(2) linear algebra (NumPy, setup-time only).
+"""Host-side GF(2) linear algebra (NumPy, setup-time only; ranks and column
+bases of decoding matrices through the native eliminator of
+``native/build.py`` where g++ is present).
 
 Used for code construction (logical operators, rank checks) and as the
 oracle tier for the batched on-device GF(2) routines in ``qldpc_tpu_torch.ops``.
@@ -52,9 +54,27 @@ def rank(A) -> int:
     return len(piv)
 
 
+def _native_pivots(A: np.ndarray):
+    """prow_of_col (n,) of A's greedy elimination by the native bit-packed
+    eliminator (``native/build.py``), or None without a toolchain."""
+    from ..native.build import gf2_eliminate_native
+    m, n = A.shape
+    packed = np.packbits(A, axis=1, bitorder="little")
+    pad = (-packed.shape[1]) % 8
+    if pad:
+        packed = np.pad(packed, ((0, 0), (0, pad)))
+    words = np.ascontiguousarray(packed).view(np.uint64)
+    return gf2_eliminate_native(words, np.zeros(m, dtype=np.uint8), n)
+
+
 def rank_fast(A) -> int:
-    """GF(2) rank of a decoding matrix (NumPy elimination; [[144]]-sized
-    matrices take well under a second)."""
+    """GF(2) rank via the native bit-packed eliminator, or the NumPy
+    elimination without a toolchain (large decoding matrices take minutes
+    there)."""
+    A = _as_bits(A)
+    prow = _native_pivots(A)
+    if prow is not None:
+        return int((prow >= 0).sum())
     return rank(A)
 
 
@@ -62,7 +82,12 @@ def column_basis(A) -> np.ndarray:
     """Indices of the greedy (first-independent, natural order) column basis
     of A over GF(2) — the lexicographically-first ``rank`` columns that span
     the column space. Used by OSD to complete per-shot reliability-ordered
-    eliminations to full rank (see ops/osd.py)."""
+    eliminations to full rank (see ops/osd.py). Native eliminator, or NumPy
+    without a toolchain."""
+    A = _as_bits(A)
+    prow = _native_pivots(A)
+    if prow is not None:
+        return np.nonzero(prow >= 0)[0].astype(np.int32)
     _, piv = row_reduce(A, full=False)
     return piv.astype(np.int32)
 

@@ -1,4 +1,5 @@
-"""Bit-packed batched Pauli-frame propagation (host-side, NumPy).
+"""Bit-packed batched Pauli-frame propagation (host-side: the native
+kernel of ``native/build.py``, NumPy without a toolchain).
 
 Propagates B independent error frames through the syndrome-extraction
 circuit simultaneously, with frames packed 64-per-uint64-word along the
@@ -59,6 +60,12 @@ def propagate_batch(
         op_prep, op_meas, cnot_dst_is_q1 = OP_PREP_Z, OP_MEAS_Z, False
     else:
         raise ValueError(basis)
+    from ..native.build import propagate_frames_native
+    native = propagate_frames_native(
+        ops, q1, q2, cnot_dst_is_q1, op_prep, op_meas, total_qubits,
+        num_meas, inj_pos, inj_q, inj_bit, nbatch)
+    if native is not None:
+        return native
 
     W = (nbatch + 63) // 64
     state = np.zeros((total_qubits, W), dtype=np.uint64)

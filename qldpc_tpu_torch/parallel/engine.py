@@ -46,10 +46,13 @@ from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops.osd import choose_K, osd_batch
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
-from .mesh import (COUNT_KEYS, ShotMesh, broadcast_from_rank0,
+from .mesh import (ShotMesh, broadcast_from_rank0,
                    gather_flags, generator, shard_rounds, shot_mesh)
 
 logger = logging.getLogger(__name__)
+
+# the counted flags of a decode round that the stopping loop reads
+_STOP_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
 
 _SAMPLER_KEYS = ("z_loc_gate_loc", "z_loc_role", "z_loc_class",
                  "x_loc_gate_loc", "x_loc_role", "x_loc_class")
@@ -212,6 +215,38 @@ def _logical_readout(hard, conv, delta, dec: BasisDecoder):
     return bp_log ^ torch.where(conv[:, None], 0, delta_bits)
 
 
+def _decode_logicals(syndrome, dec: BasisDecoder, maxIter: int,
+                     osd_order: int, damping: float = 1.0,
+                     clip_llr: float = 20.0, msg_dtype=torch.float32,
+                     bp_variant: str = "minsum"):
+    """BP, OSD fallback for the unconverged shots, logical readout, for
+    externally supplied syndromes (B, m). The OSD chunk is the JAX
+    package's: the whole batch up to 64 shots, else max(64, B // 8).
+
+    Returns (dec_log (B, k) int32, the decoded correction's logical action;
+    converged (B,) bool; rank_deficient (B,) bool)."""
+    B = syndrome.shape[0]
+    bp = _bp_one_basis(syndrome, dec, maxIter, damping, clip_llr, msg_dtype,
+                       bp_variant)
+    conv = bp["converged"]
+    chunk = B if B <= 64 else max(64, B // 8)
+    delta, rdef = _osd_fallback(syndrome, bp["values"], bp["hard"], conv,
+                                dec, osd_order, chunk)
+    return _logical_readout(bp["hard"], conv, delta, dec), conv, rdef
+
+
+def _decode_one_basis(syndrome, true_log, dec: BasisDecoder, maxIter: int,
+                      osd_order: int, damping: float = 1.0,
+                      clip_llr: float = 20.0, msg_dtype=torch.float32,
+                      bp_variant: str = "minsum"):
+    """:func:`_decode_logicals` scored against the true logical effect:
+    (err (B,) bool, converged, rank_deficient)."""
+    dec_log, conv, rdef = _decode_logicals(syndrome, dec, maxIter, osd_order,
+                                           damping, clip_llr, msg_dtype,
+                                           bp_variant)
+    return (dec_log != true_log.to(torch.int32)).any(1), conv, rdef
+
+
 def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
                      bp_args: tuple, randoms=None):
     """One round's sampling + both-basis BP; ``bp_args`` = (damping,
@@ -307,6 +342,25 @@ def make_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder, n_locs: int,
                                   bp_variant, msg_dtype=msg_dtype)
     return lambda gen, randoms=None: pooled(
         gen, None if randoms is None else [randoms])
+
+
+def make_scanned_round_fn(round_fn, n_rounds: int):
+    """``n_rounds`` unpooled rounds a dispatch (the JAX package's
+    ``lax.scan`` of rounds): ``scanned(gen, randoms=None)`` calls
+    ``round_fn`` once per round, each with its own OSD phase, and
+    concatenates the per-shot flags into one (n_rounds * batch,) round;
+    ``randoms`` is a list of per-round draws."""
+    def scanned(gen, randoms=None):
+        outs = [round_fn(gen, None if randoms is None else randoms[r])
+                for r in range(n_rounds)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    return scanned
+
+
+def tot_errs_target(target: int, already: int) -> int:
+    """Remaining errors needed within the current round."""
+    return max(0, target - already)
 
 
 def _calib_trials(requested: Optional[int], n: int, p: float) -> int:
@@ -482,12 +536,12 @@ def _drive_stopping_rounds(dispatch, gather, n_streams: int,
                 continue
             take = min(round_shots, max_trials - trials[i])
             a_cnt, z_inc, x_inc, rz, rx = (o[f"{k}_count"]
-                                           for k in COUNT_KEYS)
+                                           for k in _STOP_KEYS)
             rd = rz + rx
             crossing = (stop_on_errors
                         and tot[i] + a_cnt >= target_logical_errors)
             if crossing or take < round_shots:
-                g = gather({k: o[k] for k in COUNT_KEYS})
+                g = gather({k: o[k] for k in _STOP_KEYS})
                 g = {k: v[:take] for k, v in g.items()}
                 a = g["any_err"]
                 if stop_on_errors and a.size and \
@@ -531,6 +585,29 @@ def _drive_stopping_rounds(dispatch, gather, n_streams: int,
     return dict(trials=trials, z_errs=z_errs, x_errs=x_errs, tot_errs=tot,
                 rankdef=rankdef, steady_trials=steady, elapsed=elapsed,
                 steady_elapsed=steady_elapsed)
+
+
+def _progress_bar(verbose: bool, stop_on_errors: bool, target, max_trials,
+                  error_rate):
+    """The JAX package's live ``tqdm`` bar of a run (errors toward the
+    target, or trials toward ``max_trials``): (bar, on_progress), or None
+    when not ``verbose`` or without tqdm."""
+    if not verbose:
+        return None
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    bar = tqdm(total=target if stop_on_errors else max_trials,
+               unit="err" if stop_on_errors else "trial",
+               desc=f"p={error_rate:g}", leave=False)
+
+    def on_progress(_i, trials_now, errs_now):
+        bar.update((errs_now if stop_on_errors else trials_now) - bar.n)
+        bar.set_postfix(trials=trials_now,
+                        ler=f"{errs_now / max(1, trials_now):.3g}")
+
+    return bar, on_progress
 
 
 def _shared_seed(base_seed: Optional[int]) -> int:
@@ -771,22 +848,23 @@ def run_simulation(
             rounds_per_dispatch, damping, bp_variant=bp_variant,
             osd_chunk=osd_chunk)
     else:
-        one = make_round_fn(dec_z, dec_x, n_locs, error_rate, batch_size,
-                            maxIter, osd_order, damping,
-                            bp_variant=bp_variant)
-
-        def round_fn(g, randoms=None, rpd=rounds_per_dispatch):
-            outs = [one(g, None if randoms is None else randoms[r])
-                    for r in range(rpd)]
-            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        round_fn = make_scanned_round_fn(
+            make_round_fn(dec_z, dec_x, n_locs, error_rate, batch_size,
+                          maxIter, osd_order, damping, bp_variant=bp_variant),
+            rounds_per_dispatch)
     sharded = shard_rounds(round_fn, mesh)
     gens = _gens(base_seed, mesh, dev)
     round_shots = batch_size * n_shards * rounds_per_dispatch
 
+    progress = _progress_bar(verbose, stop_on_errors, target_logical_errors,
+                             max_trials, error_rate)
     st = _drive_stopping_rounds(
         lambda ri: [sharded(gens)], gather_flags, 1, round_shots,
         max_trials, target_logical_errors if stop_on_errors else None,
-        verbose, [f"p={error_rate:g}"])
+        verbose, [f"p={error_rate:g}"],
+        on_progress=None if progress is None else progress[1])
+    if progress is not None:
+        progress[0].close()
     trials_run, tot_errs = st["trials"][0], st["tot_errs"][0]
     elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
     # steady-state throughput excludes the first round (kernel builds)

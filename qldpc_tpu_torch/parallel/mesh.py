@@ -19,8 +19,10 @@ processes, and a shot axis made of *shards*.
   own (:func:`stream_seed`), and a round's flags are in shard-major order:
   shard ``s``'s shots at ``[s*n, (s+1)*n)``, as JAX's shot-sharded layout
   puts device ``d``'s.
-- ``shard_rounds`` adds ``<flag>_count`` for every flag of ``COUNT_KEYS``:
-  each process sums its own shards, then one ``all_reduce`` of a small
+- ``shard_rounds`` adds ``<flag>_count`` for every flag of ``COUNT_KEYS``
+  that the round returns (a circuit-level round its error, convergence
+  and rank flags, a code-capacity round ``fail`` and ``conv``): each
+  process sums its own shards, then one ``all_reduce`` of a small
   integer vector per stream and round makes the totals the same on every
   rank. Steady rounds of the engine's stopping loop read only these counts.
 - ``gather_flags`` ``all_gather``s the per-shot flags in shard order;
@@ -54,8 +56,9 @@ from .. import resolve_device
 
 # the flags whose whole-round totals cross the group as counts (the
 # engine's steady-state loop reads only these) and that a crossing round
-# gathers shot by shot
-COUNT_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
+# gathers shot by shot; a round is counted on the ones it returns
+COUNT_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef",
+              "fail", "conv")
 
 
 def distributed_init_from_env(backend: str = "nccl") -> bool:
@@ -182,7 +185,7 @@ def shard_rounds(round_fn: Callable, mesh: ShotMesh) -> Callable:
     same structure; its flags are this process's shards concatenated in
     shard order, and each dict gains ``<flag>_count`` (a Python int: the
     round's total over every shard of the group) for the flags of
-    ``COUNT_KEYS``."""
+    ``COUNT_KEYS`` it holds."""
     def sharded(gens, randoms=None):
         if len(gens) != len(mesh.shards):
             raise ValueError(f"{len(gens)} generators for "
@@ -199,15 +202,19 @@ def shard_rounds(round_fn: Callable, mesh: ShotMesh) -> Callable:
 
 def _merge_counted(parts) -> dict:
     """One stream's flags over this process's shards, with the group's
-    counts: one host read, and one all_reduce under a process group."""
+    counts of the ``COUNT_KEYS`` flags it holds: one host read, and one
+    all_reduce under a process group (every rank runs the same round, so
+    every rank's vector has the same keys in the same order)."""
     flags = (dict(parts[0]) if len(parts) == 1 else
              {k: torch.cat([p[k] for p in parts]) for k in parts[0]})
-    local = torch.stack([flags[k].sum(dtype=torch.int64)
-                         for k in COUNT_KEYS])
+    keys = [k for k in COUNT_KEYS if k in flags]
+    if not keys:
+        return flags
+    local = torch.stack([flags[k].sum(dtype=torch.int64) for k in keys])
     if _distributed():
         local = local.to(_comm_device())
         dist.all_reduce(local)
-    flags.update({f"{k}_count": int(v) for k, v in zip(COUNT_KEYS,
+    flags.update({f"{k}_count": int(v) for k, v in zip(keys,
                                                         local.tolist())})
     return flags
 

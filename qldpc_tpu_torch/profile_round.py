@@ -76,13 +76,29 @@ def _timed_dispatch(decs, n_locs, gen, cfg, acc):
     flat = [{k: torch.cat([r[b][k] for r in rounds]) for k in rounds[0][b]}
             for b in (0, 1)]
     pool = flat[0]["syn"].shape[0]
-    chunk = max(64, pool // 8)
+    chunk = cfg.get("osd_chunk") or max(64, pool // 8)
     for st, dec in zip(flat, decs):
         delta, _ = timed("osd", lambda: engine._osd_fallback(
             st["syn"], st["values"], st["hard"], st["conv"], dec,
             cfg["osd_order"], chunk))
         timed("readout", lambda: engine._logical_readout(
             st["hard"], st["conv"], delta, dec))
+
+
+def stage_split(decs, n_locs, gen, cfg, dispatches: int) -> tuple:
+    """Stage ms per pooled dispatch from CUDA events (sample, bp, osd,
+    readout; ``cfg`` as :func:`main` builds it, ``osd_chunk`` optional),
+    averaged over ``dispatches`` steady dispatches, and the staged
+    dispatch's host ms. The kernels must be built and warm."""
+    acc: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(dispatches):
+        _timed_dispatch(decs, n_locs, gen, cfg, acc)
+    torch.cuda.synchronize()
+    staged_ms = (time.time() - t0) * 1e3 / dispatches
+    return ({k: sum(s.elapsed_time(e) for s, e in v) / dispatches
+             for k, v in acc.items()}, staged_ms)
 
 
 def main(argv=None):
@@ -126,15 +142,7 @@ def main(argv=None):
     fn(gen)  # warm-up: kernel builds, allocator
     torch.cuda.synchronize()
 
-    # stage breakdown
-    acc: dict = {}
-    t0 = time.time()
-    for _ in range(args.dispatches):
-        _timed_dispatch(decs, n_locs, gen, cfg, acc)
-    torch.cuda.synchronize()
-    staged_wall = (time.time() - t0) / args.dispatches
-    stages = {k: sum(s.elapsed_time(e) for s, e in v) / args.dispatches
-              for k, v in acc.items()}
+    stages, staged_ms = stage_split(decs, n_locs, gen, cfg, args.dispatches)
 
     # profiler over whole dispatches of the engine's own round function
     from torch.profiler import ProfilerActivity, profile
@@ -178,7 +186,7 @@ def main(argv=None):
         alpha_seq={"z": [float(a) for a in seq_z],
                    "x": [float(a) for a in seq_x]},
         dispatch_ms=wall * 1e3, shots_per_s=shots / wall,
-        staged_dispatch_ms=staged_wall * 1e3, stage_ms=stages,
+        staged_dispatch_ms=staged_ms, stage_ms=stages,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
         kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top},
         eliminator=elim, elim_by_width=widths or None)
@@ -192,7 +200,7 @@ def main(argv=None):
           f"{report['device_idle_share']:.3f}")
     print("stages (ms per dispatch, CUDA events): " + ", ".join(
         f"{k} {v:.1f}" for k, v in stages.items())
-        + f"; staged dispatch wall {staged_wall * 1e3:.1f} ms")
+        + f"; staged dispatch wall {staged_ms:.1f} ms")
     for k, v in top:
         print(f"  {v / args.dispatches:9.3f} ms  {k[:90]}")
     if widths:

@@ -1,7 +1,8 @@
 """Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU,
 the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
 calibration histogram) against themselves on the CPU, and the multi-code
-and shot-mesh paths on the card (K1 and K2 at the multi-code shapes).
+and shot-mesh paths on the card (K1 and K2 at the multi-code shapes),
+BatchDecoder and the code-capacity round on the card against the CPU.
 
 Needs a CUDA card and nvcc (the kernels are built from qldpc_tpu_torch/csrc
 on first use); every test skips without a card. Imports neither jax nor the
@@ -700,3 +701,64 @@ def test_two_shard_mesh_on_card(cuda, bundles):
                             b_x_powers=code.b_x_powers)
     assert res["logical_errors"] == 40 and res["num_devices"] == 2
 
+
+
+def _bb_params(code):
+    return dict(ell=code.ell, m=code.m, a_x_powers=code.a_x_powers,
+                a_y_powers=code.a_y_powers, b_y_powers=code.b_y_powers,
+                b_x_powers=code.b_x_powers)
+
+
+@pytest.mark.parametrize("bp_variant", ["minsum", "layered"])
+@pytest.mark.parametrize("basis", ["Z", "X"])
+def test_batch_decoder_on_card(cuda, bundles, basis, bp_variant):
+    """BatchDecoder on the card (K1 or K3, then K2) against itself on the
+    CPU (the plain versions), through the padding path; the card's run
+    launches its kernels."""
+    circ, M, _ = bundles
+    code = qt.get_code("[[72, 12, 6]]")
+    kw = dict(num_cycles=6, maxIter=50, osd_order=2, precomputed_matrices=M,
+              bp_variant=bp_variant, **_bb_params(code))
+    H, syn = _syndromes(M, basis, 300, seed=5)
+    syn = np.concatenate([syn, np.asarray(
+        np.random.default_rng(6).random((100, H.shape[0])) < 0.02,
+        np.int8)])  # noisy syndromes too: some shots need OSD
+    cpu = qt.BatchDecoder(code.Hx, code.Hz, code.Lx, code.Lz, 0.006,
+                          device="cpu", **kw).decode(syn, basis, 128)
+    bp_wrap = (bp_lift_layered_cuda.decode_batch_lift_layered_cuda
+               if bp_variant == "layered"
+               else bp_lift_cuda.decode_batch_lift_cuda)
+    bp_wrap.launches = osd_cuda.eliminate_blocks_v1.launches = 0
+    card = qt.BatchDecoder(code.Hx, code.Hz, code.Lx, code.Lz, 0.006,
+                           device=cuda, **kw).decode(syn, basis, 128)
+    assert bp_wrap.launches > 0 and osd_cuda.eliminate_blocks_v1.launches > 0
+    for key in ("logicals", "converged", "rank_deficient"):
+        assert np.array_equal(card[key], cpu[key]), key
+    assert 0 < cpu["converged"].sum() < len(syn)
+
+
+@pytest.mark.parametrize("name", ["steane", "[[144,12,12]]"])
+def test_code_capacity_round_on_card(cuda, name):
+    """The code-capacity round on the card (K2 for OSD) against the CPU on
+    the same error draws, fail and conv exact."""
+    from qldpc_tpu_torch.parallel import code_capacity as cc
+    if name == "steane":
+        _, H, L, _ = cc.steane_code()
+        p, B = 0.05, 4096
+    else:
+        code = qt.get_code("[[144, 12, 12]]")
+        H, L, p, B = code.Hz, code.Lx, 0.05, 1024
+    e = torch.rand((B, H.shape[1]), generator=torch.Generator()
+                   .manual_seed(9)) < p
+    want = cc._code_capacity_round(e, cc.capacity_decoder(H, p, L, 50, 2,
+                                                          device="cpu"))
+    osd_cuda.eliminate_blocks_v1.launches = 0
+    got = cc._code_capacity_round(e.to(cuda), cc.capacity_decoder(
+        H, p, L, 50, 2, device=cuda))
+    assert osd_cuda.eliminate_blocks_v1.launches > 0
+    for key in ("fail", "conv"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    res = cc.run_code_capacity(H, p, num_shots=3000, L=L, maxIter=50,
+                               osd_order=2, batch_size=1024, device=cuda,
+                               mesh=mesh.shot_mesh(2))
+    assert res["num_shots"] == 3000 and 0 < res["logical_error_rate"] < 0.5

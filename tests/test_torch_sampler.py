@@ -3,7 +3,8 @@
 torch's generator cannot replay JAX's streams, so the sampler is held three
 ways: fault bits and augmented signatures bit-exact given the same
 (err, pauli, cat2); the port's own draws checked distributionally; and one
-trial of the port's draws equal to the explicit gate-walk oracle.
+trial of the port's draws equal to the explicit gate-walk oracle (the
+port's copy, held against the JAX package's in test_torch_utils.py).
 """
 import numpy as np
 import pytest
@@ -13,10 +14,10 @@ import jax
 import jax.numpy as jnp
 
 import qldpc_tpu
-from qldpc_tpu.models.reference_sim import run_trial_oracle
 from qldpc_tpu.ops import sampler as jsampler
 
 import qldpc_tpu_torch as qt
+from qldpc_tpu_torch.models.reference_sim import run_trial_oracle
 from qldpc_tpu_torch.ops import sampler
 
 torch.set_num_threads(1)
