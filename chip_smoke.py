@@ -23,11 +23,13 @@ version at the stage-1, prefix and full widths, with its launch shape, its
 time per column step and the share of its layout transposes, its
 device-memory branch forced at stage 1 vs its shared-memory launch, and K2
 at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
-version, (4) main path (flooding, K1 + K2), (5) layered BP kernel K3 vs its
-plain version and vs K1 on the same syndromes, with K3's shape and ms per
-sweep, then K1's and K3's device-memory branch (forced) vs their
-shared-memory launches, and K1 and K3 at [[288,12,18]] (state in shared
-memory, one block per SM) vs their plain versions, (6) eliminator kernels
+version at stage 1, the prefix and the basis rerun's width (the prefix with
+the column basis appended), (4) main path (flooding, K1 + K2), (5) layered
+BP kernel K3 vs its plain version and vs K1 on the same syndromes, with
+K3's shape and ms per sweep, then K1's and K3's device-memory branch
+(forced) vs their shared-memory launches, and K1 and K3 at [[288,12,18]]
+(state in shared memory, one block per SM) vs their plain versions, (6)
+eliminator kernels
 K4 (four pivots per team barrier) and K5 (two shots a team) vs their plain
 versions and K2's at the three widths, with their launch shapes, times per
 column step beside K2's, their device-memory branch forced at stage 1, and
@@ -80,7 +82,13 @@ with Lx at p=0.05, B=1024; K2 launched), (19) bench_cuda.py as a
 subprocess (two 2-second windows, no [[288]]): its headline line first and
 its full line last, (20) python -m qldpc_tpu_torch on [[72,12,6]] p=0.006
 maxIter 20 to 100 errors against the JAX record (VALIDATION.md:12) within
-3 sigma, its results.npz loaded, and the explainer gallery on the card.
+3 sigma, its results.npz loaded, and the explainer gallery on the card,
+(21) the LER validation sweep's entry point (scripts/validate_ler.py's
+main, gated autoregressive alpha, maxIter 50) at two points held against
+the JAX package's records within 3 sigma: [[288,12,18]] p=0.005 to 200
+errors end to end (calibration, K1, K2 with its basis rerun, the stopping
+loop) and [[144,12,12]] p=0.004 with layered BP to 150 errors (K3 and
+K2), with no rank-deficient shot-basis.
 Each path runs with every launch count set to 0 just before it and read
 just after. Exits non-zero, and prints
 no result, without a GPU, outside a checkout, or when any phase fails.
@@ -138,6 +146,13 @@ MC_STEADY_DISPATCHES = 3  # the fixed-length run that gives steady shots/s
 # (VALIDATION.md:12: [[72,12,6]] p=0.006, 0.595 = 200/336)
 CLI_CODE, CLI_P, CLI_ERRORS = "[[72, 12, 6]]", 0.006, 100
 CLI_REF_ERRS, CLI_REF_TRIALS = 200, 336
+# phase 21: two points of the LER validation sweep (validate_ler's main,
+# gated autoregressive alpha, maxIter 50) and the JAX package's records of
+# them: (code, p, BP schedule, target errors, JAX errors, JAX trials, file)
+SWEEP_POINTS = (
+    (CODE_288, 0.005, "minsum", 200, 200, 527, "validation_rest_mi50.json"),
+    (CODE, 0.004, "layered", 150, 150, 1458, "validation_layered_mi50.json"),
+)
 
 
 def fail(msg: str):
@@ -164,6 +179,7 @@ def main():
 
         import qldpc_tpu_torch as qt
         from qldpc_tpu_torch import _kernels
+        from qldpc_tpu_torch.models import gf2
         from qldpc_tpu_torch.ops import (bp, bp_lift_cuda,
                                          bp_lift_layered_cuda, calibrate,
                                          gather, osd, osd_cuda)
@@ -466,7 +482,36 @@ def main():
               f"B={BATCH_288}): exact with and without the validity exit; "
               f"steps mean {float(a[5].float().mean()):.1f} max "
               f"{int(a[5].max())}; " + shape_line(info), flush=True)
-    del HT288
+    # the basis rerun's width: the prefix with the column basis appended,
+    # which osd_batch launches for the shots the prefix leaves uncovered
+    # (here every shot), with the rank exit of run_simulation's decoder
+    basis288 = gf2.column_basis(H288)
+    rank288 = gf2.rank_fast(H288)
+    R288 = len(basis288)
+    Hb288 = torch.zeros((m288, -(-R288 // 32) * 32), dtype=torch.uint8,
+                        device=dev)
+    Hb288[:, :R288] = torch.as_tensor(H288[:, basis288], device=dev)
+    HbT288 = osd._pack_columns(Hb288).T.contiguous()
+    Hp = torch.cat([w288["prefix"][0],
+                    HbT288[None].expand(BATCH_288, *HbT288.shape)], 1)
+    Kw = K288 + R288
+    for exit_on_valid in (False, True):
+        a, b = k2_exact(Hp, res288, Kw, m288, f"{CODE_288} basis rerun",
+                        rank=rank288, exit_on_valid=exit_on_valid)
+        err288 = max(float((x.long() - y.long()).abs().max())
+                     for x, y in zip(a, b))
+        k2_err = max(k2_err, err288)
+    info = elim_shape(Hp, res288, Kw, m288, a[5], rank=rank288)
+    if info["columns_in"] != "device memory" or info["words_per_lane"] != 3:
+        fail(f"phase 3: K2 at {CODE_288} basis rerun took another branch: "
+             f"{info}")
+    print(f"phase 3: K2 at {CODE_288} basis rerun ({K288} prefix columns + "
+          f"{R288} basis columns = {Hp.shape[1]} words, rank {rank288}, "
+          f"B={BATCH_288}): every output exact with and without the validity "
+          f"exit (max abs error {err288:g}); steps mean "
+          f"{float(a[5].float().mean()):.1f} max {int(a[5].max())}; "
+          + shape_line(info), flush=True)
+    del HT288, Hb288, HbT288, Hp
     print(f"phase 3: {CODE_288} matrices built in {build288_s:.1f} s",
           flush=True)
 
@@ -1847,6 +1892,80 @@ def main():
                       "in 8 shots) and equal the CPU's decisions")
     print(f"phase 20: {done20}; {time.time() - t20:.1f} s", flush=True)
 
+    # ---- phase 21: the LER validation sweep's entry point ----
+    from qldpc_tpu_torch.scripts import validate_ler
+    t21 = time.time()
+    mode21 = "alvarado-autoregressive"
+    all_points = validate_ler.BASELINE_POINTS
+    run_saved = validate_ler.run_simulation
+    calib_saved = engine._calibrate_basis_sequences
+    results21, calib21 = [], []
+
+    def recording_run(*a, **kw):
+        out = run_saved(*a, **kw)
+        results21.append(out)
+        return out
+
+    def timed_calibration(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = calib_saved(*a, **kw)
+        torch.cuda.synchronize()
+        calib21.append(time.time() - t0)
+        return out
+
+    launches_sw = {}
+    validate_ler.run_simulation = recording_run
+    engine._calibrate_basis_sequences = timed_calibration
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(root, "build")) as tmp:
+            for name, p21, variant, target, ref_e, ref_t, src in SWEEP_POINTS:
+                # the point's own row of the table, and no other
+                validate_ler.BASELINE_POINTS = {mode21: [
+                    pt for pt in all_points[mode21] if pt[:2] == (name, p21)]}
+                reset_counts()
+                rows = validate_ler.main([
+                    "--alpha-mode", mode21, "--max-iter", "50",
+                    "--target-errors", str(target), "--bp-variant", variant,
+                    "--codes", name, "--out",
+                    os.path.join(tmp, f"{variant}.json")])
+                torch.cuda.synchronize()
+                c = counts()
+                launches_sw[variant] = c
+                res21, row = results21[-1], rows[0]
+                ler21, n21 = row["ler"], row["trials"]
+                ref21 = ref_e / ref_t
+                z21 = (ler21 - ref21) / np.sqrt(
+                    ler21 * (1 - ler21) / n21 + ref21 * (1 - ref21) / ref_t)
+                bp21 = "k3" if variant == "layered" else "k1"
+                print(f"phase 21: validate_ler {name} p={p21} {mode21} "
+                      f"{variant} maxIter 50: LER {ler21:.5f} "
+                      f"({row['errors']}/{n21}) against the JAX record "
+                      f"{ref21:.4f} ({ref_e}/{ref_t}, {src}): z {z21:+.2f};"
+                      f" {row['shots_per_sec']} shots/s, calibration "
+                      f"{calib21[-1]:.1f} s, point {row['wall_sec']} s; "
+                      f"rank-deficient shot-bases "
+                      f"{res21['osd_rank_deficient_shots']}; launches "
+                      f"{bp21.upper()} {c[bp21]} K2 {c['k2']}", flush=True)
+                if row["errors"] != target or abs(z21) > 3:
+                    fail(f"phase 21: {name} p={p21} {variant}: LER "
+                         f"{ler21:.5f} is not within 3 sigma of {ref21:.4f}"
+                         f": {row}")
+                if res21["osd_rank_deficient_shots"]:
+                    fail(f"phase 21: {name} p={p21}: "
+                         f"{res21['osd_rank_deficient_shots']} "
+                         "rank-deficient shot-bases")
+                if c[bp21] <= 0 or c["k2"] <= 0 or any(
+                        v for k, v in c.items() if k not in (bp21, "k2")):
+                    fail(f"phase 21: {name} {variant} did not run "
+                         f"{bp21.upper()} and K2 alone: {c}")
+    finally:
+        validate_ler.BASELINE_POINTS = all_points
+        validate_ler.run_simulation = run_saved
+        engine._calibrate_basis_sequences = calib_saved
+    print(f"phase 21: {time.time() - t21:.1f} s", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -1856,6 +1975,7 @@ def main():
              bound_ms=k1["Z"]["bound_ms"], bound_by=k1["Z"]["bound_by"],
              library_ms=None, multicode_launches=launches_mc["k1"],
              batch_decoder_launches=api["minsum"]["launches"]["k1"],
+             validate_ler_launches=launches_sw["minsum"]["k1"],
              at_multicode={n: {b: dict(ms=r["k1_ms"],
                                        plain_ms=r["k1_plain_ms"],
                                        bound_ms=r["k1_bound_ms"])
@@ -1873,6 +1993,7 @@ def main():
              multicode_launches=launches_mc["k2"],
              batch_decoder_launches=api["minsum"]["launches"]["k2"],
              code_capacity_launches=c18["k2"],
+             validate_ler_launches=sum(c["k2"] for c in launches_sw.values()),
              at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
                                            bound_ms=r[f"k2_{w}"]["bound_ms"])
                                    for w in ("stage1", "prefix", "full")}
@@ -1885,7 +2006,8 @@ def main():
              ms=k3["Z"]["ms"], plain_ms=k3["Z"]["plain_ms"],
              bound_ms=k3["Z"]["bound_ms"], bound_by=k3["Z"]["bound_by"],
              library_ms=None,
-             batch_decoder_launches=api["layered"]["launches"]["k3"]),
+             batch_decoder_launches=api["layered"]["launches"]["k3"],
+             validate_ler_launches=launches_sw["layered"]["k3"]),
     ]
     for key, name, src, line in (
             ("k4", "gf2_elim_fused_kernel", "gf2_elim_fused.cu", 158),

@@ -273,6 +273,56 @@ def test_elim_kernel_launch_info(cuda):
     assert info["shots_per_sm"] >= 4 and info["shots_per_block"] >= 2
 
 
+@pytest.fixture(scope="module")
+def basis_rerun_288(cuda):
+    """[[288,12,18]] basis Z at p=0.005 (18 cycles): B=37 syndromes of
+    sampled errors, packed at the width of osd_batch's basis rerun (the
+    3,584 reliability-ordered columns with the column basis appended), and
+    the decoder's rank."""
+    from qldpc_tpu_torch.models import gf2
+    from qldpc_tpu_torch.ops.osd import choose_K
+    code = qt.get_code("[[288, 12, 18]]")
+    circ = qt.SyndromeCircuit(code, num_cycles=18)
+    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.005)
+    H = (M["HdecZ"] != 0).astype(np.uint8)
+    m, n = H.shape
+    rng = np.random.default_rng(14)
+    errs = rng.random((37, n)) < M["channel_probsZ"]
+    Ht = torch.as_tensor(H, device=cuda)
+    s = ((torch.as_tensor(errs, dtype=torch.float32, device=cuda)
+          @ Ht.T.float()) % 2).to(torch.int32)
+    prior = torch.as_tensor(qt.channel_llrs(M["channel_probsZ"]),
+                            dtype=torch.float32, device=cuda)
+    noise = torch.as_tensor(rng.standard_normal((37, n)),
+                            dtype=torch.float32, device=cuda)
+    cols = torch.sort((prior * (1 + 0.1 * noise)).abs(), dim=1,
+                      stable=True).indices
+    K = choose_K(m, n)
+    basis = gf2.column_basis(H)
+    R = len(basis)
+    Hb = torch.zeros((m, -(-R // 32) * 32), dtype=torch.uint8, device=cuda)
+    Hb[:, :R] = Ht[:, torch.as_tensor(basis, device=cuda)]
+    HbT = _pack_columns(Hb).T.contiguous()
+    Hp = torch.cat([_gather_pack(Ht.T.contiguous(), cols[:, :K], K,
+                                 words_major=True),
+                    HbT[None].expand(37, *HbT.shape)], 1)
+    return Hp, s, K + R, m, gf2.rank_fast(H)
+
+
+@pytest.mark.parametrize("exit_on_valid", [False, True])
+def test_elim_kernel_at_288_basis_rerun(cuda, basis_rerun_288, exit_on_valid):
+    """K2 at [[288,12,18]]'s basis-rerun width (prefix plus basis, three
+    row words a lane, columns in device memory) equals its plain version
+    on every output."""
+    Hp, s, Kw, m, rank = basis_rerun_288
+    assert Hp.shape[1] * 32 >= Kw > 3584
+    info = osd_cuda.elim_launch_info(*Hp.shape, cuda)
+    assert info["words_per_lane"] == 3 and info["local_bytes"] == 0
+    assert info["columns_in"] == "device memory"
+    _elim_against_plain("K2", Hp, s, Kw, m, rank=rank,
+                        exit_on_valid=exit_on_valid)
+
+
 # K4 and K5 on K2's cases: batches (odd ones leave K5's last team one
 # shot), shots exiting apart (hundreds of columns within a K5 pair), ragged
 # rows past m, the device-memory branch, three row words a lane
