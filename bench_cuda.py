@@ -8,7 +8,9 @@ OSD, maxIter 50, OSD order 2, dynamical alpha), measured by the port's
 ``timed_windows`` (``qldpc_tpu_torch/utils/benchloop.py``) around
 ``make_pooled_round_fn``: the best of ``--windows`` windows of
 ``--seconds`` each, after an untimed first dispatch that builds the
-kernels.
+kernels, with ``--depth`` dispatches in flight (2 by default, as the JAX
+bench; a dispatch reads nothing back, so the host issues the next while
+the card runs this one).
 
 Prints the headline JSON line (metric, value, unit, vs_baseline) the moment
 it is measured, then the full line with ``extra`` last:
@@ -35,7 +37,7 @@ BENCH_288 (1), BENCH_288_BATCH (256), BENCH_288_RPD (2),
 BENCH_288_MAXITER (200), BENCH_288_OSD_CHUNK (the whole pool).
 
     python3 bench_cuda.py [--seconds 8] [--windows 3] [--device cuda|cpu]
-        [--code "[[144, 12, 12]]"] [--p 0.004]
+        [--code "[[144, 12, 12]]"] [--p 0.004] [--depth 2]
 
 ``--code`` and ``--p`` measure another registry code at its distance in
 cycles under the same settings (the metric names the code).
@@ -134,7 +136,7 @@ def build(code_name: str, p: float, maxIter: int, osd_order: int, dev):
 
 def bench_config(code_name, p, batch, rpd, maxIter, osd_order, dev,
                  bp_variant="minsum", seconds=8.0, windows=3,
-                 osd_chunk=None):
+                 osd_chunk=None, depth=2):
     """Measured decode throughput of one configuration. Returns (best
     shots/s, every window's rate, errors seen, rounds fetched, (circ, M,
     decs, seq))."""
@@ -159,7 +161,7 @@ def bench_config(code_name, p, batch, rpd, maxIter, osd_order, dev,
     rates = []
     best, rounds = timed_windows(
         lambda i: fn(gen), batch * rpd, windows=windows, seconds=seconds,
-        rates=rates,
+        depth=depth, rates=rates,
         on_round=lambda out: errs.__setitem__(
             0, errs[0] + int(out["any_err"].sum())))
     if not 0 < errs[0] < rounds * batch * rpd:
@@ -237,6 +239,8 @@ def main(argv=None):
                          "cpu (the plain versions)")
     ap.add_argument("--code", default=HEADLINE_CODE)
     ap.add_argument("--p", type=float, default=HEADLINE_P)
+    ap.add_argument("--depth", type=int, default=2,
+                    help="dispatches in flight")
     ap.add_argument("--baseline-cache",
                     default=os.path.join(ROOT, ".bench_native_baseline.json"))
     args = ap.parse_args(argv)
@@ -262,7 +266,8 @@ def main(argv=None):
 
     sps, rates, _errs, _rounds, objs = bench_config(
         args.code, p, batch, rpd, maxIter, osd_order, dev,
-        bp_variant=bp_variant, seconds=args.seconds, windows=args.windows)
+        bp_variant=bp_variant, seconds=args.seconds, windows=args.windows,
+        depth=args.depth)
     baseline = native_baseline(
         args.baseline_cache, f"{tag}_p{p:g}_maxIter{maxIter}_osd{osd_order}",
         objs[1], objs[3], maxIter, osd_order)
@@ -279,7 +284,8 @@ def main(argv=None):
                             maxIter=maxIter, osd_order=osd_order,
                             bp_variant=bp_variant,
                             pooled=os.environ.get("BENCH_POOLED", "1") != "0",
-                            seconds=args.seconds, windows=args.windows),
+                            seconds=args.seconds, windows=args.windows,
+                            depth=args.depth),
              "windows_shots_per_sec": window_stats(rates),
              "baseline_trials_per_sec": baseline}
     if dev.type == "cuda":
@@ -297,7 +303,7 @@ def main(argv=None):
         sps288, rates288, _e, _r, o288 = bench_config(
             "[[288, 12, 18]]", 0.005, b288, rpd288, mi288, osd_order, dev,
             bp_variant=bp_variant, seconds=args.seconds,
-            windows=args.windows, osd_chunk=ch288)
+            windows=args.windows, osd_chunk=ch288, depth=args.depth)
         base288 = native_baseline(
             args.baseline_cache,
             f"[[288,12,18]]_p0.005_maxIter{mi288}_osd{osd_order}", o288[1],

@@ -15,8 +15,8 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all seven kernels (an eliminator or P1
-instance that spills fails), (2) flooding BP kernel
+Phases: (1) device and build of all eight kernels (an eliminator, G1 or
+P1 instance that spills fails), (2) flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
 (3) GF(2) elimination kernel K2 vs its plain
 version at the stage-1, prefix and full widths, with its launch shape, its
@@ -88,9 +88,20 @@ main, gated autoregressive alpha, maxIter 50) at two points held against
 the JAX package's records within 3 sigma: [[288,12,18]] p=0.005 to 200
 errors end to end (calibration, K1, K2 with its basis rerun, the stopping
 loop) and [[144,12,12]] p=0.004 with layered BP to 150 errors (K3 and
-K2), with no rank-deficient shot-basis.
+K2), with no rank-deficient shot-basis, (22) the asynchronous round: the
+gather-pack kernel G1 (every OSD path packs its eliminator input with it)
+against its plain version at the stage-1, prefix and full widths of
+[[144,12,12]] and at [[288,12,18]]'s basis-rerun width, over whole batches
+and partial ranges, timed beside its byte bound; K2, K4 and K5 gated to a
+range of shots against their ungated launch on the live shots, and a
+launch gated to nothing timed (the gate's cost); one steady pooled
+dispatch under torch.cuda.set_sync_debug_mode("error") (no host read),
+its flags equal to phase 4's shot for shot; and run_simulation at the
+bench configuration with one and with two dispatches in flight, on one
+seed, with identical tallies.
 Each path runs with every launch count set to 0 just before it and read
-just after. Exits non-zero, and prints
+just after; every path that runs OSD launches G1 beside its eliminator.
+Exits non-zero, and prints
 no result, without a GPU, outside a checkout, or when any phase fails.
 """
 from __future__ import annotations
@@ -229,10 +240,11 @@ def main():
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-            # the eliminators K2, K4, K5 and P1 must not spill in any
+            # the eliminators K2, K4, K5, G1 and P1 must not spill in any
             # instantiation
             spills = re.findall(r"(\d+) bytes spill", line)
-            if (name.startswith("gf2_elim") or name == "gather_iter") \
+            if (name.startswith("gf2_elim")
+                    or name in ("gather_iter", "gather_pack")) \
                     and any(int(x) for x in spills):
                 fail(f"phase 1: {name} spills: {line.strip()}")
 
@@ -250,6 +262,7 @@ def main():
                     k3=bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
                     k4=osd_cuda.eliminate_blocks_fused,
                     k5=osd_cuda.eliminate_blocks_pair,
+                    g1=osd_cuda.gather_pack,
                     p1=gather.gather_iterate, p2=gather.take_along)
 
     def reset_counts():
@@ -532,17 +545,19 @@ def main():
     @contextlib.contextmanager
     def plain_versions():
         saved = (engine.decode_batch_lift_cuda,
-                 engine.decode_batch_lift_layered_cuda, osd.eliminate_blocks)
+                 engine.decode_batch_lift_layered_cuda, osd.eliminate_blocks,
+                 osd.gather_pack)
         engine.decode_batch_lift_cuda = bp_lift_cuda.decode_batch_lift_plain
         engine.decode_batch_lift_layered_cuda = \
             bp_lift_layered_cuda.decode_batch_lift_layered_plain
         osd.eliminate_blocks = osd_cuda.eliminate_blocks_plain
+        osd.gather_pack = osd_cuda.gather_pack_plain
         try:
             yield
         finally:
             (engine.decode_batch_lift_cuda,
              engine.decode_batch_lift_layered_cuda,
-             osd.eliminate_blocks) = saved
+             osd.eliminate_blocks, osd.gather_pack) = saved
 
     t0 = time.time()
     with plain_versions():
@@ -556,7 +571,8 @@ def main():
     print(f"phase 4: pooled dispatch ({RPD}x{BATCH} shots) identical "
           f"through kernels ({dispatch_s:.2f} s) and plain versions "
           f"({plain_dispatch_s:.2f} s); launches per dispatch "
-          f"K1 {per_dispatch['k1']} K2 {per_dispatch['k2']}; BP converged "
+          f"K1 {per_dispatch['k1']} K2 {per_dispatch['k2']} G1 "
+          f"{per_dispatch['g1']}; BP converged "
           f"z {int(out_k['z_conv'].sum())} x {int(out_k['x_conv'].sum())} "
           f"of {RPD * BATCH}", flush=True)
 
@@ -579,9 +595,9 @@ def main():
           f"(z {(ler - ARCHIVE_LER) / sig:+.2f} vs the reference archive "
           f"{ARCHIVE_LER:.3f}, maxIter unrecorded), {res['shots_per_sec']:.1f}"
           f" shots/s, {res['osd_rank_deficient_shots']} rank-deficient "
-          f"shot-bases; launches K1 {launches['k1']} K2 {launches['k2']}",
-          flush=True)
-    if launches["k1"] <= 0 or launches["k2"] <= 0:
+          f"shot-bases; launches K1 {launches['k1']} K2 {launches['k2']} G1 "
+          f"{launches['g1']}", flush=True)
+    if launches["k1"] <= 0 or launches["k2"] <= 0 or launches["g1"] <= 0:
         fail(f"phase 4: main path did not launch every kernel: {launches}")
     if launches["k3"] or launches["k4"] or launches["k5"]:
         fail(f"phase 4: main path launched another path's kernel: "
@@ -919,7 +935,8 @@ def main():
           f"(phase 4): LER {ler:.5f}, {res['shots_per_sec']:.1f} shots/s, "
           f"{res['osd_rank_deficient_shots']} rank-deficient, launches K1 "
           f"{launches['k1']} K2 {launches['k2']}", flush=True)
-    if launches_l["k3"] <= 0 or launches_l["k2"] <= 0 or launches_l["k1"]:
+    if launches_l["k3"] <= 0 or launches_l["k2"] <= 0 \
+            or launches_l["g1"] <= 0 or launches_l["k1"]:
         fail(f"phase 7: the layered path ran other kernels than K3 and K2: "
              f"{launches_l}")
     if n_l != MAX_TRIALS or not (0.0 < ler_l < 0.5) \
@@ -1587,7 +1604,8 @@ def main():
     mc_run_s = time.time() - t0
     launches_mc = counts()
     if launches_mc["k1"] <= 0 or launches_mc["k2"] <= 0 or any(
-            v for k, v in launches_mc.items() if k not in ("k1", "k2")):
+            v for k, v in launches_mc.items()
+            if k not in ("k1", "k2", "g1")):
         fail(f"phase 15: the multi-code run did not run K1 and K2 alone: "
              f"{launches_mc}")
     for name in MC_CODES:
@@ -1731,8 +1749,8 @@ def main():
                     fail(f"phase 17: BatchDecoder({variant}) {name} differs "
                          f"from the pooled dispatch's {key} in basis "
                          f"{b.upper()}")
-        if c17[bp_key] <= 0 or c17["k2"] <= 0 or any(
-                v for k, v in c17.items() if k not in (bp_key, "k2")):
+        if c17[bp_key] <= 0 or c17["k2"] <= 0 or c17["g1"] <= 0 or any(
+                v for k, v in c17.items() if k not in (bp_key, "k2", "g1")):
             fail(f"phase 17: BatchDecoder({variant}) did not run "
                  f"{bp_key.upper()} and K2 alone: {c17}")
         api[variant] = dict(shots_per_s=RPD * BATCH / api_s, launches=c17)
@@ -1760,7 +1778,7 @@ def main():
           flush=True)
     if not (cap["num_shots"] == 10_000 and cap["logical_error_rate"] < 0.01
             and cap["converged_rate"] > 0.9) or c18["k2"] <= 0 or any(
-                v for k, v in c18.items() if k != "k2"):
+                v for k, v in c18.items() if k not in ("k2", "g1")):
         fail(f"phase 18: implausible code-capacity result {cap} or launches "
              f"{c18}")
     code_cap = dict(steane_shots_per_s=cap["shots_per_sec"],
@@ -1957,7 +1975,8 @@ def main():
                          f"{res21['osd_rank_deficient_shots']} "
                          "rank-deficient shot-bases")
                 if c[bp21] <= 0 or c["k2"] <= 0 or any(
-                        v for k, v in c.items() if k not in (bp21, "k2")):
+                        v for k, v in c.items()
+                        if k not in (bp21, "k2", "g1")):
                     fail(f"phase 21: {name} {variant} did not run "
                          f"{bp21.upper()} and K2 alone: {c}")
     finally:
@@ -1965,6 +1984,173 @@ def main():
         validate_ler.run_simulation = run_saved
         engine._calibrate_basis_sequences = calib_saved
     print(f"phase 21: {time.time() - t21:.1f} s", flush=True)
+
+    # ---- phase 22: the asynchronous round ----
+    t22 = time.time()
+    dec0 = decs[0]  # phase 3's inputs are its Z-basis failed shots
+    m0, K0 = dec0.H.shape[0], dec0.K
+    cols_full = torch.cat([cols, dec0.basis_cols[None].expand(
+        len(cols), len(dec0.basis_cols))], 1)
+    KT0 = cols_full.shape[1]
+    deg = (dec0.col_index.colptr[1:] - dec0.col_index.colptr[:-1]).long()
+    g1 = {}
+    g1_err = 0.0
+
+    def g1_case(index, cl, Kx, want, span, where):
+        """G1 on ``cl`` (B, K <= Kx) against ``want`` on the live shots;
+        returns the max abs error (0 or fail)."""
+        live = None if span is None else torch.tensor(
+            span, dtype=torch.int32, device=dev)
+        got = osd_cuda.gather_pack(index, cl, Kx, live=live)
+        torch.cuda.synchronize()
+        lo, hi = (0, len(cl)) if span is None else span
+        if got.shape != want.shape or not torch.equal(got[lo:hi],
+                                                      want[lo:hi]):
+            fail(f"phase 22: G1 differs from _gather_pack ({where}, shots "
+                 f"[{lo}, {hi}))")
+        return float((got[lo:hi].long() - want[lo:hi].long()).abs().max()) \
+            if hi > lo else 0.0
+
+    g1_widths = {"stage1": (cols[:, :256], 256, widths["stage1"][0]),
+                 "prefix": (cols, K0, widths["prefix"][0]),
+                 "full": (cols_full, -(-KT0 // 32) * 32, widths["full"][0])}
+    for width, (cl, Kx, want) in g1_widths.items():
+        for span in (None, (37, 300)):
+            g1_err = max(g1_err, g1_case(dec0.col_index, cl, Kx, want, span,
+                                         f"{CODE} {width}"))
+        B0, W0 = len(cl), Kx // 32
+        ms = cuda_ms(lambda: osd_cuda.gather_pack(dec0.col_index, cl, Kx),
+                     20)
+        plain_ms = cuda_ms(lambda: osd._gather_pack(
+            dec0.col_index.HT, cl, Kx, words_major=True), 3)
+        # bytes: the words written, the column indices and each gathered
+        # column's rows and offsets read once (this run's columns)
+        g1_bytes = (B0 * W0 * m0 * 4 + cl.numel() * 8
+                    + int(deg[cl].sum()) * 4 + cl.numel() * 8)
+        kb, bb = bound(g1_bytes, int(deg[cl].sum()) + B0 * W0 * m0)
+        g1[width] = dict(ms=ms, plain_ms=plain_ms, bound_ms=kb, bound_by=bb,
+                         words=W0, shots=B0)
+        print(f"phase 22: G1 {width} ({W0} words by {m0} rows, {B0} shots):"
+              f" equals _gather_pack on the whole batch and on shots "
+              f"[37, 300); {ms:.4f} ms (bound {kb:.4f} ms by {bb}: "
+              f"{g1_bytes} bytes), plain {plain_ms:.3f} ms", flush=True)
+    # [[288,12,18]]: the basis rerun's width (prefix + column basis), B=37
+    index288 = osd_cuda.column_index(H288, dev)
+    cols288E = torch.cat([cols288[:, :K288], torch.as_tensor(
+        basis288, device=dev)[None].expand(BATCH_288, len(basis288))], 1)
+    Kx288 = -(-cols288E.shape[1] // 32) * 32
+    want288 = osd._gather_pack(index288.HT, cols288E, Kx288,
+                               words_major=True)
+    for span in (None, (5, 30)):
+        g1_err = max(g1_err, g1_case(index288, cols288E, Kx288, want288,
+                                     span, f"{CODE_288} basis rerun"))
+    ms288 = cuda_ms(lambda: osd_cuda.gather_pack(index288, cols288E, Kx288),
+                    10)
+    empty = torch.zeros(2, dtype=torch.int32, device=dev)
+    g1_empty_ms = cuda_ms(lambda: osd_cuda.gather_pack(
+        dec0.col_index, cols_full, g1_widths["full"][1], live=empty), 20)
+    print(f"phase 22: G1 at {CODE_288} basis rerun ({Kx288 // 32} words by "
+          f"{m288} rows, B={BATCH_288}): equals _gather_pack on the whole "
+          f"batch and on shots [5, 30); {ms288:.4f} ms; G1 gated to "
+          f"nothing at {CODE}'s full width {g1_empty_ms:.4f} ms",
+          flush=True)
+    del index288, cols288E, want288
+
+    # the eliminators gated to a range against their ungated launch on the
+    # live shots (K5's pairs split at both ends), and gated to nothing
+    Hp_pre, K_pre = widths["prefix"]
+    span_t = torch.tensor((37, 300), dtype=torch.int32, device=dev)
+    gate_ms = {}
+    for key, kname, fn_k in (("k2", "K2", osd_cuda.eliminate_blocks_v1),
+                             ("k4", "K4", osd_cuda.eliminate_blocks_fused),
+                             ("k5", "K5", osd_cuda.eliminate_blocks_pair)):
+        full = fn_k(Hp_pre, residual, K_pre, m0, rank=dec0.rank,
+                    return_steps=True)
+        gated = fn_k(Hp_pre, residual, K_pre, m0, rank=dec0.rank,
+                     return_steps=True, live=span_t)
+        torch.cuda.synchronize()
+        for nm, x, y in zip(names, gated, full):
+            if not torch.equal(x[37:300], y[37:300]):
+                fail(f"phase 22: {kname} gated to [37, 300) differs from "
+                     f"its ungated launch in {nm}")
+        if (gated[4][:37] != -1).any() or (gated[5][300:] != 0).any():
+            fail(f"phase 22: {kname}'s gated-off shots recorded a pivot or "
+                 f"a step")
+        gate_ms[key] = {}
+        for width in ("prefix", "full"):
+            Hp_w, K_w = widths[width]
+            launch, _ = osd_cuda.prepare_elim_launch(
+                Hp_w, residual, K_w, m0, rank=dec0.rank, kernel=kname,
+                live=empty)
+            gate_ms[key][width] = cuda_ms(launch, 20)
+        ungated = (k2 if key == "k2" else k45[key])["prefix"]["ms"]
+        print(f"phase 22: {kname} gated to shots [37, 300) of {len(Hp_pre)}"
+              f" equals its ungated launch there (prefix, {Hp_pre.shape[1]} "
+              f"words); gated to nothing: prefix "
+              f"{gate_ms[key]['prefix']:.4f} ms, full "
+              f"{gate_ms[key]['full']:.4f} ms (ungated prefix "
+              f"{ungated:.3f} ms)", flush=True)
+
+    # one steady pooled dispatch (phase 4's round function and randoms) with
+    # every host read an error, then one drawing from a generator
+    sharded = mesh.shard_rounds(fn, mesh.shot_mesh())
+    gen22 = torch.Generator(device=dev).manual_seed(SEED)
+    sharded([gen22])  # warm-up of the generator's path
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out22 = sharded([None], randoms=[randoms])
+        out22g = sharded([gen22])
+        issue22 = (time.perf_counter() - t0) / 2
+    except RuntimeError as e:
+        fail(f"phase 22: a steady dispatch read back from the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for key, v in out_k.items():
+        if not torch.equal(v, out22[key]):
+            fail(f"phase 22: flag {key} of the dispatch under the sync "
+                 "check differs from phase 4's")
+    c22 = mesh.read_counts([out22, out22g])
+    if c22[0]["any_err_count"] != int(out_k["any_err"].sum()) or any(
+            c["osd_overflow_count"] for c in c22):
+        fail(f"phase 22: implausible counts {c22}")
+    print(f"phase 22: two steady pooled dispatches ({RPD}x{BATCH} shots) "
+          f"under set_sync_debug_mode('error'): no host read; flags equal "
+          f"phase 4's shot for shot; host issue {issue22 * 1e3:.1f} ms a "
+          f"dispatch; counts read one round late {c22[0]}", flush=True)
+
+    # run_simulation at the bench configuration, one and two dispatches in
+    # flight, one seed
+    runs22 = {}
+    for depth in (1, 2):
+        reset_counts()
+        r = qt.run_simulation(
+            code.Hx, code.Hz, code.Lx, code.Lz, P, num_cycles=CYCLES,
+            maxIter=MAXITER, osd_order=OSD_ORDER, max_trials=MAX_TRIALS,
+            batch_size=BATCH, rounds_per_dispatch=RPD, base_seed=SEED,
+            precomputed_matrices=M, verbose=False, pipeline_depth=depth,
+            **bb_params)
+        torch.cuda.synchronize()
+        runs22[depth] = dict(r, launches=counts())
+        print(f"phase 22: run_simulation pipeline_depth={depth}: "
+              f"{r['num_trials']} trials, {r['logical_errors']} errors "
+              f"(z {r['z_logical_error_rate']:.5f}, x "
+              f"{r['x_logical_error_rate']:.5f}), "
+              f"{r['osd_rank_deficient_shots']} rank-deficient, LER "
+              f"{r['logical_error_rate']:.5f}; {r['shots_per_sec']:.1f} "
+              f"shots/s; launches K1 {runs22[depth]['launches']['k1']} K2 "
+              f"{runs22[depth]['launches']['k2']} G1 "
+              f"{runs22[depth]['launches']['g1']}", flush=True)
+    tally = ("num_trials", "logical_errors", "z_logical_error_rate",
+             "x_logical_error_rate", "osd_rank_deficient_shots")
+    if any(runs22[1][k] != runs22[2][k] or runs22[1][k] != res[k]
+           for k in tally):
+        got = [{k: r[k] for k in tally} for r in (runs22[1], runs22[2], res)]
+        fail(f"phase 22: the tallies differ between depth 1, depth 2 and "
+             f"phase 4: {got}")
+    print(f"phase 22: {time.time() - t22:.1f} s", flush=True)
 
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
@@ -1994,6 +2180,7 @@ def main():
              batch_decoder_launches=api["minsum"]["launches"]["k2"],
              code_capacity_launches=c18["k2"],
              validate_ler_launches=sum(c["k2"] for c in launches_sw.values()),
+             empty_range_ms=gate_ms["k2"],
              at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
                                            bound_ms=r[f"k2_{w}"]["bound_ms"])
                                    for w in ("stage1", "prefix", "full")}
@@ -2021,7 +2208,22 @@ def main():
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=None,
             ms_by_width={w: k45[key][w]["ms"] for w in widths},
-            bound_ms_by_width={w: k2[w]["bound_ms"] for w in widths}))
+            bound_ms_by_width={w: k2[w]["bound_ms"] for w in widths},
+            empty_range_ms=gate_ms[key]))
+    kernels.append(dict(
+        name="gather_pack_kernel", route="cuda",
+        source="qldpc_tpu_torch/csrc/gather_pack.cu",
+        replaces="qldpc_tpu/ops/osd.py:73", launches=launches["g1"],
+        max_abs_err=g1_err, ms=g1["stage1"]["ms"],
+        plain_ms=g1["stage1"]["plain_ms"],
+        bound_ms=g1["stage1"]["bound_ms"],
+        bound_by=g1["stage1"]["bound_by"], library_ms=None,
+        ms_by_width={w: r["ms"] for w, r in g1.items()},
+        bound_ms_by_width={w: r["bound_ms"] for w, r in g1.items()},
+        plain_ms_by_width={w: r["plain_ms"] for w, r in g1.items()},
+        ms_at_288_basis_rerun=ms288, empty_range_ms=g1_empty_ms,
+        pipeline_depth_shots_per_s={d: r["shots_per_sec"]
+                                    for d, r in runs22.items()}))
     kernels += [
         dict(name="gather_iter_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/gather_iter.cu",

@@ -28,6 +28,7 @@ import torch
 from . import resolve_device
 from .ops.bp import TannerGraph
 from .ops.bp_lift import LiftedGraph
+from .ops.osd_cuda import column_index
 from .ops.sampler import trial_maps_from_arrays
 from .parallel.engine import BasisDecoder
 
@@ -88,4 +89,4 @@ def basis_from_jax(arrays: dict, meta: dict, device=None) -> BasisDecoder:
         alpha_seq=t("alpha_seq", np.float32),
         basis_cols=t("basis_cols", np.int64),
         K=int(meta["K"]), num_test=int(meta["num_test"]),
-        rank=int(meta["rank"]))
+        rank=int(meta["rank"]), col_index=column_index(H, dev))

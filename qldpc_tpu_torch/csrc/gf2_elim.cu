@@ -61,6 +61,7 @@ gf2_elim_kernel(const int* __restrict__ hp_in,  // (B, W, M)
                 int* __restrict__ colofrow,     // (B, M)
                 int* __restrict__ steps,        // (B): column steps run
                 unsigned* __restrict__ slab,    // (B, shot words) if kDev
+                const int* __restrict__ live,   // [lo, hi) or null
                 int B, int W, int M, int m, int K, int rank, int full_jordan,
                 int exit_on_valid, int spb, int T, int S) {
   extern __shared__ unsigned smem[];
@@ -69,6 +70,12 @@ gf2_elim_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   const int t = (threadIdx.x >> 5) - team * T;  // warp in the team
   const int b = blockIdx.x * spb + team;
   if (b >= B) return;  // the whole team; no block barrier follows
+  int lo, hi;
+  live_range(live, B, lo, hi);
+  if (b < lo || b >= hi) {  // gated off
+    skip_shot(colofrow + (size_t)b * M, steps + b, M, t, lane);
+    return;
+  }
   const int NR = (M + 31) >> 5;
   const int shot_words = 32 * W * S;
   unsigned* H = kDev ? slab + (size_t)b * shot_words
@@ -132,13 +139,15 @@ extern "C" int gf2_elim_info(int B, int W, int M, int smem_limit, int* out) {
   return plan_info(p, pick(p.R, p.dev), 1, out);
 }
 
+// `live`: a device int32 pair [lo, hi), the shots to run (null: all B).
 extern "C" int gf2_elim_launch(const int* hp_in, int* hp_out, const int* s_in,
                                int* s_out, int* colofrow, int* steps,
-                               void* slab, int B, int W, int M, int m, int K,
-                               int rank, int full_jordan, int exit_on_valid,
-                               int smem_limit, void* stream) {
+                               void* slab, const int* live, int B, int W,
+                               int M, int m, int K, int rank, int full_jordan,
+                               int exit_on_valid, int smem_limit,
+                               void* stream) {
   const Plan p = plan(B, W, M, smem_limit);
   return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
-                     colofrow, steps, slab, B, W, M, m, K, rank, full_jordan,
-                     exit_on_valid, stream);
+                     colofrow, steps, slab, live, B, W, M, m, K, rank,
+                     full_jordan, exit_on_valid, stream);
 }

@@ -15,6 +15,13 @@
 // several teams and has no block barrier. Where one team's columns exceed
 // the shared memory a block may hold, they live in a per-team slab in
 // device memory of the same layout.
+//
+// The gate: a launch may take a device int32 pair [lo, hi), the live shots
+// of its batch. The grid covers every shot; a team whose shot lies outside
+// the range records no pivot row and no step and leaves before its first
+// load (K5 gates each shot of its pair). The OSD decides on the device how
+// many shots a launch needs (the staged tail, the basis rerun, the
+// reprocess), so no host read sizes a launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -324,6 +331,29 @@ __device__ __forceinline__ void xor_columns(unsigned* H, int grp,
   }
 }
 
+// The live shots [lo, hi) of a launch, read from a device int32 pair (a
+// null pointer: every shot), clamped to [0, B).
+__device__ __forceinline__ void live_range(const int* live, int B, int& lo,
+                                           int& hi) {
+  lo = 0;
+  hi = B;
+  if (live) {
+    lo = max(live[0], 0);
+    hi = min(live[1], B);
+  }
+}
+
+// A shot outside the live range leaves before its first load: warp 0 of
+// its team records no pivot row and no column step, so that its
+// prow_of_col and used read empty; its matrix and residual outputs are
+// left unwritten (unspecified, never consumed).
+__device__ __forceinline__ void skip_shot(int* cf, int* steps, int M, int t,
+                                          int lane) {
+  if (t != 0) return;
+  for (int r = lane; r < M; r += 32) cf[r] = -1;
+  if (lane == 0) *steps = 0;
+}
+
 // A column turned into the pivot's unit column (pq < 0: left as it is).
 template <int R>
 __device__ __forceinline__ void write_unit(unsigned* cp, int pq,
@@ -395,8 +425,8 @@ __device__ __forceinline__ bool column_step(
 // ---- host side ----
 
 using ElimKernel = void (*)(const int*, int*, const int*, int*, int*, int*,
-                            unsigned*, int, int, int, int, int, int, int, int,
-                            int, int, int);
+                            unsigned*, const int*, int, int, int, int, int,
+                            int, int, int, int, int, int);
 
 // The kernel table of one eliminator by row words a lane and branch.
 #define GF2_PICK(kernel)                                                  \
@@ -470,18 +500,22 @@ int plan_info(const Plan& p, ElimKernel k, int spt, int* out) {
       &out[6], k, 32 * p.T * p.spb, p.smem);
 }
 
+// `live`: a device int32 pair [lo, hi), the shots the launch runs (null:
+// every shot); the grid covers all B shots whatever the pair holds, so the
+// host never reads it.
 int plan_launch(const Plan& p, ElimKernel k, const int* hp_in, int* hp_out,
                 const int* s_in, int* s_out, int* colofrow, int* steps,
-                void* slab, int B, int W, int M, int m, int K, int rank,
-                int full_jordan, int exit_on_valid, void* stream) {
+                void* slab, const int* live, int B, int W, int M, int m,
+                int K, int rank, int full_jordan, int exit_on_valid,
+                void* stream) {
   if (!k || m > M || (p.dev && B > 0 && !slab))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(p, k);
   if (err != cudaSuccess) return (int)err;
   if (B > 0) {
     k<<<p.grid, 32 * p.T * p.spb, p.smem, (cudaStream_t)stream>>>(
-        hp_in, hp_out, s_in, s_out, colofrow, steps, (unsigned*)slab, B, W,
-        M, m, K, rank, full_jordan, exit_on_valid, p.spb, p.T, p.S);
+        hp_in, hp_out, s_in, s_out, colofrow, steps, (unsigned*)slab, live,
+        B, W, M, m, K, rank, full_jordan, exit_on_valid, p.spb, p.T, p.S);
   }
   return (int)cudaGetLastError();
 }

@@ -100,6 +100,7 @@ gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
                      int* __restrict__ colofrow,     // (B, M)
                      int* __restrict__ steps,        // (B): column steps
                      unsigned* __restrict__ slab,    // (teams, 2 shots)
+                     const int* __restrict__ live,   // [lo, hi) or null
                      int B, int W, int M, int m, int K, int rank,
                      int full_jordan, int exit_on_valid, int spb, int T,
                      int S) {
@@ -108,9 +109,19 @@ gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   const int team = (threadIdx.x >> 5) / T;
   const int t = (threadIdx.x >> 5) - team * T;  // warp in the team
   const int pair = blockIdx.x * spb + team;
-  const int b0 = 2 * pair;  // the team's shots: b0, and b0 + 1 if < B
-  if (b0 >= B) return;      // the whole team; no block barrier follows
-  const int nshot = b0 + 1 < B ? 2 : 1;
+  if (2 * pair >= B) return;  // the whole team; no block barrier follows
+  // the pair's shots 2 pair, 2 pair + 1 (if < B), each gated on its own:
+  // the team runs those in the live range [lo, hi) from b0 on, one or two,
+  // and a gated-off shot leaves before its first load
+  int lo, hi;
+  live_range(live, B, lo, hi);
+  const int pair_end = min(2 * pair + 2, B);
+  for (int b = 2 * pair; b < pair_end; ++b)
+    if (b < lo || b >= hi)
+      skip_shot(colofrow + (size_t)b * M, steps + b, M, t, lane);
+  const int b0 = max(2 * pair, lo);
+  const int nshot = min(pair_end, hi) - b0;
+  if (nshot <= 0) return;
   const int NR = (M + 31) >> 5;
   const int shot_words = 32 * W * S;
   unsigned* H[2];
@@ -315,15 +326,16 @@ extern "C" int gf2_elim_pair_info(int B, int W, int M, int smem_limit,
   return plan_info(p, pick(p.R, p.dev), 2, out);
 }
 
+// `live`: a device int32 pair [lo, hi), the shots to run (null: all B).
 extern "C" int gf2_elim_pair_launch(const int* hp_in, int* hp_out,
                                     const int* s_in, int* s_out,
                                     int* colofrow, int* steps, void* slab,
-                                    int B, int W, int M, int m, int K,
-                                    int rank, int full_jordan,
+                                    const int* live, int B, int W, int M,
+                                    int m, int K, int rank, int full_jordan,
                                     int exit_on_valid, int smem_limit,
                                     void* stream) {
   const Plan p = plan(B, W, M, smem_limit, sm_count());
   return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
-                     colofrow, steps, slab, B, W, M, m, K, rank, full_jordan,
-                     exit_on_valid, stream);
+                     colofrow, steps, slab, live, B, W, M, m, K, rank,
+                     full_jordan, exit_on_valid, stream);
 }

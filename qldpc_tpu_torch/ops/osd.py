@@ -2,9 +2,9 @@
 
 Per-shot reliability-ordered Gauss-Jordan elimination over a whole batch of
 failed-BP shots: columns are sorted by |posterior LLR| per shot, the K
-least-reliable columns are gathered and bit-packed 32 per int32 word, and a
-swap-free greedy elimination (ops/osd_cuda.py: kernel K2 on the GPU, its
-plain version on the CPU) pivots them.
+least-reliable columns are gathered and bit-packed 32 per int32 word
+(ops/osd_cuda.py: kernel G1 on the GPU, its plain version on the CPU), and a
+swap-free greedy elimination (kernel K2, or K4 / K5) pivots them.
 
 Truncation: elimination runs over the first K = rank + margin columns in
 reliability order PLUS a fixed rank-completing column basis appended after
@@ -18,10 +18,18 @@ whenever it reproduces the syndrome; otherwise flips of up to ``order`` of
 the ``num_test`` least-reliable non-pivot columns are scored by
 (unsatisfied checks, sum |LLR|) and the first minimum wins.
 
-Host reads: the staged scan reads the uncovered count, the basis rerun
-reads whether any shot is uncovered, and order-w reprocessing reads whether
-any OSD-0 failed — each decides whether (and on how many shots) the next
-elimination launch runs.
+No host read: every decision the JAX package takes on the device with
+``lax.cond`` or ``lax.while_loop`` is a device range here, which G1 and the
+eliminator read in their kernels (the gate, ops/osd_cuda.py). The batch's
+live shots (``n_live``: the engine's chunk of the sorted pool), the staged
+scan's uncovered tail, the basis rerun's uncovered shots and the shots
+whose OSD-0 failed are each sorted to one end of the batch and gated there,
+and the results merge back with ``torch.where`` on device masks. The one
+step whose PyTorch ops cannot be gated per shot, the order-w reprocess,
+runs on a fixed slice of ``reprocess_slice`` shots, the failed ones first
+(JAX's small-slice rule); a failed shot past the slice keeps OSD-0's answer
+and is flagged in ``reprocess_overflow``, and the engine replays such a
+round with the whole batch as the slice.
 """
 from __future__ import annotations
 
@@ -30,7 +38,21 @@ from itertools import combinations
 import numpy as np
 import torch
 
-from .osd_cuda import eliminate_blocks
+from .osd_cuda import (_gather_pack, _to_int32, column_index,
+                       eliminate_blocks, gather_pack)
+
+# Shots the order-w reprocess holds per OSD call in the engine's rounds.
+# The reprocess runs on this slice in every chunk and basis, whether or not
+# a shot needs it (no host read decides it): the full-Jordan elimination
+# inside is gated to the shots whose OSD-0 failed, but the flip search's
+# PyTorch ops cost the slice's size (a (32, m, 78) parity table at
+# [[144,12,12]], order 2). Physical syndromes almost never fail OSD-0 with
+# the basis appended (0 rank-deficient shot-bases in every recorded run),
+# so a small slice suffices; a chunk with more failures than it holds is
+# flagged and its round replayed with the whole chunk as the slice.
+REPROCESS_SLICE = 32
+
+_combo_cache: dict = {}
 
 
 def _combo_masks(num_test: int, order: int) -> np.ndarray:
@@ -47,9 +69,13 @@ def _combo_masks(num_test: int, order: int) -> np.ndarray:
     return np.stack(rows)
 
 
-def _to_int32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding 32-bit patterns in [0, 2^32) -> int32, same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+def _combos(num_test: int, order: int, dev) -> torch.Tensor:
+    """:func:`_combo_masks` on ``dev``, copied there once."""
+    key = (num_test, order, str(dev))
+    if key not in _combo_cache:
+        _combo_cache[key] = torch.as_tensor(_combo_masks(num_test, order),
+                                            device=dev)
+    return _combo_cache[key]
 
 
 def _pack_columns(bits: torch.Tensor) -> torch.Tensor:
@@ -61,35 +87,6 @@ def _pack_columns(bits: torch.Tensor) -> torch.Tensor:
     return _to_int32((b << shifts).sum(-1))
 
 
-def _gather_pack(HT_u8, colsK, Kp: int, chunk: int = 256,
-                 words_major: bool = False) -> torch.Tensor:
-    """Per-shot column gather + bit-pack from the (n, m) uint8 transpose of
-    H, chunked over columns so the unpacked gather never exceeds
-    (B, chunk, m) bytes. Columns past K (up to Kp) pack as zeros.
-
-    Returns (B, m, Kp//32), or the eliminator's (B, Kp//32, m) layout when
-    words_major=True."""
-    B, K = colsK.shape
-    m = HT_u8.shape[1]
-    dev = HT_u8.device
-    words = []
-    for c0 in range(0, Kp, chunk):
-        c1 = min(c0 + chunk, Kp)
-        nw = (c1 - c0) // 32
-        acc = torch.zeros((B, nw, m), dtype=torch.int64, device=dev)
-        if c0 < K:
-            g = HT_u8[colsK[:, c0:min(c1, K)]]                 # (B, c, m)
-            if c1 > K:  # zero-pad the final partial chunk
-                g = torch.cat([g, torch.zeros((B, c1 - K, m), dtype=g.dtype,
-                                              device=dev)], 1)
-            g = g.view(B, nw, 32, m)
-            for c in range(32):
-                acc |= g[:, :, c, :].to(torch.int64) << c
-        words.append(_to_int32(acc))
-    packed = torch.cat(words, 1)                               # (B, W, m)
-    return packed if words_major else packed.transpose(1, 2)
-
-
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     """XOR over the last axis of an int32 tensor (pairwise tree)."""
     while x.shape[-1] > 1:
@@ -99,10 +96,31 @@ def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def _span(lo, hi, dev) -> torch.Tensor:
+    """[lo, hi) as the device int32 pair the kernels gate on; ``lo`` and
+    ``hi`` are ints or 0-d tensors on ``dev`` (no host read)."""
+    return torch.stack([
+        x.reshape(()).to(torch.int32) if torch.is_tensor(x)
+        else torch.full((), x, dtype=torch.int32, device=dev)
+        for x in (lo, hi)])
+
+
+def _merge(perm, take, old: tuple, new: tuple) -> tuple:
+    """Outputs of a gated run over the batch permuted by ``perm`` merged
+    back: shot ``perm[i]`` takes ``new[i]`` where ``take[i]``, else keeps
+    its ``old`` value."""
+    out = []
+    for o, n_ in zip(old, new):
+        t = take.view(-1, *([1] * (o.dim() - 1)))
+        out.append(o.index_copy(0, perm, torch.where(t, n_, o[perm])))
+    return tuple(out)
+
+
 def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
               num_test: int = 0, use_blocks: bool = True, rank: int = None,
               basis_cols=None, logical_pack=None,
-              return_solution: bool = True, stage1_cols: int = None):
+              return_solution: bool = True, stage1_cols: int = None,
+              n_live=None, reprocess_slice: int = None, col_index=None):
     """Batched OSD post-processing of failed-BP shots.
 
     Args:
@@ -115,9 +133,10 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
       order: OSD reprocessing order (0 = OSD-0 only).
       num_test: number of least-reliable non-pivot test positions
         (the reference uses order + 10; pass 0 with order=0).
-      use_blocks: eliminate with ``eliminate_blocks`` (kernel K2 on CUDA
-        tensors) through the staged scan; False runs ``_eliminate_xla``,
-        the twin of the JAX package's XLA path, over prefix + basis.
+      use_blocks: gather with G1 and eliminate with ``eliminate_blocks``
+        (kernel K2 on CUDA tensors) through the staged scan; False runs
+        ``_eliminate_xla``, the twin of the JAX package's XLA path, over
+        prefix + basis (with host reads; off the engine's path).
       basis_cols: optional (R,) int — a fixed column basis of H, appended
         after the K reliability-ordered columns.
       stage1_cols: staged-scan stage-1 width. None = auto (768 when
@@ -129,10 +148,20 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         as bits. When given, the output gains ``logical_delta_packed`` (B,)
         int32, the packed logical action of the OSD correction alone.
       return_solution: skip materializing the (B, n) solution when False.
+      n_live: optional 0-d int tensor on the device: only the first
+        ``n_live`` shots are decoded (use_blocks only); the outputs of the
+        others are unspecified. None: all B.
+      reprocess_slice: shots the order-w reprocess holds (the failed ones
+        first); None = all B, which never overflows.
+      col_index: the :class:`~qldpc_tpu_torch.ops.osd_cuda.ColumnIndex` of
+        H that G1 reads; None builds it here (a host copy of H: callers in
+        a loop pass it).
 
     Returns dict: solution (B, n) int8 (if return_solution), valid (B,) bool
     (syndrome exactly reproduced), rank_deficient (B,) bool,
-    logical_delta_packed (B,) int32 (if logical_pack is given)."""
+    reprocess_overflow (B,) bool (OSD-0 failed and the reprocess slice did
+    not hold the shot: its outputs are OSD-0's), logical_delta_packed (B,)
+    int32 (if logical_pack is given)."""
     B, n = llr.shape
     m = H.shape[0]
     dev = llr.device
@@ -140,7 +169,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     if not 0 < K <= n:
         raise ValueError(f"need 0 < K <= n={n}, got K={K}")
     Kp = -(-K // 32) * 32  # packed prefix width (zero-padded beyond K)
-    HT_u8 = H.T.contiguous()
+    lane = torch.arange(B, device=dev)
+    live = None if n_live is None or not use_blocks else lane < n_live
 
     # residual syndrome the correction must reproduce; float32 keeps the
     # counts exact (see ops/sampler.py)
@@ -160,109 +190,104 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             raise ValueError("basis_cols requires K % 32 == 0")
         basis_cols = basis_cols.to(device=dev, dtype=torch.int64)
         R = basis_cols.shape[0]
-        Rp = -(-R // 32) * 32
-        Hb_bits = torch.zeros((m, Rp), dtype=torch.uint8, device=dev)
-        Hb_bits[:, :R] = H[:, basis_cols]
-        Hb_words = _pack_columns(Hb_bits)                        # (m, Rp/32)
-        colsE = torch.cat([colsK,
-                           torch.zeros((B, Kp - K), dtype=colsK.dtype,
-                                       device=dev),
-                           basis_cols[None].expand(B, R)], 1)    # (B, KT)
-        KT = Kp + R
+        # K % 32 == 0: the basis columns start a word
+        colsE = torch.cat([colsK, basis_cols[None].expand(B, R)], 1)
+        KT = K + R
         if lp_sorted is not None:
             lp_perm = torch.cat(
-                [lp_sorted[:, :K], torch.zeros((B, Kp - K), dtype=i32,
-                                               device=dev),
+                [lp_sorted[:, :K],
                  logical_pack.to(i32)[basis_cols][None].expand(B, R)], 1)
     else:
-        Hb_words = None
         colsE = colsK
         KT = K
         if lp_sorted is not None:
             lp_perm = lp_sorted[:, :K]
+    KTp = -(-KT // 32) * 32
 
     def pad_prow(p):
         return torch.cat([p, torch.full((p.shape[0], KT - p.shape[1]), -1,
                                         dtype=i32, device=dev)], 1)
 
-    refine_for_reprocess = None
     if use_blocks:
-        def gather_pref(cols, Kx):
-            """Gather + pack of the first Kx reliability columns in the
-            eliminator's (B, W, m) layout."""
-            return _gather_pack(HT_u8, cols[:, :min(Kx, K)], Kx,
-                                words_major=True)
+        if col_index is None:
+            col_index = column_index(H)
 
-        if Hb_words is not None:
-            HbT = Hb_words.T.contiguous()                        # (Wb, m)
+        def pack(cols, Kx, span):
+            """G1 over the first Kx of ``cols`` in the eliminator's
+            (B, W, m) layout, gated to ``span``."""
+            return gather_pack(col_index, cols[:, :min(Kx, cols.shape[1])],
+                               Kx, live=span)
+
         if stage1_cols is None:
             stage1_cols = 768 if K >= 2048 else 256 if K >= 512 else 0
         staged = bool(stage1_cols) and stage1_cols < K
-
-        HpT_pref = None if staged else gather_pref(colsK, Kp)
-
-        def full_HpT(idx=None):
-            if HpT_pref is not None:
-                pref = HpT_pref if idx is None else HpT_pref[idx]
-            else:
-                pref = gather_pref(colsK if idx is None else colsK[idx], Kp)
-            if Hb_words is None:
-                return pref
-            return torch.cat([pref, HbT[None].expand(pref.shape[0],
-                                                      *HbT.shape)], 1)
-
+        span = None if live is None else _span(0, n_live, dev)
         if staged:
             # --- staged scan: narrow stage-1 + full-prefix tail ---
             K1 = stage1_cols
-            Hp_s1 = gather_pref(colsK, -(-K1 // 32) * 32)
-            _, s1, prow1, used1, cf1 = eliminate_blocks(Hp_s1, residual, K1,
-                                                        m, rank=rank)
+            _, s1, prow1, used1, cf1 = eliminate_blocks(
+                pack(colsK, -(-K1 // 32) * 32, span), residual, K1, m,
+                rank=rank, live=span)
             covered = torch.where(used1, 0, s1).sum(1) == 0
+            if live is not None:
+                covered |= ~live
             prow1 = pad_prow(prow1)
             # coverage sort (stable): uncovered shots form a contiguous
             # tail, which starts at a 32-shot boundary as in the JAX scan
             # (boundary shots already covered are rescanned; their consumed
-            # outputs are unchanged). One launch covers the whole tail.
+            # outputs are unchanged). One gated launch covers the tail.
             order2 = torch.sort((~covered).to(i32), stable=True).indices
-            u0 = B - int((~covered).sum())                       # host read
-            c_start = (u0 // 32) * 32
-            if c_start < B:
-                idx = order2[c_start:]
-                _, s2, prow2, used2, cf2 = eliminate_blocks(
-                    gather_pref(colsK[idx], Kp), residual[idx], K, m,
-                    rank=rank)
-                s1[idx], prow1[idx] = s2, pad_prow(prow2)
-                used1[idx], cf1[idx] = used2, cf2
+            c_start = (B - (~covered).sum()) // 32 * 32
+            span2 = _span(c_start, B, dev)
+            _, s2, prow2, used2, cf2 = eliminate_blocks(
+                pack(colsK[order2], Kp, span2), residual[order2], K, m,
+                rank=rank, live=span2)
+            s1, prow1, used1, cf1 = _merge(
+                order2, lane >= c_start, (s1, prow1, used1, cf1),
+                (s2, pad_prow(prow2), used2, cf2))
         else:
-            _, s1, prow1, used1, cf1 = eliminate_blocks(HpT_pref, residual,
-                                                        K, m, rank=rank)
+            _, s1, prow1, used1, cf1 = eliminate_blocks(
+                pack(colsK, Kp, span), residual, K, m, rank=rank, live=span)
             prow1 = pad_prow(prow1)
-        if Hb_words is not None:
-            # basis completion: shots the prefix left uncovered rerun at
-            # full width (prefix + basis words); the others keep their
-            # prefix outputs (the full-width run is consumed-identical)
+        if basis_cols is not None:
+            # basis completion: shots the prefix left uncovered, sorted
+            # first, rerun at full width (prefix + basis words); the others
+            # keep their prefix outputs (the full-width run is
+            # consumed-identical)
             bad = torch.where(used1, 0, s1).sum(1) != 0
-            if bool(bad.any()):                                  # host read
-                idx = torch.nonzero(bad)[:, 0]
-                _, s2, prow2, used2, cf2 = eliminate_blocks(
-                    full_HpT(idx), residual[idx], KT, m, rank=rank)
-                s1[idx], prow1[idx], used1[idx], cf1[idx] = (s2, prow2,
-                                                             used2, cf2)
+            if live is not None:
+                bad &= live
+            perm = torch.sort((~bad).to(i32), stable=True).indices
+            nbad = bad.sum()
+            span3 = _span(0, nbad, dev)
+            _, s2, prow2, used2, cf2 = eliminate_blocks(
+                pack(colsE[perm], KTp, span3), residual[perm], KT, m,
+                rank=rank, live=span3)
+            s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
+                                           (s1, prow1, used1, cf1),
+                                           (s2, prow2, used2, cf2))
         s_red, prow_of_col, used, cf = s1, prow1, used1, cf1
-        Hp = None  # only the (rare) reprocess path materializes it
         # OSD-0 correction scattered from row space: e0[colofrow[r]] =
         # s_red[r] for pivot rows; unused rows dump into slot KT
         tgt = torch.where(used, cf.long(), KT)
         e0_perm = torch.zeros((B, KT + 1), dtype=i32, device=dev).scatter_(
             1, tgt, s_red)[:, :KT]
 
-        def refine_for_reprocess():
-            hp_full = eliminate_blocks(full_HpT(), residual, KT, m,
-                                       rank=rank, full_jordan=True)[0]
-            return hp_full.transpose(1, 2)                       # (B, m, W)
+        def reduced_for_reprocess(idx, span_r):
+            """Full Gauss-Jordan of the shots ``idx`` at full width, gated
+            to ``span_r``: (S, m, W)."""
+            hp_full = eliminate_blocks(
+                pack(colsE[idx], KTp, span_r), residual[idx], KT, m,
+                rank=rank, full_jordan=True, live=span_r)[0]
+            return hp_full.transpose(1, 2)
     else:
+        HT_u8 = H.T.contiguous()
         Hp = _gather_pack(HT_u8, colsK, Kp)                      # (B, m, W)
-        if Hb_words is not None:
+        if basis_cols is not None:
+            Hb_bits = torch.zeros((m, KTp - K), dtype=torch.uint8,
+                                  device=dev)
+            Hb_bits[:, :KT - K] = H[:, basis_cols]
+            Hb_words = _pack_columns(Hb_bits)                    # (m, Wb)
             Hp = torch.cat([Hp, Hb_words[None].expand(B, *Hb_words.shape)],
                            -1)
         Hp, s_red, used, prow_of_col = _eliminate_xla(Hp, residual, KT, m, B)
@@ -270,22 +295,36 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             prow_of_col >= 0,
             s_red.gather(1, prow_of_col.clamp(min=0).long()), 0)
 
+        def reduced_for_reprocess(idx, span_r):
+            return Hp[idx]
+
     is_pivot = prow_of_col >= 0                                  # (B, KT)
     # validity: un-pivoted rows must carry zero reduced syndrome
     unsat0 = torch.where(used, 0, s_red).sum(1)
     valid0 = unsat0 == 0
     rank_deficient = ~valid0
 
-    if order > 0 and num_test > 0 and not bool(valid0.all()):    # host read
-        Hp_full = Hp if refine_for_reprocess is None \
-            else refine_for_reprocess()
-        e_perm, valid = _reprocess(
-            Hp_full, s_red, used, prow_of_col, is_pivot, e0_perm, valid0,
-            llr, hard, colsE, order, num_test, B, KT, m)
-    else:
-        e_perm, valid = e0_perm.to(i32), valid0
+    e_perm, valid = e0_perm.to(i32), valid0
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    if order > 0 and num_test > 0:
+        # the order-w search on the failed shots, sorted first into a slice
+        # of S shots (JAX's small-slice rule); _reprocess keeps OSD-0 for
+        # the valid shots the slice also holds
+        failed = ~valid0 if live is None else ~valid0 & live
+        S = B if reprocess_slice is None else max(0, min(reprocess_slice, B))
+        overflow = failed & (torch.cumsum(failed.to(i32), 0) > S)
+        if S:
+            idx = torch.sort((~failed).to(i32), stable=True).indices[:S]
+            Hp_full = reduced_for_reprocess(idx, _span(0, failed.sum(), dev))
+            e_r, valid_r = _reprocess(
+                Hp_full, s_red[idx], used[idx], prow_of_col[idx],
+                is_pivot[idx], e0_perm[idx], valid0[idx], llr[idx],
+                hard[idx], colsE[idx], order, num_test, S, KT, m)
+            e_perm = e_perm.index_copy(0, idx, e_r)
+            valid = valid.index_copy(0, idx, valid_r)
 
-    out = dict(valid=valid, rank_deficient=rank_deficient)
+    out = dict(valid=valid, rank_deficient=rank_deficient,
+               reprocess_overflow=overflow)
     if logical_pack is not None:
         out["logical_delta_packed"] = _xor_reduce(
             torch.where(e_perm > 0, lp_perm, 0))
@@ -356,7 +395,7 @@ def _reprocess(Hp, s_red, used, prow_of_col, is_pivot, e0_perm, valid0,
     words = Hp.gather(2, w_idx[:, None, :].expand(B, m, num_test))
     test_cols = (words >> b_idx[:, None, :]) & 1
 
-    combos = torch.as_tensor(_combo_masks(num_test, order), device=dev)
+    combos = _combos(num_test, order, dev)
     # parity of flipped test columns at every row: (B, m, C)
     par_rows = (test_cols.to(f32) @ combos.T.to(f32)).to(i32) & 1
     unsat = torch.where(used[:, :, None], 0,

@@ -118,6 +118,18 @@ def sample_gate_randoms(gen: torch.Generator, batch: int, n_locs: int,
     return err, pauli, cat2
 
 
+_device_luts: dict = {}
+
+
+def _on_device(lut, dev) -> torch.Tensor:
+    """A lookup table on ``dev``, copied there once (a copy per round
+    would make the host wait for the device)."""
+    key = (id(lut), str(dev))
+    if key not in _device_luts:
+        _device_luts[key] = torch.as_tensor(lut, device=dev)
+    return _device_luts[key]
+
+
 def fault_bits(err, pauli, cat2, maps: TrialMaps, basis: str) -> torch.Tensor:
     """(L, B) bool fault-bit matrix for one frame basis (location-major, as
     the signature matmul consumes it)."""
@@ -131,8 +143,8 @@ def fault_bits(err, pauli, cat2, maps: TrialMaps, basis: str) -> torch.Tensor:
     else:
         idle_hit = p != 2           # X or Y has an X component
         ctrl_lut, tgt_lut = X_CTRL_LUT, X_TGT_LUT
-    ctrl_hit = torch.as_tensor(ctrl_lut, device=e.device)[t]
-    tgt_hit = torch.as_tensor(tgt_lut, device=e.device)[t]
+    ctrl_hit = _on_device(ctrl_lut, e.device)[t]
+    tgt_hit = _on_device(tgt_lut, e.device)[t]
     sel = maps.sel[:, None]
     hit = torch.where(sel == SEL_CONST, True,
                       torch.where(sel == SEL_IDLE, idle_hit,

@@ -5,10 +5,11 @@ Counterpart of the JAX package's ``parallel/code_capacity.py``: the
 simplest benchmark tier (the Steane [[7,1,3]] code, or any CSS code's check
 matrix, under iid bit flips), decoded by padded-CSR min-sum BP
 (``ops/bp.py``, PyTorch ops, float32 messages) and OSD on the shots BP did
-not converge (``ops/osd.py``: kernel K2 on the card, or K4 / K5 under
-``QLDPC_OSD_KERNEL``). Rounds run over the shot mesh (``parallel/mesh.py``):
-each shard draws its errors from its own generator, full rounds read the
-group's ``fail`` / ``conv`` counts, and a truncated final round gathers the
+not converge (``ops/osd.py``: kernels G1 and K2 on the card, or K4 / K5
+under ``QLDPC_OSD_KERNEL``). Rounds run over the shot mesh
+(``parallel/mesh.py``): each shard draws its errors from its own
+generator, full rounds read the group's ``fail`` / ``conv`` counts
+(``mesh.read_counts``), and a truncated final round gathers the
 per-shot flags and takes their prefix.
 """
 from __future__ import annotations
@@ -24,7 +25,9 @@ from .. import resolve_device
 from ..models import gf2
 from ..ops.bp import TannerGraph, alpha_schedule, decode_batch
 from ..ops.osd import choose_K, osd_batch
-from .mesh import ShotMesh, gather_flags, generator, shard_rounds, shot_mesh
+from ..ops.osd_cuda import ColumnIndex, column_index
+from .mesh import (ShotMesh, gather_flags, generator, read_counts,
+                   shard_rounds, shot_mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,7 @@ class CapacityDecoder:
     osd_order: int
     K: int
     rank: int
+    col_index: ColumnIndex     # H's columns as the gather-pack G1 reads them
 
 
 def capacity_decoder(H, error_rate: float, L=None, maxIter: int = 50,
@@ -68,7 +72,7 @@ def capacity_decoder(H, error_rate: float, L=None, maxIter: int = 50,
         basis_cols=torch.as_tensor(gf2.column_basis(H).astype(np.int64),
                                    device=dev),
         maxIter=maxIter, osd_order=osd_order, K=choose_K(m, n),
-        rank=gf2.rank_fast(H))
+        rank=gf2.rank_fast(H), col_index=column_index(H, dev))
 
 
 def _code_capacity_round(e, cc: CapacityDecoder) -> Dict[str, torch.Tensor]:
@@ -82,7 +86,8 @@ def _code_capacity_round(e, cc: CapacityDecoder) -> Dict[str, torch.Tensor]:
     osd = osd_batch(cc.H, cc.HT, syn, bp["values"], bp["hard"], K=cc.K,
                     order=cc.osd_order,
                     num_test=(cc.osd_order + 10) if cc.osd_order else 0,
-                    rank=cc.rank, basis_cols=cc.basis_cols)
+                    rank=cc.rank, basis_cols=cc.basis_cols,
+                    col_index=cc.col_index)
     conv = bp["converged"]
     sol = torch.where(conv[:, None], bp["hard"], osd["solution"])
     resid = sol.to(torch.int32) ^ e.to(torch.int32)
@@ -151,8 +156,9 @@ def run_code_capacity(
             fails += int(g["fail"][:take].sum())
             conv += int(g["conv"][:take].sum())
         else:
-            fails += out["fail_count"]
-            conv += out["conv_count"]
+            counts = read_counts([out])[0]
+            fails += counts["fail_count"]
+            conv += counts["conv_count"]
         shots += take
     dt = time.time() - t0
     return dict(logical_error_rate=fails / shots,

@@ -94,14 +94,23 @@ class BatchDecoder:
             syn = np.concatenate([syn, np.zeros((pad, syn.shape[1]),
                                                 np.uint8)])
         syn_t = torch.as_tensor(syn.astype(np.int8), device=self.device)
-        logs, convs, rdefs = [], [], []
-        for c0 in range(0, len(syn), B):
-            lg, cv, rd = _decode_logicals(
+
+        def call(c0, replay=False):
+            return _decode_logicals(
                 syn_t[c0:c0 + B], dec, self.maxIter, self.osd_order,
-                self.damping, self.clip_llr, self.msg_dtype, self.bp_variant)
-            logs.append(lg)
-            convs.append(cv)
-            rdefs.append(rd)
+                self.damping, self.clip_llr, self.msg_dtype, self.bp_variant,
+                replay=replay, return_overflow=True)
+
+        starts = range(0, len(syn), B)
+        outs = [call(c0) for c0 in starts]
+        # a call whose OSD reprocess slice overflowed decodes again with
+        # whole chunks (one host read for all calls, as the results are
+        # read back here anyway)
+        for i, over in enumerate(torch.stack(
+                [o[3].any() for o in outs]).tolist()):
+            if over:
+                outs[i] = call(starts[i], replay=True)
+        logs, convs, rdefs = ([o[j] for o in outs] for j in range(3))
         return dict(logicals=torch.cat(logs)[:N].cpu().numpy(),
                     converged=torch.cat(convs)[:N].cpu().numpy(),
                     rank_deficient=torch.cat(rdefs)[:N].cpu().numpy())

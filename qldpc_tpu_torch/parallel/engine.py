@@ -21,6 +21,15 @@ Both entry points run over a shot mesh (``parallel/mesh.py``): the shards
 of a ``torch.distributed`` process group, one process per GPU, or several
 shards in one process. Steady rounds read only all-reduced counts; the
 per-shot flags are gathered only in a crossing (or truncated final) round.
+
+The round contract is the JAX package's: a dispatch issues its work and
+reads nothing back. Its OSD chunks, the staged scan's tail, the basis rerun
+and the reprocess are gated on device counts (ops/osd.py), and its counts
+stay device tensors; the stopping loop keeps ``pipeline_depth`` dispatches
+in flight and reads the counts of the oldest, one round late. A round
+whose reprocess slice overflowed (``osd_overflow``; no recorded run has
+needed it) is replayed from its saved generator state with the whole chunk
+as the slice, on every rank together, so the tallies equal a run at depth 1.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import dataclasses
 import logging
 import os
 import time
+from collections import deque
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -44,10 +54,12 @@ from ..ops.bp import (TannerGraph, alpha_schedule, decode_batch,
 from ..ops.bp_lift import LiftedGraph, decode_batch_lift
 from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
+from ..ops import osd
 from ..ops.osd import choose_K, osd_batch
+from ..ops.osd_cuda import ColumnIndex, column_index
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
-from .mesh import (ShotMesh, broadcast_from_rank0,
-                   gather_flags, generator, shard_rounds, shot_mesh)
+from .mesh import (ShotMesh, broadcast_from_rank0, gather_flags, generator,
+                   read_counts, shard_rounds, shot_mesh)
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +107,7 @@ class BasisDecoder:
     K: int
     num_test: int
     rank: int                  # GF(2) rank of H (OSD early-exit target)
+    col_index: ColumnIndex     # H's columns as the gather-pack G1 reads them
 
 
 def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
@@ -138,6 +151,7 @@ def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
         K=choose_K(*H.shape, margin=osd_margin),
         num_test=(osd_order + 10) if osd_order > 0 else 0,
         rank=gf2.rank_fast(H),
+        col_index=column_index(H, dev),
     )
 
 
@@ -174,35 +188,48 @@ def _bp_one_basis(syndrome, dec: BasisDecoder, maxIter: int,
 
 
 def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
-                  osd_order: int, chunk: int):
+                  osd_order: int, chunk: int, replay: bool = False):
     """OSD for the BP-failed shots of a (possibly pooled) batch.
 
     Returns (delta (B,) int32 packed logical delta of the OSD correction
-    relative to the BP hard decision, rank_deficient (B,) bool).
+    relative to the BP hard decision, rank_deficient (B,) bool, overflow
+    (B,) bool: OSD-0 failed and the chunk's reprocess slice did not hold
+    the shot).
 
     Shots are sorted unconverged-first and by BP-residual weight
     (syndrome ^ H@hard) within the unconverged, so shots of similar
-    difficulty share an elimination launch. Only the unconverged shots are
-    decoded (compaction; the JAX package gates fixed chunks instead), in
-    chunks of ``chunk``. Per-shot OSD outputs do not depend on how shots are
-    grouped, so the flags equal the JAX package's."""
+    difficulty share an elimination launch. Every chunk of ``chunk`` shots
+    is issued, as the JAX package's unrolled ``lax.cond`` chunks are, with
+    its count of unconverged shots, ``clamp(n_fail - c0, 0, chunk)``, on
+    the device: a chunk of converged shots launches G1 and the eliminator
+    gated to nothing. No host read. The reprocess slice is
+    ``osd.REPROCESS_SLICE`` shots, or the whole chunk when ``replay``.
+    Per-shot OSD outputs do not depend on how shots are grouped, so the
+    flags equal the JAX package's."""
     B, m = syndrome.shape
+    dev = syndrome.device
     res_wt = (syndrome.to(torch.int32)
               ^ ((hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
               ).sum(1)
     order = torch.sort(torch.where(conv, m + 1, res_wt), stable=True).indices
-    n_fail = int((~conv).sum())        # host read: how many shots need OSD
-    delta = torch.zeros(B, dtype=torch.int32, device=syndrome.device)
-    rdef = torch.zeros(B, dtype=torch.bool, device=syndrome.device)
-    for c0 in range(0, n_fail, chunk):
-        idx = order[c0:min(c0 + chunk, n_fail)]
+    n_fail = (~conv).sum()
+    delta = torch.zeros(B, dtype=torch.int32, device=dev)
+    rdef = torch.zeros(B, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    for c0 in range(0, B, chunk):
+        idx = order[c0:c0 + chunk]
         out = osd_batch(dec.H, dec.HT, syndrome[idx], values[idx], hard[idx],
                         K=dec.K, order=osd_order, num_test=dec.num_test,
                         rank=dec.rank, basis_cols=dec.basis_cols,
-                        logical_pack=dec.logical_pack, return_solution=False)
-        delta[idx] = out["logical_delta_packed"]
-        rdef[idx] = out["rank_deficient"]
-    return delta, rdef & ~conv
+                        logical_pack=dec.logical_pack, return_solution=False,
+                        n_live=(n_fail - c0).clamp(0, len(idx)),
+                        reprocess_slice=None if replay
+                        else osd.REPROCESS_SLICE,
+                        col_index=dec.col_index)
+        delta.index_copy_(0, idx, out["logical_delta_packed"])
+        rdef.index_copy_(0, idx, out["rank_deficient"])
+        overflow.index_copy_(0, idx, out["reprocess_overflow"])
+    return delta, rdef & ~conv, overflow & ~conv
 
 
 def _logical_readout(hard, conv, delta, dec: BasisDecoder):
@@ -218,21 +245,25 @@ def _logical_readout(hard, conv, delta, dec: BasisDecoder):
 def _decode_logicals(syndrome, dec: BasisDecoder, maxIter: int,
                      osd_order: int, damping: float = 1.0,
                      clip_llr: float = 20.0, msg_dtype=torch.float32,
-                     bp_variant: str = "minsum"):
+                     bp_variant: str = "minsum", replay: bool = False,
+                     return_overflow: bool = False):
     """BP, OSD fallback for the unconverged shots, logical readout, for
     externally supplied syndromes (B, m). The OSD chunk is the JAX
     package's: the whole batch up to 64 shots, else max(64, B // 8).
 
     Returns (dec_log (B, k) int32, the decoded correction's logical action;
-    converged (B,) bool; rank_deficient (B,) bool)."""
+    converged (B,) bool; rank_deficient (B,) bool), and the OSD overflow
+    flags (B,) bool when ``return_overflow`` (a caller that sees one
+    decodes the batch again with ``replay``; see :func:`_osd_fallback`)."""
     B = syndrome.shape[0]
     bp = _bp_one_basis(syndrome, dec, maxIter, damping, clip_llr, msg_dtype,
                        bp_variant)
     conv = bp["converged"]
     chunk = B if B <= 64 else max(64, B // 8)
-    delta, rdef = _osd_fallback(syndrome, bp["values"], bp["hard"], conv,
-                                dec, osd_order, chunk)
-    return _logical_readout(bp["hard"], conv, delta, dec), conv, rdef
+    delta, rdef, overflow = _osd_fallback(syndrome, bp["values"], bp["hard"],
+                                          conv, dec, osd_order, chunk, replay)
+    out = (_logical_readout(bp["hard"], conv, delta, dec), conv, rdef)
+    return out + (overflow,) if return_overflow else out
 
 
 def _decode_one_basis(syndrome, true_log, dec: BasisDecoder, maxIter: int,
@@ -265,22 +296,29 @@ def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
     return per_basis
 
 
-def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None):
+def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None,
+                      replay: bool = False):
     """Pooled OSD + readout over the flattened multi-round BP state. The
-    default chunk is pool/8 (at least 64), as in the JAX package."""
+    default chunk is pool/8 (at least 64), as in the JAX package. The flags
+    gain ``osd_overflow``: shots whose OSD-0 failed in either basis beyond
+    their chunk's reprocess slice (the round must be replayed)."""
     if chunk is None:
         pool = flat[0]["syn"].shape[0]
         chunk = pool if pool <= 64 else max(64, pool // 8)
     out = {}
+    overflow = []
     for name, dec, st in (("z", dec_z, flat[0]), ("x", dec_x, flat[1])):
-        delta, rdef = _osd_fallback(st["syn"], st["values"], st["hard"],
-                                    st["conv"], dec, osd_order, chunk)
+        delta, rdef, ovf = _osd_fallback(st["syn"], st["values"], st["hard"],
+                                         st["conv"], dec, osd_order, chunk,
+                                         replay)
         dec_log = _logical_readout(st["hard"], st["conv"], delta, dec)
         out[f"{name}_err"] = (dec_log != st["true_log"].to(torch.int32)
                               ).any(1)
         out[f"{name}_conv"] = st["conv"]
         out[f"{name}_rankdef"] = rdef
+        overflow.append(ovf)
     out["any_err"] = out["z_err"] | out["x_err"]
+    out["osd_overflow"] = overflow[0] | overflow[1]
     return out
 
 
@@ -310,14 +348,16 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
                          msg_dtype=None):
     """``n_rounds`` decode rounds with CROSS-ROUND OSD compaction:
     sampling + BP per round, then ONE pooled OSD phase over all
-    ``n_rounds * batch`` shots. Returns ``pooled(gen, randoms=None)`` ->
-    flattened (n_rounds * batch,) per-shot flags; ``randoms`` is a list of
-    per-round (err, pauli, cat2) replacing the draws from ``gen``."""
+    ``n_rounds * batch`` shots. Returns ``pooled(gen, randoms=None,
+    replay=False)`` -> flattened (n_rounds * batch,) per-shot flags, issued
+    without a host read; ``randoms`` is a list of per-round (err, pauli,
+    cat2) replacing the draws from ``gen``; ``replay`` gives each OSD chunk
+    its whole size as the reprocess slice."""
     msg_dtype, bp_variant = _round_defaults(dec_z, damping, msg_dtype,
                                             bp_variant)
     bp_args = (damping, clip_llr, msg_dtype, bp_variant)
 
-    def pooled(gen, randoms=None):
+    def pooled(gen, randoms=None, replay: bool = False):
         stacked = [_sample_bp_phase(
             gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, bp_args,
             None if randoms is None else randoms[i])
@@ -325,7 +365,7 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
         flat = [{k: torch.cat([r[b][k] for r in stacked])
                  for k in stacked[0][b]} for b in (0, 1)]
         return _pooled_osd_phase(flat, dec_z, dec_x, osd_order,
-                                 chunk=osd_chunk)
+                                 chunk=osd_chunk, replay=replay)
 
     return pooled
 
@@ -340,8 +380,8 @@ def make_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder, n_locs: int,
     pooled = make_pooled_round_fn(dec_z, dec_x, n_locs, error_rate, batch,
                                   maxIter, osd_order, 1, damping, clip_llr,
                                   bp_variant, msg_dtype=msg_dtype)
-    return lambda gen, randoms=None: pooled(
-        gen, None if randoms is None else [randoms])
+    return lambda gen, randoms=None, replay=False: pooled(
+        gen, None if randoms is None else [randoms], replay)
 
 
 def make_scanned_round_fn(round_fn, n_rounds: int):
@@ -350,8 +390,9 @@ def make_scanned_round_fn(round_fn, n_rounds: int):
     ``round_fn`` once per round, each with its own OSD phase, and
     concatenates the per-shot flags into one (n_rounds * batch,) round;
     ``randoms`` is a list of per-round draws."""
-    def scanned(gen, randoms=None):
-        outs = [round_fn(gen, None if randoms is None else randoms[r])
+    def scanned(gen, randoms=None, replay=False):
+        outs = [round_fn(gen, None if randoms is None else randoms[r],
+                         replay=replay)
                 for r in range(n_rounds)]
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
@@ -501,23 +542,37 @@ def _crossing_take(a: np.ndarray, remaining: int) -> int:
 def _drive_stopping_rounds(dispatch, gather, n_streams: int,
                            round_shots: int, max_trials: int,
                            target_logical_errors, verbose: bool, names,
-                           on_progress=None):
+                           on_progress=None, pipeline_depth: int = 2,
+                           generators=()):
     """The sequential-stopping round loop, shared by ``run_simulation`` (one
     stream) and ``run_multi_code_simulation`` (one stream per code).
-    ``dispatch(round_idx)`` -> list of per-stream flag dicts from
-    :func:`~qldpc_tpu_torch.parallel.mesh.shard_rounds` (this process's
-    per-shot flags and the group's ``<flag>_count`` totals). Trials are
-    accounted in global shot order; each stream truncates at the exact
-    trial where its ``target_logical_errors``-th error occurs, and the run
-    ends when every stream is done (a finished code keeps being decoded and
-    its share discarded until the slowest finishes). Steady rounds read
-    only the counts; the per-shot flags go through ``gather`` (every
-    shard's, in shard order) only in a crossing (or truncated final) round,
-    which every rank reaches together.
+    ``dispatch(round_idx, replay=False)`` -> list of per-stream flag dicts
+    from :func:`~qldpc_tpu_torch.parallel.mesh.shard_rounds` (this
+    process's per-shot flags and its ``<flag>_count`` device counts),
+    issued without a host read. Up to ``pipeline_depth`` dispatches stay in
+    flight, as in the JAX package; the loop consumes the oldest by reading
+    every stream's counts at once (:func:`~qldpc_tpu_torch.parallel.mesh
+    .read_counts`: one all_reduce, one host read). Trials are accounted in
+    global shot order; each stream truncates at the exact trial where its
+    ``target_logical_errors``-th error occurs, and the run ends when every
+    stream is done (a finished code keeps being decoded and its share
+    discarded until the slowest finishes; dispatches issued past the last
+    consumed round are discarded). Steady rounds read only the counts; the
+    per-shot flags go through ``gather`` (every shard's, in shard order)
+    only in a crossing (or truncated final) round, which every rank reaches
+    together.
+
+    ``generators``: every generator the dispatches draw from. Their states
+    are saved before each dispatch; a consumed round whose reduced
+    ``osd_overflow`` count is non-zero (an OSD chunk's reprocess slice
+    overflowed) is replayed from its saved states with ``replay=True`` and
+    accounted instead, and the generators are put back where the later
+    dispatches left them. So the tallies do not depend on
+    ``pipeline_depth``.
 
     Returns dict with lists ``trials``, ``z_errs``, ``x_errs``,
     ``tot_errs``, ``rankdef``, ``steady_trials`` and scalars ``elapsed``,
-    ``steady_elapsed``."""
+    ``steady_elapsed``, ``replays``."""
     stop_on_errors = (target_logical_errors is not None
                       and target_logical_errors > 0)
     trials = [0] * n_streams
@@ -528,14 +583,31 @@ def _drive_stopping_rounds(dispatch, gather, n_streams: int,
     t_steady = None
     steady = [0] * n_streams
     round_idx = 0
+    replays = 0
+    inflight: deque = deque()
     while not all(done):
-        outs = dispatch(round_idx)
-        round_idx += 1
-        for i, o in enumerate(outs):
+        while len(inflight) < pipeline_depth:
+            states = [g.get_state() for g in generators]
+            inflight.append((round_idx, states, dispatch(round_idx)))
+            round_idx += 1
+        ri, states, outs = inflight.popleft()
+        counts = read_counts(outs)
+        if any(c.get("osd_overflow_count", 0) for c in counts):
+            now = [g.get_state() for g in generators]
+            for g, st in zip(generators, states):
+                g.set_state(st)
+            outs = dispatch(ri, replay=True)
+            for g, st in zip(generators, now):
+                g.set_state(st)
+            counts = read_counts(outs)
+            replays += 1
+            logger.info("round %d: an OSD reprocess slice overflowed; "
+                        "replayed with whole chunks", ri + 1)
+        for i, (o, c) in enumerate(zip(outs, counts)):
             if done[i]:
                 continue
             take = min(round_shots, max_trials - trials[i])
-            a_cnt, z_inc, x_inc, rz, rx = (o[f"{k}_count"]
+            a_cnt, z_inc, x_inc, rz, rx = (c[f"{k}_count"]
                                            for k in _STOP_KEYS)
             rd = rz + rx
             crossing = (stop_on_errors
@@ -577,14 +649,27 @@ def _drive_stopping_rounds(dispatch, gather, n_streams: int,
             t_steady = time.time()
             steady = list(trials)
         if verbose:
-            logger.info("round %d: %s", round_idx,
+            logger.info("round %d: %s", ri + 1,
                         {nm: (trials[i], tot[i])
                          for i, nm in enumerate(names)})
     elapsed = time.time() - t_start
     steady_elapsed = (time.time() - t_steady) if t_steady else elapsed
     return dict(trials=trials, z_errs=z_errs, x_errs=x_errs, tot_errs=tot,
                 rankdef=rankdef, steady_trials=steady, elapsed=elapsed,
-                steady_elapsed=steady_elapsed)
+                steady_elapsed=steady_elapsed, replays=replays)
+
+
+def _pipeline_depth(depth: Optional[int], dev) -> int:
+    """Dispatches the stopping loop keeps in flight: ``depth``, or by
+    default 2 on a GPU (the JAX package's, so the host issues the next
+    dispatch while the card runs this one) and 1 on the CPU, where a
+    dispatch runs as it is issued and a second in flight would overlap
+    nothing and be discarded at the end. The tallies do not depend on it."""
+    if depth is None:
+        return 2 if dev.type == "cuda" else 1
+    if depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1, got {depth}")
+    return int(depth)
 
 
 def _progress_bar(verbose: bool, stop_on_errors: bool, target, max_trials,
@@ -625,10 +710,11 @@ def make_multi_code_pooled_round_fn(specs, n_rounds: int):
     package).
 
     ``specs``: list of dicts with keys dec_z, dec_x, n_locs, error_rate,
-    batch, maxIter, osd_order. Returns ``pooled(gens, randoms=None)`` ->
-    list of per-code flattened (n_rounds * batch,) flag dicts; ``gens`` has
-    one generator per code, and ``randoms[i]`` (code-major: a list per
-    round of (err, pauli, cat2)) replaces code i's draws. Each code runs
+    batch, maxIter, osd_order. Returns ``pooled(gens, randoms=None,
+    replay=False)`` -> list of per-code flattened (n_rounds * batch,) flag
+    dicts; ``gens`` has one generator per code, and ``randoms[i]``
+    (code-major: a list per round of (err, pauli, cat2)) replaces code i's
+    draws; ``replay`` as in :func:`make_pooled_round_fn`. Each code runs
     exactly :func:`make_pooled_round_fn` with the JAX multi-code defaults
     (flooding min-sum, damping 1), so its flags are those of its own
     single-code dispatch on the same draws."""
@@ -636,8 +722,8 @@ def make_multi_code_pooled_round_fn(specs, n_rounds: int):
                                 sp["error_rate"], sp["batch"], sp["maxIter"],
                                 sp["osd_order"], n_rounds) for sp in specs]
 
-    def pooled(gens, randoms=None):
-        return [fn(gen, None if randoms is None else randoms[i])
+    def pooled(gens, randoms=None, replay=False):
+        return [fn(gen, None if randoms is None else randoms[i], replay)
                 for i, (fn, gen) in enumerate(zip(fns, gens))]
 
     return pooled
@@ -648,8 +734,8 @@ def make_multi_code_round_fn(specs):
     ``randoms[i]`` one (err, pauli, cat2) per code (the one-round pool of
     :func:`make_multi_code_pooled_round_fn`)."""
     pooled = make_multi_code_pooled_round_fn(specs, 1)
-    return lambda gens, randoms=None: pooled(
-        gens, None if randoms is None else [[r] for r in randoms])
+    return lambda gens, randoms=None, replay=False: pooled(
+        gens, None if randoms is None else [[r] for r in randoms], replay)
 
 
 def _gens(base_seed: int, mesh: ShotMesh, dev, n_codes: Optional[int] = None):
@@ -670,6 +756,7 @@ def run_multi_code_simulation(
     precomputed_matrices=None, base_seed=None, verbose: bool = True,
     mesh: Optional[ShotMesh] = None, alpha_estimation_trials=None,
     alpha_estimation_bins=50, estimation_plot_dir=None, device=None,
+    pipeline_depth: Optional[int] = None,
 ) -> Dict[str, Dict[str, Any]]:
     """Several codes' Monte-Carlo LER estimates from one dispatch per round,
     with the JAX package's signature (plus ``device``: None = "cuda"; "cpu"
@@ -690,6 +777,7 @@ def run_multi_code_simulation(
         calibration runs once per code with seed ``base_seed + 101*i``.
       mesh: a :class:`~qldpc_tpu_torch.parallel.mesh.ShotMesh`; None means
         ``shot_mesh()`` (one shard per rank of the process group, or one).
+      pipeline_depth: dispatches in flight (:func:`_pipeline_depth`).
 
     Returns {code.name: result dict} with the run_simulation keys;
     ``shots_per_sec`` is that code's own steady rate, and
@@ -738,9 +826,11 @@ def run_multi_code_simulation(
     gens = _gens(base_seed, mesh, dev, len(specs))
     round_shots = batch_size * mesh.n_shards * rounds_per_dispatch
     st = _drive_stopping_rounds(
-        lambda ri: sharded(gens), gather_flags, len(specs),
-        round_shots, max_trials,
-        target_logical_errors if stop_on_errors else None, verbose, names)
+        lambda ri, replay=False: sharded(gens, replay=replay), gather_flags,
+        len(specs), round_shots, max_trials,
+        target_logical_errors if stop_on_errors else None, verbose, names,
+        pipeline_depth=_pipeline_depth(pipeline_depth, dev),
+        generators=[g for per_shard in gens for g in per_shard])
 
     trials, steady = st["trials"], st["steady_trials"]
     elapsed, steady_elapsed = st["elapsed"], st["steady_elapsed"]
@@ -783,6 +873,7 @@ def run_simulation(
     osd_cross_round: Optional[bool] = None,
     osd_chunk: Optional[int] = None,
     device=None,
+    pipeline_depth: Optional[int] = None,
     **bb_params,
 ) -> Dict[str, Any]:
     """Reference-compatible Monte-Carlo LER estimation with the JAX
@@ -791,7 +882,8 @@ def run_simulation(
     "alvarado" / "alvarado-autoregressive", ``scopt``) runs on the same
     device. ``mesh``: a :class:`~qldpc_tpu_torch.parallel.mesh.ShotMesh`;
     None means ``shot_mesh()`` (one shard per rank of the process group,
-    or a single shard); ``batch_size`` is per shard. ``num_workers`` and
+    or a single shard); ``batch_size`` is per shard. ``pipeline_depth``:
+    dispatches in flight (:func:`_pipeline_depth`). ``num_workers`` and
     ``use_jit`` are accepted for compatibility."""
     del num_workers, use_jit
     dev = resolve_device(device)
@@ -859,10 +951,12 @@ def run_simulation(
     progress = _progress_bar(verbose, stop_on_errors, target_logical_errors,
                              max_trials, error_rate)
     st = _drive_stopping_rounds(
-        lambda ri: [sharded(gens)], gather_flags, 1, round_shots,
-        max_trials, target_logical_errors if stop_on_errors else None,
-        verbose, [f"p={error_rate:g}"],
-        on_progress=None if progress is None else progress[1])
+        lambda ri, replay=False: [sharded(gens, replay=replay)],
+        gather_flags, 1, round_shots, max_trials,
+        target_logical_errors if stop_on_errors else None, verbose,
+        [f"p={error_rate:g}"],
+        on_progress=None if progress is None else progress[1],
+        pipeline_depth=_pipeline_depth(pipeline_depth, dev), generators=gens)
     if progress is not None:
         progress[0].close()
     trials_run, tot_errs = st["trials"][0], st["tot_errs"][0]

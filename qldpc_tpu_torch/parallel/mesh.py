@@ -20,11 +20,13 @@ processes, and a shot axis made of *shards*.
   shard ``s``'s shots at ``[s*n, (s+1)*n)``, as JAX's shot-sharded layout
   puts device ``d``'s.
 - ``shard_rounds`` adds ``<flag>_count`` for every flag of ``COUNT_KEYS``
-  that the round returns (a circuit-level round its error, convergence
-  and rank flags, a code-capacity round ``fail`` and ``conv``): each
-  process sums its own shards, then one ``all_reduce`` of a small
-  integer vector per stream and round makes the totals the same on every
-  rank. Steady rounds of the engine's stopping loop read only these counts.
+  that the round returns (a circuit-level round its error, convergence,
+  rank and OSD-overflow flags, a code-capacity round ``fail`` and
+  ``conv``): this process's sum over its shards, a 0-d device tensor, so
+  that a dispatch reads nothing back. ``read_counts`` turns the counts of
+  a consumed round into the group's totals: one ``all_reduce`` of one
+  vector holding every stream's counts, and one host read. Steady rounds
+  of the engine's stopping loop read only these totals.
 - ``gather_flags`` ``all_gather``s the per-shot flags in shard order;
   the engine calls it only in a round that crosses its error target or is
   cut by ``max_trials``.
@@ -37,9 +39,9 @@ decoder bundles from the same matrices and the broadcast seed, so nothing
 large crosses the group.
 
 Collectives run on the CPU under gloo (the counts and flags are copied to
-the host first; the stopping loop reads them there anyway) and on the
-rank's GPU under NCCL. They run whenever the process group is initialised,
-also in a group of one rank.
+the host first, when the loop consumes the round; it reads them there
+anyway) and on the rank's GPU under NCCL. They run whenever the process
+group is initialised, also in a group of one rank.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from .. import resolve_device
 # engine's steady-state loop reads only these) and that a crossing round
 # gathers shot by shot; a round is counted on the ones it returns
 COUNT_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef",
-              "fail", "conv")
+              "osd_overflow", "fail", "conv")
 
 
 def distributed_init_from_env(backend: str = "nccl") -> bool:
@@ -180,17 +182,19 @@ def shard_rounds(round_fn: Callable, mesh: ShotMesh) -> Callable:
 
     ``round_fn(gen, randoms=None)`` -> a dict of (n,) per-shot flag tensors,
     or a list of such dicts (one per stream: the codes of a multi-code
-    round). Returns ``sharded(gens, randoms=None)``, with ``gens`` (and
-    ``randoms``) one entry per shard of this process. The result has the
-    same structure; its flags are this process's shards concatenated in
-    shard order, and each dict gains ``<flag>_count`` (a Python int: the
-    round's total over every shard of the group) for the flags of
-    ``COUNT_KEYS`` it holds."""
-    def sharded(gens, randoms=None):
+    round). Returns ``sharded(gens, randoms=None, **kw)``, with ``gens``
+    (and ``randoms``) one entry per shard of this process and ``kw`` passed
+    to every ``round_fn`` call. The result has the same structure; its
+    flags are this process's shards concatenated in shard order, and each
+    dict gains ``<flag>_count`` (a 0-d int64 device tensor: this process's
+    total; :func:`read_counts` gives the group's) for the flags of
+    ``COUNT_KEYS`` it holds. Nothing is read back to the host."""
+    def sharded(gens, randoms=None, **kw):
         if len(gens) != len(mesh.shards):
             raise ValueError(f"{len(gens)} generators for "
                              f"{len(mesh.shards)} shards")
-        outs = [round_fn(g, randoms=None if randoms is None else randoms[j])
+        outs = [round_fn(g, randoms=None if randoms is None else randoms[j],
+                         **kw)
                 for j, g in enumerate(gens)]
         multi = isinstance(outs[0], (list, tuple))
         streams = list(zip(*outs)) if multi else [outs]
@@ -201,22 +205,37 @@ def shard_rounds(round_fn: Callable, mesh: ShotMesh) -> Callable:
 
 
 def _merge_counted(parts) -> dict:
-    """One stream's flags over this process's shards, with the group's
-    counts of the ``COUNT_KEYS`` flags it holds: one host read, and one
-    all_reduce under a process group (every rank runs the same round, so
-    every rank's vector has the same keys in the same order)."""
+    """One stream's flags over this process's shards, with this process's
+    counts of the ``COUNT_KEYS`` flags it holds as device tensors (views of
+    one vector); no host read."""
     flags = (dict(parts[0]) if len(parts) == 1 else
              {k: torch.cat([p[k] for p in parts]) for k in parts[0]})
     keys = [k for k in COUNT_KEYS if k in flags]
     if not keys:
         return flags
     local = torch.stack([flags[k].sum(dtype=torch.int64) for k in keys])
-    if _distributed():
-        local = local.to(_comm_device())
-        dist.all_reduce(local)
-    flags.update({f"{k}_count": int(v) for k, v in zip(keys,
-                                                        local.tolist())})
+    flags.update({f"{k}_count": local[i] for i, k in enumerate(keys)})
     return flags
+
+
+def read_counts(streams) -> list:
+    """The group's totals of a consumed round: for each stream's flag dict
+    (from :func:`shard_rounds`), ``{<flag>_count: int}`` over every shard of
+    the group. Every stream's counts travel as one vector: one
+    ``all_reduce`` under a process group (every rank consumes the same
+    rounds in the same order, so the collectives match) and one host
+    read."""
+    keys = [[k for k in COUNT_KEYS if f"{k}_count" in o] for o in streams]
+    parts = [o[f"{k}_count"].reshape(1) for o, ks in zip(streams, keys)
+             for k in ks]
+    if not parts:
+        return [{} for _ in streams]
+    total = torch.cat(parts)
+    if _distributed():
+        total = total.to(_comm_device())
+        dist.all_reduce(total)
+    values = iter(total.tolist())
+    return [{f"{k}_count": next(values) for k in ks} for ks in keys]
 
 
 def gather_flags(flags: dict) -> dict:

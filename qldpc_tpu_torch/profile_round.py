@@ -7,8 +7,15 @@ order 2) and reports, for a few steady dispatches:
 * stage times from CUDA events around the pieces a pooled dispatch runs
   (sampling + signature matmul, BP, pooled OSD, readout), summed over the
   dispatch;
-* the device's busy share and time per kernel name from ``torch.profiler``
-  over whole dispatches;
+* for each ``--pipeline-depth``: dispatches issued in turn with up to that
+  many in flight, the oldest consumed by reading its outputs to the host,
+  as the stopping loop and the bench do. Without the profiler: ms per
+  dispatch, and the host's time split into issuing (inside the dispatch
+  calls) and consuming (inside the reads of the oldest round). Under
+  ``torch.profiler``: the device's busy share, time per kernel name, and
+  the host's time inside synchronising CUDA calls (stream, device and
+  event synchronisations and memory copies, every place the host waits for
+  the card, inside a dispatch or not) apart from the rest, its issue;
 * the eliminator's launches and device time per dispatch at each width
   the OSD runs it at, from the profiler range its wrapper opens around each
   launch (``osd_cuda.K2_RANGE``, ``K4_RANGE`` or ``K5_RANGE`` for
@@ -20,14 +27,18 @@ Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
     python -m qldpc_tpu_torch.profile_round [--dispatches 3] [--json PATH]
         [--bp-variant minsum|layered] [--osd-kernel 1|2|3]
         [--alpha-mode dynamical|alvarado|alvarado-autoregressive]
+        [--pipeline-depth 1 2]
 
 ``--bp-variant`` picks the BP schedule (flooding K1, layered K3) and
 ``--osd-kernel`` the eliminator generation (K2, K4, K5), as
 ``run_simulation(bp_variant=...)`` and ``QLDPC_OSD_KERNEL`` do;
 ``--alpha-mode`` fits each basis's alpha sequence on the device first, as
 ``run_simulation(alpha_mode=...)`` does (default trials, seed
-``--seed``), and reports the calibration's seconds. Prints a summary, and
-the full report as JSON to PATH when given.
+``--seed``), and reports the calibration's seconds. The script reads
+nothing of the engine beyond ``make_pooled_round_fn``, ``_osd_fallback``
+and the stage functions, so it also profiles an earlier checkout's package
+when copied into it. Prints a summary, and the full report as JSON to PATH
+when given.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import argparse
 import json
 import subprocess
 import time
+from collections import deque
 
 import torch
 
@@ -42,6 +54,11 @@ from . import build_decoding_matrices, get_code, SyndromeCircuit
 from .ops import osd_cuda
 from .ops.sampler import augmented_bits, fault_bits, sample_gate_randoms
 from .parallel import engine
+from .utils.benchloop import _to_host
+
+# CUDA runtime calls in which the host waits for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
 
 def _timed_dispatch(decs, n_locs, gen, cfg, acc):
@@ -78,9 +95,9 @@ def _timed_dispatch(decs, n_locs, gen, cfg, acc):
     pool = flat[0]["syn"].shape[0]
     chunk = cfg.get("osd_chunk") or max(64, pool // 8)
     for st, dec in zip(flat, decs):
-        delta, _ = timed("osd", lambda: engine._osd_fallback(
+        delta = timed("osd", lambda: engine._osd_fallback(
             st["syn"], st["values"], st["hard"], st["conv"], dec,
-            cfg["osd_order"], chunk))
+            cfg["osd_order"], chunk))[0]
         timed("readout", lambda: engine._logical_readout(
             st["hard"], st["conv"], delta, dec))
 
@@ -101,6 +118,72 @@ def stage_split(decs, n_locs, gen, cfg, dispatches: int) -> tuple:
              for k, v in acc.items()}, staged_ms)
 
 
+def pipelined(fn, gen, dispatches: int, depth: int) -> dict:
+    """``dispatches`` dispatches of ``fn(gen)`` with up to ``depth`` in
+    flight, each consumed (read to the host) oldest first; the last ones
+    are drained, so every dispatch issued is consumed. Returns the wall ms
+    per dispatch and the host ms per dispatch inside the dispatch calls
+    (issue) and inside the consumption (reading the oldest round)."""
+    inflight: deque = deque()
+    issue = consume = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    issued = 0
+    while issued < dispatches or inflight:
+        while issued < dispatches and len(inflight) < depth:
+            t = time.perf_counter()
+            inflight.append(fn(gen))
+            issue += time.perf_counter() - t
+            issued += 1
+        t = time.perf_counter()
+        _to_host(inflight.popleft())
+        consume += time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    return dict(dispatch_ms=wall * 1e3 / dispatches,
+                issue_ms=issue * 1e3 / dispatches,
+                consume_ms=consume * 1e3 / dispatches)
+
+
+def profiled(fn, gen, dispatches: int, depth: int, elim_range: str) -> dict:
+    """:func:`pipelined` under ``torch.profiler``: wall ms per dispatch,
+    device busy ms and idle share, the host's ms per dispatch inside
+    synchronising CUDA calls (``SYNC_CALLS``: its wait) and the rest (its
+    issue), device ms per kernel name, and the eliminator's launches and
+    device ms by width (its ``elim_range`` ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = pipelined(fn, gen, dispatches, depth)["dispatch_ms"]
+    kernels, widths, wait_us = {}, {}, 0.0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        on_device = ev.device_type is not None and \
+            str(ev.device_type).endswith("CUDA")
+        if ev.key.startswith(elim_range):
+            # the host range holds its launches' kernels; a device-side
+            # annotation of the same range, where the profiler makes one,
+            # spans them: either gives the range's device time
+            r = widths.setdefault(ev.key[len(elim_range) + 2:],
+                                  dict(launches=0.0, ms=0.0))
+            if not on_device:
+                r["launches"] += ev.count / dispatches
+            r["ms"] = max(r["ms"], dt / 1e3 / dispatches)
+        elif dt and on_device:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
+        elif not on_device and ev.key in SYNC_CALLS:
+            wait_us += ev.cpu_time_total
+    busy = sum(kernels.values()) / dispatches
+    wait = wait_us / 1e3 / dispatches
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    return dict(dispatch_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall, host_wait_ms=wait,
+                host_issue_ms=wall - wait,
+                kernel_ms_per_dispatch={k: v / dispatches for k, v in top},
+                elim_by_width=widths or None)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dispatches", type=int, default=3)
@@ -112,6 +195,8 @@ def main(argv=None):
     ap.add_argument("--alpha-mode", default="dynamical",
                     choices=("dynamical", "alvarado",
                              "alvarado-autoregressive"))
+    ap.add_argument("--pipeline-depth", type=int, nargs="+", default=[1, 2],
+                    help="dispatches in flight; each depth is measured")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA GPU")
@@ -144,38 +229,14 @@ def main(argv=None):
 
     stages, staged_ms = stage_split(decs, n_locs, gen, cfg, args.dispatches)
 
-    # profiler over whole dispatches of the engine's own round function
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(args.dispatches):
-            fn(gen)
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) / args.dispatches
-    kernels = {}
     elim = {1: "K2", 2: "K4", 3: "K5"}[args.osd_kernel]
     elim_range = osd_cuda._ELIM_KERNELS[elim][2]
-    widths = {}  # the eliminator's ranges: launches (host side), device ms
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "cuda_time_total", 0.0)
-        on_device = ev.device_type is not None and \
-            str(ev.device_type).endswith("CUDA")
-        if ev.key.startswith(elim_range):
-            # the host range holds its launches' kernels; a device-side
-            # annotation of the same range, where the profiler makes one,
-            # spans them: either gives the range's device time
-            r = widths.setdefault(ev.key[len(elim_range) + 2:],
-                                  dict(launches=0.0, ms=0.0))
-            if not on_device:
-                r["launches"] += ev.count / args.dispatches
-            r["ms"] = max(r["ms"], dt / 1e3 / args.dispatches)
-        elif dt and on_device:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + dt / 1e3
-    busy_ms = sum(kernels.values()) / args.dispatches
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    depths = {}
+    for depth in args.pipeline_depth:
+        pipelined(fn, gen, depth, depth)  # the allocator at this depth
+        depths[depth] = dict(
+            pipelined(fn, gen, args.dispatches, depth),
+            profiled=profiled(fn, gen, args.dispatches, depth, elim_range))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -185,30 +246,38 @@ def main(argv=None):
         calibration_s=calibration_s,
         alpha_seq={"z": [float(a) for a in seq_z],
                    "x": [float(a) for a in seq_x]},
-        dispatch_ms=wall * 1e3, shots_per_s=shots / wall,
-        staged_dispatch_ms=staged_ms, stage_ms=stages,
-        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (wall * 1e3),
-        kernel_ms_per_dispatch={k: v / args.dispatches for k, v in top},
-        eliminator=elim, elim_by_width=widths or None)
+        staged_dispatch_ms=staged_ms, stage_ms=stages, eliminator=elim,
+        pipeline={d: dict(r, shots_per_s=shots / r["dispatch_ms"] * 1e3)
+                  for d, r in depths.items()})
     print(f"card: {smi}")
     if cfg["alpha_mode"] != "dynamical":
         print(f"calibration ({cfg['alpha_mode']}) {calibration_s:.2f} s; "
               f"alpha z {min(seq_z):.4f}-{max(seq_z):.4f}, x "
               f"{min(seq_x):.4f}-{max(seq_x):.4f}")
-    print(f"dispatch {wall * 1e3:.1f} ms ({shots / wall:.0f} shots/s); "
-          f"device busy {busy_ms:.1f} ms, idle share "
-          f"{report['device_idle_share']:.3f}")
     print("stages (ms per dispatch, CUDA events): " + ", ".join(
         f"{k} {v:.1f}" for k, v in stages.items())
         + f"; staged dispatch wall {staged_ms:.1f} ms")
-    for k, v in top:
-        print(f"  {v / args.dispatches:9.3f} ms  {k[:90]}")
-    if widths:
-        print(f"{elim} per dispatch by width (launches, device ms): "
-              + "; ".join(f"{w} {r['launches']:.1f}, {r['ms']:.3f}"
-                          for w, r in widths.items())
-              + f"; total {sum(r['launches'] for r in widths.values()):.1f},"
-              f" {sum(r['ms'] for r in widths.values()):.3f}")
+    for depth, r in depths.items():
+        pr = r["profiled"]
+        print(f"depth {depth}: dispatch {r['dispatch_ms']:.1f} ms "
+              f"({shots / r['dispatch_ms'] * 1e3:.0f} shots/s), host in "
+              f"dispatch calls {r['issue_ms']:.1f} ms, in consumption "
+              f"{r['consume_ms']:.1f} ms; profiled: dispatch "
+              f"{pr['dispatch_ms']:.1f} ms, device busy "
+              f"{pr['device_busy_ms']:.1f} ms, idle share "
+              f"{pr['device_idle_share']:.3f}, host wait (synchronising "
+              f"calls) {pr['host_wait_ms']:.1f} ms, host issue "
+              f"{pr['host_issue_ms']:.1f} ms")
+        for k, v in pr["kernel_ms_per_dispatch"].items():
+            print(f"  {v:9.3f} ms  {k[:90]}")
+        widths = pr["elim_by_width"]
+        if widths:
+            print(f"  {elim} per dispatch by width (launches, device ms): "
+                  + "; ".join(f"{w} {x['launches']:.1f}, {x['ms']:.3f}"
+                              for w, x in widths.items())
+                  + f"; total "
+                  f"{sum(x['launches'] for x in widths.values()):.1f}, "
+                  f"{sum(x['ms'] for x in widths.values()):.3f}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

@@ -9,9 +9,11 @@ the counterpart of ``jax.device_get``), so no window closes before the
 outputs it counts exist.
 
 A round here is issued by the host: ``launch(i)`` runs the round's host
-code and queues its kernels, and host reads inside a round (the OSD
-stage's) already wait on the device. ``depth`` then bounds how many rounds
-are issued ahead of the oldest unfetched one.
+code and queues its kernels. The engine's dispatches read nothing back
+(their OSD is gated on device counts, ops/osd.py), so with ``depth`` 2 the
+host issues the next round while the card runs the one before, and the
+fetch of the oldest is where the host waits for the card. ``depth`` bounds
+how many rounds are issued ahead of the oldest unfetched one.
 """
 from __future__ import annotations
 

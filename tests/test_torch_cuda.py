@@ -812,3 +812,77 @@ def test_code_capacity_round_on_card(cuda, name):
                                osd_order=2, batch_size=1024, device=cuda,
                                mesh=mesh.shot_mesh(2))
     assert res["num_shots"] == 3000 and 0 < res["logical_error_rate"] < 0.5
+
+
+@pytest.mark.parametrize("span", [None, (5, 41), (0, 0)])
+@pytest.mark.parametrize("width", [256, 512, 1024])
+def test_gather_pack_kernel_matches_plain(cuda, bundles, width, span):
+    """G1 against _gather_pack on every live shot, at the stage-1, prefix
+    and full widths of [[72]] (a partial last word at 1000 of 1024
+    columns), over the whole batch, a partial range and an empty one."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    B, n = 64, dec.H.shape[1]
+    rng = np.random.default_rng(width)
+    cols = torch.as_tensor(np.stack([rng.permutation(n) for _ in range(B)]),
+                           device=cuda)
+    K = width - 24 if width == 1024 else width
+    live = None if span is None else torch.tensor(span, dtype=torch.int32,
+                                                  device=cuda)
+    before = osd_cuda.gather_pack.launches
+    got = osd_cuda.gather_pack(dec.col_index, cols[:, :K], width, live=live)
+    torch.cuda.synchronize()
+    assert osd_cuda.gather_pack.launches == before + 1
+    want = _gather_pack(dec.H.T.contiguous(), cols[:, :K], width,
+                        words_major=True)
+    lo, hi = (0, B) if span is None else span
+    assert got.shape == want.shape
+    assert torch.equal(got[lo:hi], want[lo:hi])
+
+
+@pytest.mark.parametrize("span", [(3, 29), (0, 0), (0, 64)])
+@pytest.mark.parametrize("kernel", ["v1", "fused", "pair"])
+def test_gated_elim_kernels_match_ungated(cuda, bundles, kernel, span):
+    """K2, K4 and K5 gated to [lo, hi) equal their ungated launch on the
+    live shots (K5's pairs split at both ends of the range); gated-off
+    shots record no pivot and no step."""
+    dec, Hp, s = _elim_case(cuda, bundles, 64, 11, 512)
+    fn = getattr(osd_cuda, f"eliminate_blocks_{kernel}")
+    m = dec.H.shape[0]
+    live = torch.tensor(span, dtype=torch.int32, device=cuda)
+    full = fn(Hp, s, 512, m, rank=dec.rank, return_steps=True)
+    gated = fn(Hp, s, 512, m, rank=dec.rank, return_steps=True, live=live)
+    lo, hi = span
+    for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
+                          gated, full):
+        assert torch.equal(x[lo:hi], y[lo:hi]), name
+    off = torch.ones(64, dtype=torch.bool, device=cuda)
+    off[lo:hi] = False
+    assert (gated[4][off] == -1).all() and (gated[5][off] == 0).all()
+    assert not gated[3][off].any()
+
+
+def test_steady_pooled_dispatch_reads_nothing_back(cuda, bundles):
+    """A steady pooled dispatch (after a warm-up one) issues no host read:
+    it runs under torch.cuda.set_sync_debug_mode("error"), and its flags
+    equal the warm-up's on the same randoms."""
+    circ, M, decs = bundles
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    randoms = [sample_gate_randoms(gen, 256, circ.num_error_locs, 0.006)
+               for _ in range(2)]
+    dz, dx = decs[str(cuda)]
+    fn = mesh.shard_rounds(engine.make_pooled_round_fn(
+        dz, dx, circ.num_error_locs, 0.006, 256, 50, 2, 2), mesh.shot_mesh())
+    want = fn([None], randoms=[randoms])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn([None], randoms=[randoms])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for k, v in want.items():
+        assert torch.equal(v, got[k]), k
+    counts = mesh.read_counts([got])[0]
+    assert counts["any_err_count"] == int(got["any_err"].sum()) > 0
+    assert counts["osd_overflow_count"] == 0

@@ -90,7 +90,9 @@ def _flags(setups, lifted, seqs, *, damping=1.0, bp_variant="minsum",
 
 
 def _assert_flags_equal(want, got):
-    assert set(got) == set(FLAG_KEYS)
+    # the port's round adds its OSD overflow flag; no slice overflowed
+    assert set(got) == set(FLAG_KEYS) | {"osd_overflow"}
+    assert not got["osd_overflow"].any()
     for k in FLAG_KEYS:
         assert got[k].shape == (ROUNDS * BATCH,), k
         assert np.array_equal(got[k].numpy(), want[k]), k

@@ -1,0 +1,317 @@
+"""The port's asynchronous round, on the CPU: the gates the kernels read,
+the gather-pack G1, the OSD's reprocess slice and the stopping loop with
+two dispatches in flight.
+
+* G1 (``csrc/gather_pack.cu``): its index arithmetic (a block per word and
+  shot, lane c on column 32w + c, warp k on set bits k, k + warps, ... of
+  the column's CSC range, bits ORed into a row word) emulated in numpy and
+  held against ``_gather_pack``, the plain version, over the whole batch, a
+  partial range and an empty one; and the wrapper's plain path with a gate.
+* The gated plain eliminators equal their ungated call on the live shots.
+* ``osd_batch``: a batch decoded with ``n_live`` equals the live prefix
+  decoded alone; a reprocess slice too small flags its overflow, and the
+  replay with the whole batch as the slice equals the unforced call.
+* ``_drive_stopping_rounds`` at depth 1 and depth 2 gives identical
+  tallies with real pooled dispatches (a crossing round, a truncated
+  round, two streams), and a forced reprocess overflow is replayed to the
+  same tallies.
+
+[[72,12,6]]; no JAX needed (the JAX-held checks of the same paths are in
+tests/test_torch_osd.py and tests/test_torch_engine.py).
+"""
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import qldpc_tpu_torch as qt
+from qldpc_tpu_torch.models.builder import channel_llrs
+from qldpc_tpu_torch.models.gf2 import column_basis, rank_fast
+from qldpc_tpu_torch.ops import osd, osd_cuda
+from qldpc_tpu_torch.ops.bp import alpha_schedule
+from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
+from qldpc_tpu_torch.ops.bp_lift_cuda import decode_batch_lift_plain
+from qldpc_tpu_torch.parallel import engine, mesh
+
+torch.set_num_threads(1)
+
+SRC = (Path(__file__).resolve().parent.parent / "qldpc_tpu_torch" / "csrc"
+       / "gather_pack.cu").read_text()
+GP_THREADS = int(re.search(r"^#define GP_THREADS (\d+)\b", SRC,
+                           re.M).group(1))
+SPANS = [None, (5, 23), (9, 9)]
+
+
+@pytest.fixture(scope="module")
+def code72():
+    code = qt.get_code("[[72, 12, 6]]")
+    circ = qt.SyndromeCircuit(code, num_cycles=6)
+    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.006)
+    return code, circ, M
+
+
+@pytest.fixture(scope="module")
+def failed72(code72):
+    """BP-failed [[72,12,6]] basis-Z shots (6 cycles, p=0.006)."""
+    code, _, M = code72
+    H = (np.asarray(M["HdecZ"]) != 0).astype(np.uint8)
+    prior = channel_llrs(M["channel_probsZ"])
+    rng = np.random.default_rng(2)
+    errs = (rng.random((96, H.shape[1])) < M["channel_probsZ"])
+    syn = ((errs.astype(np.int8) @ H.T) % 2).astype(np.int8)
+    g = LiftedGraph.try_from_dense(H, code.ell, code.m, prior, device="cpu")
+    bp = decode_batch_lift_plain(
+        g, torch.as_tensor(syn), torch.as_tensor(prior, dtype=torch.float32),
+        torch.as_tensor(alpha_schedule("dynamical", 12)), 12)
+    fail = ~bp["converged"]
+    k, first = M["k"], M["first_logical_rowZ"]
+    HL = (np.asarray(M["HZ_full"])[first:first + k] != 0).astype(np.int64)
+    return dict(H=H, syn=torch.as_tensor(syn)[fail],
+                vals=bp["values"][fail], hard=bp["hard"][fail],
+                lp=torch.as_tensor((HL << np.arange(k)[:, None]).sum(0)
+                                   .astype(np.int32)),
+                rank=rank_fast(H), basis=torch.as_tensor(column_basis(H)))
+
+
+def _emulate_gather_pack(index, cols, ld, K, W, span):
+    """gather_pack.cu's kernel in numpy: (B, W, m) uint32 words, gated-off
+    blocks unwritten (zero here)."""
+    colptr, rows = index.colptr.numpy(), index.rows.numpy()
+    flat = cols.reshape(-1)
+    B, m = len(cols), index.m
+    warps = GP_THREADS // 32
+    out = np.zeros((B, W, m), np.uint32)
+    lo, hi = (0, B) if span is None else span
+    for b in range(B):                      # blockIdx.y
+        if not lo <= b < hi:
+            continue                        # gated off: leaves at once
+        for w in range(W):                  # blockIdx.x
+            acc = np.zeros(m, np.uint32)    # zeroed shared words
+            for tid in range(GP_THREADS):
+                lane, warp = tid & 31, tid >> 5
+                c = 32 * w + lane
+                if c >= K:
+                    continue
+                j = flat[b * ld + c]
+                for e in range(colptr[j] + warp, colptr[j + 1], warps):
+                    acc[rows[e]] |= np.uint32(1 << lane)
+            out[b, w] = acc
+    return out
+
+
+@pytest.mark.parametrize("span", SPANS)
+def test_gather_pack_emulation_matches_plain(code72, span):
+    """The kernel's arithmetic gives _gather_pack's words on every live
+    shot, from a column-order view with a row stride (the sort indices'
+    prefix) and a partial last word; the wrapper's plain path gated the
+    same way equals it and reads zero elsewhere."""
+    _, _, M = code72
+    H = (np.asarray(M["HdecZ"]) != 0).astype(np.uint8)
+    index = osd_cuda.column_index(H)
+    n = H.shape[1]
+    rng = np.random.default_rng(4)
+    order = torch.as_tensor(np.stack([rng.permutation(n)
+                                      for _ in range(32)]))
+    K, Kp = 200, 224
+    cols = order[:, :K]
+    assert cols.stride(0) == n                       # a view: ld = n
+    got = _emulate_gather_pack(index, order.numpy(), n, K, Kp // 32, span)
+    want = osd_cuda._gather_pack(index.HT, cols, Kp, words_major=True)
+    lo, hi = (0, 32) if span is None else span
+    assert np.array_equal(got[lo:hi].view(np.int32), want[lo:hi].numpy())
+    live = None if span is None else torch.tensor(span, dtype=torch.int32)
+    plain = osd_cuda.gather_pack(index, cols, Kp, live=live)
+    assert torch.equal(plain[lo:hi], want[lo:hi])
+    off = torch.ones(32, dtype=torch.bool)
+    off[lo:hi] = False
+    assert not plain[off].any()
+    # the CSC copy holds exactly H's set bits, by column then row
+    colptr = index.colptr.numpy()
+    assert colptr[-1] == H.sum() and index.HT.shape == (n, H.shape[0])
+    j = int(order[0, 0])
+    assert np.array_equal(index.rows.numpy()[colptr[j]:colptr[j + 1]],
+                          np.nonzero(H[:, j])[0])
+
+
+@pytest.mark.parametrize("span", [(3, 29), (0, 0), (0, 40), (17, 18)])
+@pytest.mark.parametrize("plain", ["eliminate_blocks_plain",
+                                   "eliminate_blocks_fused_plain"])
+def test_gated_plain_eliminators_match_ungated(failed72, plain, span):
+    """K2's / K5's and K4's plain versions gated to [lo, hi) equal their
+    ungated call on the live shots; the others record no pivot and no
+    step."""
+    d = failed72
+    H, K = d["H"], 256
+    B, m = 40, d["H"].shape[0]
+    cols = torch.sort(d["vals"][:B].abs(), dim=1, stable=True).indices
+    Hp = osd_cuda._gather_pack(torch.as_tensor(H.T.copy()), cols[:, :K], K,
+                               words_major=True)
+    s = (d["syn"][:B].to(torch.int32)
+         ^ ((d["hard"][:B].float() @ torch.as_tensor(H.T.astype(np.float32))
+             ).to(torch.int32) & 1))
+    fn = getattr(osd_cuda, plain)
+    full = fn(Hp, s, K, m, rank=d["rank"], return_steps=True)
+    gated = fn(Hp, s, K, m, rank=d["rank"], return_steps=True,
+               live=torch.tensor(span, dtype=torch.int32))
+    lo, hi = span
+    for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
+                          gated, full):
+        assert torch.equal(x[lo:hi], y[lo:hi]), name
+    off = torch.ones(B, dtype=torch.bool)
+    off[lo:hi] = False
+    assert (gated[4][off] == -1).all() and (gated[5][off] == 0).all()
+    assert not gated[3][off].any() and (gated[2][off] == -1).all()
+    assert int(full[5].max()) > 0
+
+
+def _osd(d, n, **kw):
+    H = d["H"]
+    return osd.osd_batch(
+        torch.as_tensor(H), torch.as_tensor(H.T.astype(np.float32)),
+        d["syn"][:n], d["vals"][:n], d["hard"][:n], logical_pack=d["lp"],
+        rank=d["rank"], return_solution=False, **kw)
+
+
+def test_osd_batch_live_prefix_equals_alone(failed72):
+    """A batch decoded with n_live = 13 (staged scan, basis rerun, order-2
+    reprocess slice) gives the 13 live shots what decoding them alone
+    gives."""
+    d = failed72
+    kw = dict(K=512, order=2, num_test=12, basis_cols=d["basis"],
+              reprocess_slice=osd.REPROCESS_SLICE)
+    gated = _osd(d, 40, n_live=torch.tensor(13), **kw)
+    alone = _osd(d, 13, **kw)
+    for key in ("valid", "rank_deficient", "logical_delta_packed",
+                "reprocess_overflow"):
+        assert torch.equal(gated[key][:13], alone[key]), key
+    assert not gated["reprocess_overflow"].any()
+
+
+def test_reprocess_slice_overflow_and_replay(failed72):
+    """A narrow K without the basis leaves shots truncation-deficient: with
+    a slice of one shot the others that failed OSD-0 are flagged, and keep
+    OSD-0's answer; the replay with the whole batch as the slice equals
+    the call whose slice holds every failure."""
+    d = failed72
+    kw = dict(K=64, order=1, num_test=11)
+    forced = _osd(d, 24, reprocess_slice=1, **kw)
+    unforced = _osd(d, 24, reprocess_slice=osd.REPROCESS_SLICE, **kw)
+    replay = _osd(d, 24, reprocess_slice=None, **kw)
+    failed = forced["rank_deficient"]
+    assert int(failed.sum()) > 1
+    over = forced["reprocess_overflow"]
+    first = int(torch.nonzero(failed)[0, 0])
+    assert torch.equal(over, failed & (torch.arange(24) != first))
+    assert not unforced["reprocess_overflow"].any()
+    for key in ("valid", "rank_deficient", "logical_delta_packed",
+                "reprocess_overflow"):
+        assert torch.equal(replay[key], unforced[key]), key
+    # the shots the slice held are final; the flagged ones keep OSD-0's
+    # answer, which the order-1 search changes on some of them
+    keep = ~over
+    osd0 = _osd(d, 24, K=64, order=0, num_test=0)
+    for key in ("valid", "logical_delta_packed"):
+        assert torch.equal(forced[key][keep], unforced[key][keep]), key
+        assert torch.equal(forced[key][over], osd0[key][over]), key
+    assert not torch.equal(unforced["logical_delta_packed"][over],
+                           osd0["logical_delta_packed"][over])
+
+
+# the stopping loop: [[72]] 6 cycles, p=0.006, maxIter 12, 2 rounds of 32
+# shots a dispatch
+P, MAXITER, BATCH, ROUNDS = 0.006, 12, 32, 2
+
+
+@pytest.fixture(scope="module")
+def decoders(code72):
+    _, circ, M = code72
+    seq = alpha_schedule("dynamical", MAXITER)
+    return circ, [engine._make_basis(circ, M, b, seq, osd_order=1,
+                                     device="cpu") for b in "ZX"]
+
+
+def _loop(dispatch, gens, depth, n_streams, target, max_trials):
+    return engine._drive_stopping_rounds(
+        dispatch, mesh.gather_flags, n_streams, BATCH * ROUNDS, max_trials,
+        target, False, [f"s{i}" for i in range(n_streams)],
+        pipeline_depth=depth, generators=gens)
+
+
+def _single(circ, decs, depth, target, max_trials, seed=3):
+    fn = mesh.shard_rounds(engine.make_pooled_round_fn(
+        *decs, circ.num_error_locs, P, BATCH, MAXITER, 1, ROUNDS),
+        mesh.shot_mesh())
+    gen = torch.Generator().manual_seed(seed)
+    calls = []
+
+    def dispatch(ri, replay=False):
+        calls.append((ri, replay))
+        return [fn([gen], replay=replay)]
+
+    out = _loop(dispatch, [gen], depth, 1, target, max_trials)
+    return out, calls
+
+
+def _tallies(out):
+    return {k: out[k] for k in ("trials", "z_errs", "x_errs", "tot_errs",
+                                "rankdef", "replays")}
+
+
+@pytest.mark.parametrize("target, max_trials", [(45, 10_000), (None, 150)])
+def test_stopping_loop_depths_agree(decoders, target, max_trials):
+    """Depth 1 and depth 2 give the same tallies: a run that crosses its
+    error target inside a round, and one cut by max_trials inside a round;
+    at depth 2 one more dispatch is issued than consumed."""
+    circ, decs = decoders
+    one, calls1 = _single(circ, decs, 1, target, max_trials)
+    two, calls2 = _single(circ, decs, 2, target, max_trials)
+    assert _tallies(one) == _tallies(two)
+    if target:
+        assert one["tot_errs"] == [target]
+        assert one["trials"][0] % (BATCH * ROUNDS)  # crossed inside a round
+    else:
+        assert one["trials"] == [max_trials]
+    assert len(calls2) == len(calls1) + 1
+    assert not any(r for _, r in calls1 + calls2)
+
+
+def test_stopping_loop_two_streams(decoders):
+    """Two streams (one dispatch decodes both, each from its own
+    generator): each stops at its own crossing, and depth 2 equals depth
+    1."""
+    circ, decs = decoders
+    spec = dict(dec_z=decs[0], dec_x=decs[1], n_locs=circ.num_error_locs,
+                error_rate=P, batch=BATCH, maxIter=MAXITER, osd_order=1)
+    fn = mesh.shard_rounds(engine.make_multi_code_pooled_round_fn(
+        [spec, spec], ROUNDS), mesh.shot_mesh())
+    runs = []
+    for depth in (1, 2):
+        gens = [torch.Generator().manual_seed(s) for s in (5, 6)]
+        runs.append(_loop(lambda ri, replay=False: fn([gens], replay=replay),
+                          gens, depth, 2, 30, 10_000))
+    assert _tallies(runs[0]) == _tallies(runs[1])
+    assert runs[0]["tot_errs"] == [30, 30]
+    assert runs[0]["trials"][0] != runs[0]["trials"][1]
+
+
+def test_forced_overflow_is_replayed(decoders, monkeypatch):
+    """Decoders with a narrow K and no basis fail OSD-0 on some shots; with
+    a reprocess slice of 0 every such round overflows and is replayed with
+    whole chunks, from its saved generator state (at depth 2 while the next
+    dispatch is already issued): the tallies equal the run whose slice
+    never overflows."""
+    circ, decs = decoders
+    narrow = [dataclasses.replace(d, K=64, basis_cols=None) for d in decs]
+    monkeypatch.setattr(osd, "REPROCESS_SLICE", BATCH * ROUNDS)
+    want, _ = _single(circ, narrow, 1, 40, 10_000)
+    assert want["replays"] == 0 and want["rankdef"][0] > 0
+    monkeypatch.setattr(osd, "REPROCESS_SLICE", 0)
+    for depth in (1, 2):
+        got, calls = _single(circ, narrow, depth, 40, 10_000)
+        assert got["replays"] > 0
+        assert sum(r for _, r in calls) == got["replays"]
+        assert {k: v for k, v in _tallies(got).items() if k != "replays"} \
+            == {k: v for k, v in _tallies(want).items() if k != "replays"}
