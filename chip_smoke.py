@@ -18,10 +18,12 @@ toolkit:
 Phases: (1) device and build of all eight kernels (an eliminator, G1 or
 P1 instance that spills fails), (2) flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
-(3) GF(2) elimination kernel K2 vs its plain
-version at the stage-1, prefix and full widths, with its launch shape, its
-time per column step and the share of its layout transposes, its
-device-memory branch forced at stage 1 vs its shared-memory launch, and K2
+(3) GF(2) elimination kernel K2 on G1's column pack vs its plain
+(words-major) version at the stage-1, prefix and full widths, with and
+without the reduced matrix, with its launch shape, its time per column
+step and the share of its load and store, its device-memory branch
+(G1's output eliminated in place) forced at stage 1 vs its shared-memory
+launch, and K2
 at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
 version at stage 1, the prefix and the basis rerun's width (the prefix with
 the column basis appended), (4) main path (flooding, K1 + K2), (5) layered
@@ -89,10 +91,12 @@ the JAX package's records within 3 sigma: [[288,12,18]] p=0.005 to 200
 errors end to end (calibration, K1, K2 with its basis rerun, the stopping
 loop) and [[144,12,12]] p=0.004 with layered BP to 150 errors (K3 and
 K2), with no rank-deficient shot-basis, (22) the asynchronous round: the
-gather-pack kernel G1 (every OSD path packs its eliminator input with it)
-against its plain version at the stage-1, prefix and full widths of
-[[144,12,12]] and at [[288,12,18]]'s basis-rerun width, over whole batches
-and partial ranges, timed beside its byte bound; K2, K4 and K5 gated to a
+gather-pack kernel G1 (every OSD path packs its eliminator input with it,
+in the eliminators' column bitsets) against its plain version at the
+stage-1, prefix and full widths of [[144,12,12]] and at [[288,12,18]]'s
+basis-rerun width, over whole batches and partial ranges, gated to nothing
+(it writes nothing), alone on the card beside its byte bound, and the
+host's time a call of G1 and K2; K2, K4 and K5 gated to a
 range of shots against their ungated launch on the live shots, and a
 launch gated to nothing timed (the gate's cost); one steady pooled
 dispatch under torch.cuda.set_sync_debug_mode("error") (no host read),
@@ -202,8 +206,8 @@ def main():
         from qldpc_tpu_torch.parallel import engine, mesh
         from qldpc_tpu_torch.scripts import (bp_breakdown, device_ms,
                                              gather_bench, gather_probe,
-                                             gather_timing, multihost_smoke,
-                                             wall_ms)
+                                             gather_timing, handoff_timing,
+                                             multihost_smoke, wall_ms)
         from qldpc_tpu_torch.utils.caching import (compute_cache_key,
                                                    save_matrices)
     except ImportError as e:
@@ -353,30 +357,77 @@ def main():
     k2_err = 0.0
     names = ("Hp", "s_red", "prow_of_col", "used", "colofrow", "steps")
 
-    def k2_exact(Hp, s, Kw, m, where, **kw):
-        """K2 against its plain version on every output; returns both."""
-        a = osd_cuda.eliminate_blocks_v1(Hp, s, Kw, m, return_steps=True,
-                                         **kw)
-        torch.cuda.synchronize()
-        b = osd_cuda.eliminate_blocks_plain(Hp, s, Kw, m, return_steps=True,
-                                            count_xor_words=True, **kw)
-        for nm, x, y in zip(names, a, b):
-            if not torch.equal(x, y):
-                fail(f"phase 3: K2 {nm} differs from the plain version "
-                     f"({where}, {kw})")
+    def colsof(Hp):
+        """Words-major Hp (B, W, M) in the eliminators' column layout, by
+        the plain bit transpose (G1's plain version of the same matrix):
+        the eliminators' input where no column indices make it."""
+        return osd_cuda.words_to_columns(Hp, osd_cuda.column_stride(
+            Hp.shape[1], Hp.shape[2], dev))
+
+    def elim_exact(kname, fn_k, plain, Hp, s, Kw, m, where, src=None,
+                   count=False, **kw):
+        """Eliminator ``kname`` on fresh column input (``src()``: G1's
+        pack; by default the plain transpose of Hp), with and without the
+        reduced matrix, against its plain version on the words-major Hp,
+        every output; returns both (the plain one with its XOR count when
+        ``count``)."""
+        b = plain(Hp, s, Kw, m, return_steps=True,
+                  **(dict(count_xor_words=True) if count else {}), **kw)
+        for want_matrix in (True, False):
+            x = src() if src is not None else colsof(Hp)
+            got = fn_k(x, s, Kw, m, return_steps=True,
+                       want_matrix=want_matrix, **kw)
+            torch.cuda.synchronize()
+            if not want_matrix and got[0] is not None:
+                fail(f"{where}: {kname} wrote a matrix without want_matrix")
+            for nm, g, y in zip(names, got, b):
+                if (want_matrix or nm != "Hp") and not torch.equal(g, y):
+                    fail(f"{where}: {kname} {nm} differs from its plain "
+                         f"version (want_matrix={want_matrix}, {kw})")
+            if want_matrix:
+                a = got
         return a, b
+
+    def k2_exact(Hp, s, Kw, m, where, src=None, **kw):
+        """K2 against its plain version on every output; returns both."""
+        return elim_exact("K2", osd_cuda.eliminate_blocks_v1,
+                          osd_cuda.eliminate_blocks_plain, Hp, s, Kw, m,
+                          where if where.startswith("phase")
+                          else f"phase 3: {where}", src, count=True, **kw)
+
+    def launch_ms(launch, x, src, reps: int) -> float:
+        """A prepared launch's ms by CUDA events; one that consumes its
+        input x gets it back from ``src`` before each launch, the copies'
+        time taken away."""
+        if not launch.consumes_input:
+            return cuda_ms(launch, reps)
+        return (cuda_ms(lambda: (x.copy_(src), launch()), reps)
+                - cuda_ms(lambda: x.copy_(src), reps))
+
+    def wrapper_ms(fn_k, hc, s, Kw, m, kname="K2", **kw) -> float:
+        """ms a wrapper call on G1's output hc; where the kernel consumes
+        its input (device memory) each call takes a copy, the copies' time
+        taken away."""
+        if not osd_cuda.elim_sizes(hc.shape[1] // 32, s.shape[1],
+                                   kname)["device_memory"]:
+            return cuda_ms(lambda: fn_k(hc, s, Kw, m, **kw), 5)
+        return (cuda_ms(lambda: fn_k(hc.clone(), s, Kw, m, **kw), 5)
+                - cuda_ms(hc.clone, 5))
 
     def elim_shape(Hp, s, Kw, m, steps, kernel="K2", **kw):
         """An eliminator's (K2 by default) launch shape and kernel-only
-        times: the whole launch, the layout in and out alone (the same
-        launch with no column), and per column step of the longest shot."""
+        times on words-major Hp's column layout: the whole launch, the
+        load and store alone (the same launch with no column), and per
+        column step of the longest shot."""
         info = osd_cuda.elim_launch_info(*Hp.shape, dev, kernel)
-        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, Kw, m, kernel=kernel,
-                                                 **kw)
-        kernel_ms = cuda_ms(launch, 5)
-        launch, _ = osd_cuda.prepare_elim_launch(Hp, s, 0, m, kernel=kernel,
-                                                 **kw)
-        layout_ms = cuda_ms(launch, 5)
+        src = colsof(Hp)
+        times = []
+        for k in (Kw, 0):
+            x = src.clone()
+            launch, _ = osd_cuda.prepare_elim_launch(x, s, k, m,
+                                                     kernel=kernel, **kw)
+            times.append(launch_ms(launch, x, src, 5))
+        kernel_ms, layout_ms = times
         info.update(kernel_ms=kernel_ms, layout_ms=layout_ms,
                     us_per_step=kernel_ms * 1e3 / max(int(steps.max()), 1))
         return info
@@ -391,20 +442,55 @@ def main():
                 f"block, {info['smem_bytes']} bytes of shared memory a block, "
                 f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks "
                 f"({info['shots_per_sm']} shots) per SM; kernel "
-                f"{info['kernel_ms']:.4f} ms, layout in and out "
+                f"{info['kernel_ms']:.4f} ms, load and store "
                 f"{info['layout_ms']:.4f} ms (share "
                 f"{info['layout_ms'] / info['kernel_ms']:.3f}), "
                 f"{info['us_per_step']:.3f} us per step of the longest shot")
 
+    def g1_fed_ms(kname, src, s, Kw, m, **kw) -> dict:
+        """The eliminator alone on G1's output ``src()``, with and without
+        the reduced matrix (CUDA graphs)."""
+        res = {}
+        hc = src()
+        for want in (True, False):
+            x = hc.clone()
+            launch, _ = osd_cuda.prepare_elim_launch(
+                x, s, Kw, m, kernel=kname, want_matrix=want, **kw)
+            res["matrix" if want else "no matrix"] = \
+                handoff_timing.alone_ms(
+                    launch, 10, dev, (lambda: x.copy_(hc))
+                    if launch.consumes_input else None)
+        return res
+
+    def fed_line(r: dict) -> str:
+        return ", ".join(f"{k} {v:.4f}" for k, v in r.items()) + " ms"
+
+    # G1's pack of each width (the OSD's hand-off), for K2 here and K4 and
+    # K5 in phase 6: a fresh output a call, which a device-memory launch
+    # consumes
+    cols_full = torch.cat([cols, dec.basis_cols[None].expand(
+        len(cols), len(dec.basis_cols))], 1)
+    g1_widths = {"stage1": (cols[:, :256], 256, widths["stage1"][0]),
+                 "prefix": (cols, K, widths["prefix"][0]),
+                 "full": (cols_full, -(-cols_full.shape[1] // 32) * 32,
+                          widths["full"][0])}
+
+    def g1_pack(index, cl, Kx):
+        return lambda: osd_cuda.gather_pack(index, cl, Kx)
+
+    g1_src = {w: g1_pack(dec.col_index, cl, Kx)
+              for w, (cl, Kx, _) in g1_widths.items()}
+
     for width, (Hp, Kw) in widths.items():
         for exit_on_valid in (False, True):
-            a, b = k2_exact(Hp, residual, Kw, m, width, rank=dec.rank,
-                            exit_on_valid=exit_on_valid)
+            a, b = k2_exact(Hp, residual, Kw, m, width, g1_src[width],
+                            rank=dec.rank, exit_on_valid=exit_on_valid)
             xor_words = int(b[6].sum())  # data-dependent work of the run
             k2_err = max(k2_err, max(float((x.long() - y.long()).abs().max())
                                      for x, y in zip(a, b)))
-        ms = cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(Hp, residual, Kw,
-                                                          m, rank=dec.rank), 5)
+        hc = g1_src[width]()
+        ms = wrapper_ms(osd_cuda.eliminate_blocks_v1, hc, residual, Kw, m,
+                        rank=dec.rank)
         steps = a[5]
         k2_bytes = 2 * nbytes(Hp, residual) + nbytes(a[4], steps)
         scan_ops = K2_OPS_PER_ROW_STEP * m * int(steps.long().sum())
@@ -416,43 +502,54 @@ def main():
                          mean_steps=float(steps.float().mean()),
                          max_steps=int(steps.max()),
                          shape=elim_shape(Hp, residual, Kw, m, steps,
-                                        rank=dec.rank))
+                                        rank=dec.rank),
+                         alone=g1_fed_ms("K2", g1_src[width], residual, Kw,
+                                         m, rank=dec.rank))
         print(f"phase 3: K2 {width} ({Hp.shape[1]} words, {len(Hp)} shots):"
-              f" exact with and without the validity exit; {ms:.3f} ms "
-              f"through the wrapper (bound {kb:.4f} ms by {bb}: row scans "
-              f"{scan_ops} ops + {xor_words} word XORs; scan alone "
-              f"{scan_kb:.4f} ms); steps mean {k2[width]['mean_steps']:.1f} "
-              f"max {k2[width]['max_steps']}; "
-              + shape_line(k2[width]["shape"]), flush=True)
+              f" on G1's pack, exact with and without the validity exit and "
+              f"the reduced matrix; {ms:.3f} ms through the wrapper (bound "
+              f"{kb:.4f} ms by {bb}: row scans {scan_ops} ops + {xor_words} "
+              f"word XORs; scan alone {scan_kb:.4f} ms); steps mean "
+              f"{k2[width]['mean_steps']:.1f} max {k2[width]['max_steps']}; "
+              + shape_line(k2[width]["shape"]) + "; alone on G1's output: "
+              + fed_line(k2[width]["alone"]), flush=True)
+    del hc
     Hp, Kw = widths["stage1"]
     k2["stage1"]["plain_ms"] = cuda_ms(
         lambda: osd_cuda.eliminate_blocks_plain(Hp, residual, Kw, m,
                                                 rank=dec.rank), 1)
     k2_exact(widths["full"][0], residual, widths["full"][1], m, "full",
-             rank=dec.rank, full_jordan=True)
+             g1_src["full"], rank=dec.rank, full_jordan=True)
     print(f"phase 3: K2 full_jordan at full width exact; stage-1 plain "
           f"{k2['stage1']['plain_ms']:.1f} ms", flush=True)
 
     # the device-memory branch (the one wider matrices take), forced at
-    # stage-1 width: bit-identical to the shared-memory launch
-    ref = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
-                                       return_steps=True)
+    # stage-1 width: bit-identical to the shared-memory launch, on G1's
+    # output eliminated in place
+    ref = osd_cuda.eliminate_blocks_v1(g1_src["stage1"](), residual, Kw, m,
+                                       rank=dec.rank, return_steps=True)
     saved_limit = osd_cuda._SMEM_LIMIT
     osd_cuda._SMEM_LIMIT = 0
     try:
-        a = osd_cuda.eliminate_blocks_v1(Hp, residual, Kw, m, rank=dec.rank,
-                                         return_steps=True)
+        a = osd_cuda.eliminate_blocks_v1(g1_src["stage1"](), residual, Kw,
+                                         m, rank=dec.rank, return_steps=True)
         torch.cuda.synchronize()
         for nm, x, y in zip(names, a, ref):
             if not torch.equal(x, y):
                 fail(f"phase 3: K2's device-memory branch {nm} differs from "
                      "its shared-memory launch (stage1)")
+        k2_exact(Hp, residual, Kw, m, "stage1, device memory",
+                 g1_src["stage1"], rank=dec.rank)
         dm = elim_shape(Hp, residual, Kw, m, a[5], rank=dec.rank)
+        dm_alone = g1_fed_ms("K2", g1_src["stage1"], residual, Kw, m,
+                             rank=dec.rank)
     finally:
         osd_cuda._SMEM_LIMIT = saved_limit
-    print(f"phase 3: K2 device-memory branch forced at stage1: every output "
-          f"identical to the shared-memory launch; " + shape_line(dm),
-          flush=True)
+    k2["stage1_device_memory_alone"] = dm_alone
+    print(f"phase 3: K2 device-memory branch forced at stage1 (G1's output "
+          f"eliminated in place): every output identical to the "
+          f"shared-memory launch and the plain version; " + shape_line(dm)
+          + "; alone: " + fed_line(dm_alone), flush=True)
 
     # K2 at [[288,12,18]], B=37: 2880 rows, three row words a lane, every
     # width on the device-memory branch, a regime [[144]] does not reach.
@@ -479,20 +576,22 @@ def main():
     cols288 = torch.sort(llr288.abs(), dim=1, stable=True).indices
     HT288 = torch.as_tensor(H288.T.copy(), device=dev)
     res288 = syn288.to(torch.int32)
+    index288 = osd_cuda.column_index(H288, dev)
     w288 = {}  # phase 6 runs K4 and K5 on the same inputs
     for width, Kw in (("stage1", 768), ("prefix", K288)):
         Hp = osd._gather_pack(HT288, cols288[:, :Kw], Kw, words_major=True)
-        w288[width] = (Hp, Kw)
+        w288[width] = (Hp, Kw, g1_pack(index288, cols288[:, :Kw], Kw))
         for exit_on_valid in (False, True):
             a, _ = k2_exact(Hp, res288, Kw, m288, f"{CODE_288} {width}",
-                            exit_on_valid=exit_on_valid)
+                            w288[width][2], exit_on_valid=exit_on_valid)
         info = elim_shape(Hp, res288, Kw, m288, a[5])
         if info["columns_in"] != "device memory" or \
                 info["words_per_lane"] != 3:
             fail(f"phase 3: K2 at {CODE_288} {width} took another branch: "
                  f"{info}")
         print(f"phase 3: K2 at {CODE_288} {width} ({Hp.shape[1]} words, "
-              f"B={BATCH_288}): exact with and without the validity exit; "
+              f"B={BATCH_288}): on G1's pack, in place in device memory, "
+              f"exact with and without the validity exit; "
               f"steps mean {float(a[5].float().mean()):.1f} max "
               f"{int(a[5].max())}; " + shape_line(info), flush=True)
     # the basis rerun's width: the prefix with the column basis appended,
@@ -508,12 +607,19 @@ def main():
     Hp = torch.cat([w288["prefix"][0],
                     HbT288[None].expand(BATCH_288, *HbT288.shape)], 1)
     Kw = K288 + R288
+    cols288E = torch.cat([cols288[:, :K288], torch.as_tensor(
+        basis288, device=dev)[None].expand(BATCH_288, R288)], 1)
+    Kx288 = -(-Kw // 32) * 32
+    w288["basis rerun"] = (Hp, Kw, g1_pack(index288, cols288E, Kx288))
     for exit_on_valid in (False, True):
         a, b = k2_exact(Hp, res288, Kw, m288, f"{CODE_288} basis rerun",
-                        rank=rank288, exit_on_valid=exit_on_valid)
+                        w288["basis rerun"][2], rank=rank288,
+                        exit_on_valid=exit_on_valid)
         err288 = max(float((x.long() - y.long()).abs().max())
                      for x, y in zip(a, b))
         k2_err = max(k2_err, err288)
+    k2["basis_rerun_288_alone"] = g1_fed_ms(
+        "K2", w288["basis rerun"][2], res288, Kw, m288, rank=rank288)
     info = elim_shape(Hp, res288, Kw, m288, a[5], rank=rank288)
     if info["columns_in"] != "device memory" or info["words_per_lane"] != 3:
         fail(f"phase 3: K2 at {CODE_288} basis rerun took another branch: "
@@ -524,6 +630,8 @@ def main():
           f"exit (max abs error {err288:g}); steps mean "
           f"{float(a[5].float().mean()):.1f} max {int(a[5].max())}; "
           + shape_line(info), flush=True)
+    print(f"phase 3: K2 at {CODE_288} basis rerun alone on G1's output: "
+          + fed_line(k2["basis_rerun_288_alone"]), flush=True)
     del HT288, Hb288, HbT288, Hp
     print(f"phase 3: {CODE_288} matrices built in {build288_s:.1f} s",
           flush=True)
@@ -542,6 +650,12 @@ def main():
     dispatch_s = time.time() - t0
     per_dispatch = counts()
 
+    def eliminate_plain_from_columns(Hp, s, K, m, want_matrix=True, **kw):
+        """K2's plain version on column input, as the OSD hands it over."""
+        out = osd_cuda.eliminate_blocks_plain(
+            osd_cuda.columns_to_words(Hp, s.shape[1]), s, K, m, **kw)
+        return out if want_matrix else (None,) + out[1:]
+
     @contextlib.contextmanager
     def plain_versions():
         saved = (engine.decode_batch_lift_cuda,
@@ -550,7 +664,7 @@ def main():
         engine.decode_batch_lift_cuda = bp_lift_cuda.decode_batch_lift_plain
         engine.decode_batch_lift_layered_cuda = \
             bp_lift_layered_cuda.decode_batch_lift_layered_plain
-        osd.eliminate_blocks = osd_cuda.eliminate_blocks_plain
+        osd.eliminate_blocks = eliminate_plain_from_columns
         osd.gather_pack = osd_cuda.gather_pack_plain
         try:
             yield
@@ -746,16 +860,12 @@ def main():
             ("k5", "K5", osd_cuda.eliminate_blocks_pair,
              osd_cuda.eliminate_blocks_plain))
 
-    def alt_exact(key, fn_k, plain, Hp, s, Kw, m, where, **kw):
-        """K4 or K5 against its plain version on every output."""
-        a = fn_k(Hp, s, Kw, m, return_steps=True, **kw)
-        torch.cuda.synchronize()
-        b = plain(Hp, s, Kw, m, return_steps=True, **kw)
-        for nm, x, y in zip(names, a, b):
-            if not torch.equal(x, y):
-                fail(f"phase 6: {key.upper()} {nm} differs from its plain "
-                     f"version ({where}, {kw})")
-        return a, b
+    def alt_exact(key, fn_k, plain, Hp, s, Kw, m, where, src=None, **kw):
+        """K4 or K5 on G1's pack ``src()`` (by default Hp's plain
+        transpose), with and without the reduced matrix, against its plain
+        version on every output."""
+        return elim_exact(key.upper(), fn_k, plain, Hp, s, Kw, m,
+                          f"phase 6: {where}", src, **kw)
 
     k45 = dict(k4={}, k5={})
     k45_err = dict(k4=0.0, k5=0.0)
@@ -764,9 +874,9 @@ def main():
             kw = dict(rank=dec.rank, exit_on_valid=exit_on_valid)
             where = f"{width}, exit_on_valid={exit_on_valid}"
             a4, p4 = alt_exact("k4", *alts[0][2:], Hp, residual, Kw, m,
-                               where, **kw)
+                               where, g1_src[width], **kw)
             a5, p2 = alt_exact("k5", *alts[1][2:], Hp, residual, Kw, m,
-                               where, **kw)
+                               where, g1_src[width], **kw)
             if exit_on_valid:  # K4 may stop up to 3 columns after K2
                 for nm, x, y in (("s_red", a4[1], p2[1]),
                                  ("OSD-0 bits", osd0_bits(a4), osd0_bits(p2)),
@@ -783,19 +893,24 @@ def main():
             k45_err["k5"] = max(k45_err["k5"], max_diff(a5, p2))
         # timed as the main path calls it (validity exit on); both do K2's
         # work, so the bound is K2's at this width
-        for (key, kname, fn_k, _), out in zip(alts, (a4, a5)):
-            ms = cuda_ms(lambda: fn_k(Hp, residual, Kw, m, rank=dec.rank), 5)
+        hc = g1_src[width]()
+        for (key, kname, fn_k, plain), out in zip(alts, (a4, a5)):
+            ms = wrapper_ms(fn_k, hc, residual, Kw, m, kname, rank=dec.rank)
             k45[key][width] = dict(
                 ms=ms, bound_ms=k2[width]["bound_ms"],
                 bound_by=k2[width]["bound_by"],
                 mean_steps=float(out[5].float().mean()),
                 max_steps=int(out[5].max()),
                 shape=elim_shape(Hp, residual, Kw, m, out[5], kname,
-                               rank=dec.rank))
+                               rank=dec.rank),
+                alone=g1_fed_ms(kname, g1_src[width], residual, Kw, m,
+                                rank=dec.rank))
+        del hc
         r4, r5, r2 = k45["k4"][width], k45["k5"][width], k2[width]
-        print(f"phase 6: {width} ({Hp.shape[1]} words): K4 and K5 exact "
-              f"against their plain versions and K2's, with and without the "
-              f"validity exit; through the wrapper K4 {r4['ms']:.3f} ms, K5 "
+        print(f"phase 6: {width} ({Hp.shape[1]} words): K4 and K5 on G1's "
+              f"pack exact against their plain versions and K2's, with and "
+              f"without the validity exit and the reduced matrix; through "
+              f"the wrapper K4 {r4['ms']:.3f} ms, K5 "
               f"{r5['ms']:.3f} ms, K2 {r2['ms']:.3f} ms; kernel alone K4 "
               f"{r4['shape']['kernel_ms']:.4f}, K5 "
               f"{r5['shape']['kernel_ms']:.4f}, K2 "
@@ -811,11 +926,13 @@ def main():
               f"{r2['max_steps']}", flush=True)
         for key, _, _, _ in alts:
             print(f"phase 6:   {key.upper()} {width}: "
-                  + shape_line(k45[key][width]["shape"]), flush=True)
+                  + shape_line(k45[key][width]["shape"])
+                  + "; alone on G1's output: "
+                  + fed_line(k45[key][width]["alone"]), flush=True)
     Hp, Kw = widths["full"]
-    for key, _, fn_k, plain in alts:
+    for key, kname, fn_k, plain in alts:
         alt_exact(key, fn_k, plain, Hp, residual, Kw, m, "full",
-                  rank=dec.rank, full_jordan=True)
+                  g1_src["full"], rank=dec.rank, full_jordan=True)
     Hp, Kw = widths["stage1"]
     k45["k4"]["stage1"]["plain_ms"] = cuda_ms(
         lambda: osd_cuda.eliminate_blocks_fused_plain(Hp, residual, Kw, m,
@@ -836,7 +953,8 @@ def main():
                 **{kname: fn_k for _, kname, fn_k, _ in alts})
     for kname, nshots in (("K2", 37), ("K4", 37), ("K5", 74)):
         h, r = Hp[:nshots], residual[:nshots]
-        steps = wrap[kname](h, r, Kw, m, rank=dec.rank, return_steps=True)[5]
+        steps = wrap[kname](colsof(h), r, Kw, m, rank=dec.rank,
+                            return_steps=True)[5]
         sh = elim_shape(h, r, Kw, m, steps, kname, rank=dec.rank)
         chain[kname] = dict(sh, chain_us_per_step=(
             sh["kernel_ms"] - sh["layout_ms"]) * 1e3 / max(int(steps.max()),
@@ -853,43 +971,62 @@ def main():
     k45["chain"] = chain
 
     # the device-memory branch forced at stage-1 width: bit-identical to the
-    # shared-memory launch
-    for key, kname, fn_k, _ in alts:
+    # shared-memory launch, on G1's output eliminated in place
+    for key, kname, fn_k, plain in alts:
         kw = dict(rank=dec.rank, return_steps=True)
-        ref = fn_k(Hp, residual, Kw, m, **kw)
+        ref = fn_k(g1_src["stage1"](), residual, Kw, m, **kw)
         saved_limit = osd_cuda._SMEM_LIMIT
         osd_cuda._SMEM_LIMIT = 0
         try:
-            a = fn_k(Hp, residual, Kw, m, **kw)
+            a = fn_k(g1_src["stage1"](), residual, Kw, m, **kw)
             torch.cuda.synchronize()
             for nm, x, y in zip(names, a, ref):
                 if not torch.equal(x, y):
                     fail(f"phase 6: {kname}'s device-memory branch {nm} "
                          "differs from its shared-memory launch (stage1)")
+            alt_exact(key, fn_k, plain, Hp, residual, Kw, m,
+                      "stage1, device memory", g1_src["stage1"],
+                      rank=dec.rank)
             dm = elim_shape(Hp, residual, Kw, m, a[5], kname, rank=dec.rank)
+            dm_alone = g1_fed_ms(kname, g1_src["stage1"], residual, Kw, m,
+                                 rank=dec.rank)
         finally:
             osd_cuda._SMEM_LIMIT = saved_limit
-        k45[key]["stage1_device_memory"] = dm
-        print(f"phase 6: {kname} device-memory branch forced at stage1: "
-              f"every output identical to the shared-memory launch; "
-              + shape_line(dm), flush=True)
+        k45[key]["stage1_device_memory"] = dict(dm, alone=dm_alone)
+        print(f"phase 6: {kname} device-memory branch forced at stage1 "
+              f"(G1's output eliminated in place): every output identical "
+              f"to the shared-memory launch and the plain version; "
+              + shape_line(dm) + "; alone: " + fed_line(dm_alone),
+              flush=True)
 
     # K4 and K5 at [[288,12,18]], B=37 (phase 3's inputs): three row words
-    # a lane, device memory
-    for width, (Hp, Kw) in w288.items():
+    # a lane, device memory (G1's pack eliminated in place)
+    for width, (Hp, Kw, src) in w288.items():
+        rerun = width == "basis rerun"
+        kw = dict(rank=rank288) if rerun else {}
         for key, kname, fn_k, plain in alts:
-            for exit_on_valid in (False, True):
+            for exit_on_valid in (True,) if rerun else (False, True):
                 a, _ = alt_exact(key, fn_k, plain, Hp, res288, Kw, m288,
-                                 f"{CODE_288} {width}",
-                                 exit_on_valid=exit_on_valid)
+                                 f"{CODE_288} {width}", src,
+                                 exit_on_valid=exit_on_valid, **kw)
+            if rerun:
+                k45[key]["basis_rerun_288_alone"] = g1_fed_ms(
+                    kname, src, res288, Kw, m288, **kw)
+                print(f"phase 6: {kname} at {CODE_288} basis rerun "
+                      f"({Hp.shape[1]} words, B={BATCH_288}) on G1's pack: "
+                      f"exact; alone: "
+                      + fed_line(k45[key]["basis_rerun_288_alone"]),
+                      flush=True)
+                continue
             info = elim_shape(Hp, res288, Kw, m288, a[5], kname)
             if info["columns_in"] != "device memory" or \
                     info["words_per_lane"] != 3:
                 fail(f"phase 6: {kname} at {CODE_288} {width} took another "
                      f"branch: {info}")
             print(f"phase 6: {kname} at {CODE_288} {width} ({Hp.shape[1]} "
-                  f"words, B={BATCH_288}): exact with and without the validity"
-                  f" exit; steps mean {float(a[5].float().mean()):.1f} max "
+                  f"words, B={BATCH_288}): on G1's pack exact with and "
+                  f"without the validity exit; steps mean "
+                  f"{float(a[5].float().mean()):.1f} max "
                   f"{int(a[5].max())}; " + shape_line(info), flush=True)
     del w288
 
@@ -1535,8 +1672,8 @@ def main():
                     K2_OPS_PER_ROW_STEP * m_c * int(ka[5].long().sum())
                     + K2_OPS_PER_XOR_WORD * int(kp[6].sum()))
                 r[f"k2_{width}"] = dict(
-                    ms=cuda_ms(lambda: osd_cuda.eliminate_blocks_v1(
-                        Hp, res_c, Kw, m_c, rank=d.rank), 5),
+                    ms=wrapper_ms(osd_cuda.eliminate_blocks_v1, colsof(Hp),
+                                  res_c, Kw, m_c, rank=d.rank),
                     words=Hp.shape[1], shots=len(Hp), bound_ms=k2b,
                     bound_by=k2by, max_steps=int(ka[5].max()))
             Hp, Kw = widths_c["stage1"]
@@ -1989,16 +2126,14 @@ def main():
     t22 = time.time()
     dec0 = decs[0]  # phase 3's inputs are its Z-basis failed shots
     m0, K0 = dec0.H.shape[0], dec0.K
-    cols_full = torch.cat([cols, dec0.basis_cols[None].expand(
-        len(cols), len(dec0.basis_cols))], 1)
-    KT0 = cols_full.shape[1]
     deg = (dec0.col_index.colptr[1:] - dec0.col_index.colptr[:-1]).long()
     g1 = {}
     g1_err = 0.0
+    empty = torch.zeros(2, dtype=torch.int32, device=dev)
 
     def g1_case(index, cl, Kx, want, span, where):
-        """G1 on ``cl`` (B, K <= Kx) against ``want`` on the live shots;
-        returns the max abs error (0 or fail)."""
+        """G1 on ``cl`` (B, K <= Kx) against its plain version ``want`` on
+        the live shots; returns the max abs error (0 or fail)."""
         live = None if span is None else torch.tensor(
             span, dtype=torch.int32, device=dev)
         got = osd_cuda.gather_pack(index, cl, Kx, live=live)
@@ -2006,55 +2141,89 @@ def main():
         lo, hi = (0, len(cl)) if span is None else span
         if got.shape != want.shape or not torch.equal(got[lo:hi],
                                                       want[lo:hi]):
-            fail(f"phase 22: G1 differs from _gather_pack ({where}, shots "
-                 f"[{lo}, {hi}))")
+            fail(f"phase 22: G1 differs from its plain version ({where}, "
+                 f"shots [{lo}, {hi}))")
         return float((got[lo:hi].long() - want[lo:hi].long()).abs().max()) \
             if hi > lo else 0.0
 
-    g1_widths = {"stage1": (cols[:, :256], 256, widths["stage1"][0]),
-                 "prefix": (cols, K0, widths["prefix"][0]),
-                 "full": (cols_full, -(-KT0 // 32) * 32, widths["full"][0])}
-    for width, (cl, Kx, want) in g1_widths.items():
+    def g1_writes_nothing(index, cl, Kx, where):
+        """G1 gated to nothing leaves its output as it was."""
+        launch, out = osd_cuda.prepare_gather_pack(index, cl, Kx, empty)
+        out.fill_(-1)
+        launch()
+        torch.cuda.synchronize()
+        if not bool((out == -1).all()):
+            fail(f"phase 22: G1 gated to nothing wrote ({where})")
+
+    def g1_alone(index, cl, Kx, live=None) -> float:
+        """G1 alone (a prepared launch, CUDA graph)."""
+        return handoff_timing.alone_ms(
+            osd_cuda.prepare_gather_pack(index, cl, Kx, live)[0], 20, dev)
+
+    for width, (cl, Kx, want_w) in g1_widths.items():
+        want = osd_cuda.gather_pack_plain(dec0.col_index, cl, Kx)
+        S0 = want.shape[2]
+        if not torch.equal(osd_cuda.columns_to_words(want, m0), want_w):
+            fail(f"phase 22: G1's plain version is not _gather_pack's "
+                 f"words transposed ({CODE} {width})")
         for span in (None, (37, 300)):
             g1_err = max(g1_err, g1_case(dec0.col_index, cl, Kx, want, span,
                                          f"{CODE} {width}"))
         B0, W0 = len(cl), Kx // 32
         ms = cuda_ms(lambda: osd_cuda.gather_pack(dec0.col_index, cl, Kx),
                      20)
-        plain_ms = cuda_ms(lambda: osd._gather_pack(
+        plain_ms = cuda_ms(lambda: osd_cuda.gather_pack_plain(
+            dec0.col_index, cl, Kx), 3)
+        words_plain_ms = cuda_ms(lambda: osd._gather_pack(
             dec0.col_index.HT, cl, Kx, words_major=True), 3)
-        # bytes: the words written, the column indices and each gathered
-        # column's rows and offsets read once (this run's columns)
-        g1_bytes = (B0 * W0 * m0 * 4 + cl.numel() * 8
-                    + int(deg[cl].sum()) * 4 + cl.numel() * 8)
-        kb, bb = bound(g1_bytes, int(deg[cl].sum()) + B0 * W0 * m0)
-        g1[width] = dict(ms=ms, plain_ms=plain_ms, bound_ms=kb, bound_by=bb,
-                         words=W0, shots=B0)
+        alone = g1_alone(dec0.col_index, cl, Kx)
+        nb = handoff_timing.g1_bytes(dec0.col_index, cl, Kx, S0)
+        kb, bb = bound(nb, int(deg[cl].sum()))
+        g1[width] = dict(ms=ms, plain_ms=plain_ms,
+                         words_plain_ms=words_plain_ms, kernel_ms=alone,
+                         bound_ms=kb, bound_by=bb, bytes=nb, words=W0,
+                         shots=B0)
         print(f"phase 22: G1 {width} ({W0} words by {m0} rows, {B0} shots):"
-              f" equals _gather_pack on the whole batch and on shots "
-              f"[37, 300); {ms:.4f} ms (bound {kb:.4f} ms by {bb}: "
-              f"{g1_bytes} bytes), plain {plain_ms:.3f} ms", flush=True)
+              f" equals its plain version on the whole batch and on shots "
+              f"[37, 300); alone {alone:.4f} ms (bound {kb:.4f} ms by {bb}:"
+              f" {nb} bytes, S = {S0}); through the wrapper {ms:.4f} ms; "
+              f"plain {plain_ms:.3f} ms (_gather_pack's words alone "
+              f"{words_plain_ms:.3f} ms)", flush=True)
+    g1_writes_nothing(dec0.col_index, *g1_widths["full"][:2], CODE)
+    g1_empty = g1_alone(dec0.col_index, *g1_widths["full"][:2], empty)
     # [[288,12,18]]: the basis rerun's width (prefix + column basis), B=37
-    index288 = osd_cuda.column_index(H288, dev)
-    cols288E = torch.cat([cols288[:, :K288], torch.as_tensor(
-        basis288, device=dev)[None].expand(BATCH_288, len(basis288))], 1)
-    Kx288 = -(-cols288E.shape[1] // 32) * 32
-    want288 = osd._gather_pack(index288.HT, cols288E, Kx288,
-                               words_major=True)
+    want288 = osd_cuda.gather_pack_plain(index288, cols288E, Kx288)
     for span in (None, (5, 30)):
         g1_err = max(g1_err, g1_case(index288, cols288E, Kx288, want288,
                                      span, f"{CODE_288} basis rerun"))
-    ms288 = cuda_ms(lambda: osd_cuda.gather_pack(index288, cols288E, Kx288),
-                    10)
-    empty = torch.zeros(2, dtype=torch.int32, device=dev)
-    g1_empty_ms = cuda_ms(lambda: osd_cuda.gather_pack(
-        dec0.col_index, cols_full, g1_widths["full"][1], live=empty), 20)
+    g1_writes_nothing(index288, cols288E, Kx288, CODE_288)
+    g1_288 = g1_alone(index288, cols288E, Kx288)
+    kb288, _ = bound(handoff_timing.g1_bytes(index288, cols288E, Kx288,
+                                             want288.shape[2]), 0)
     print(f"phase 22: G1 at {CODE_288} basis rerun ({Kx288 // 32} words by "
-          f"{m288} rows, B={BATCH_288}): equals _gather_pack on the whole "
-          f"batch and on shots [5, 30); {ms288:.4f} ms; G1 gated to "
-          f"nothing at {CODE}'s full width {g1_empty_ms:.4f} ms",
-          flush=True)
+          f"{m288} rows, B={BATCH_288}): equals its plain version on the "
+          f"whole batch and on shots [5, 30); alone {g1_288:.4f} ms (bound "
+          f"{kb288:.4f}); gated to nothing (writes nothing) at {CODE}'s full "
+          f"width {g1_empty:.4f} ms", flush=True)
     del index288, cols288E, want288
+
+    # the host's time a call: unsynchronised wrapper calls gated to nothing
+    # (the host work of a call is the same whatever the gate), G1 and K2
+    # as the OSD calls them
+    cl1, Kx1, _ = g1_widths["stage1"]
+    hc1 = g1_src["stage1"]()
+    host_calls = {
+        "G1": lambda: osd_cuda.gather_pack(dec0.col_index, cl1, Kx1,
+                                           live=empty),
+        "K2": lambda: osd_cuda.eliminate_blocks_v1(
+            hc1, residual, 256, m0, rank=dec0.rank, live=empty,
+            want_matrix=False)}
+    host_ms = {name: handoff_timing.host_ms(call, 1000)
+               for name, call in host_calls.items()}
+    print("phase 22: host ms a call (1000 unsynchronised wrapper calls, "
+          "gated to nothing): " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in host_ms.items()),
+          flush=True)
 
     # the eliminators gated to a range against their ungated launch on the
     # live shots (K5's pairs split at both ends), and gated to nothing
@@ -2064,9 +2233,9 @@ def main():
     for key, kname, fn_k in (("k2", "K2", osd_cuda.eliminate_blocks_v1),
                              ("k4", "K4", osd_cuda.eliminate_blocks_fused),
                              ("k5", "K5", osd_cuda.eliminate_blocks_pair)):
-        full = fn_k(Hp_pre, residual, K_pre, m0, rank=dec0.rank,
+        full = fn_k(g1_src["prefix"](), residual, K_pre, m0, rank=dec0.rank,
                     return_steps=True)
-        gated = fn_k(Hp_pre, residual, K_pre, m0, rank=dec0.rank,
+        gated = fn_k(g1_src["prefix"](), residual, K_pre, m0, rank=dec0.rank,
                      return_steps=True, live=span_t)
         torch.cuda.synchronize()
         for nm, x, y in zip(names, gated, full):
@@ -2078,11 +2247,10 @@ def main():
                  f"a step")
         gate_ms[key] = {}
         for width in ("prefix", "full"):
-            Hp_w, K_w = widths[width]
             launch, _ = osd_cuda.prepare_elim_launch(
-                Hp_w, residual, K_w, m0, rank=dec0.rank, kernel=kname,
-                live=empty)
-            gate_ms[key][width] = cuda_ms(launch, 20)
+                g1_src[width](), residual, widths[width][1], m0,
+                rank=dec0.rank, kernel=kname, live=empty)
+            gate_ms[key][width] = cuda_ms(launch, 20)  # nothing consumed
         ungated = (k2 if key == "k2" else k45[key])["prefix"]["ms"]
         print(f"phase 22: {kname} gated to shots [37, 300) of {len(Hp_pre)}"
               f" equals its ungated launch there (prefix, {Hp_pre.shape[1]} "
@@ -2181,6 +2349,8 @@ def main():
              code_capacity_launches=c18["k2"],
              validate_ler_launches=sum(c["k2"] for c in launches_sw.values()),
              empty_range_ms=gate_ms["k2"],
+             kernel_ms_on_g1={w: k2[w]["alone"] for w in widths},
+             kernel_ms_on_g1_288_basis_rerun=k2["basis_rerun_288_alone"],
              at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
                                            bound_ms=r[f"k2_{w}"]["bound_ms"])
                                    for w in ("stage1", "prefix", "full")}
@@ -2209,19 +2379,25 @@ def main():
             bound_by=st["bound_by"], library_ms=None,
             ms_by_width={w: k45[key][w]["ms"] for w in widths},
             bound_ms_by_width={w: k2[w]["bound_ms"] for w in widths},
-            empty_range_ms=gate_ms[key]))
+            empty_range_ms=gate_ms[key],
+            kernel_ms_on_g1={w: k45[key][w]["alone"] for w in widths},
+            kernel_ms_on_g1_288_basis_rerun=k45[key][
+                "basis_rerun_288_alone"]))
     kernels.append(dict(
         name="gather_pack_kernel", route="cuda",
         source="qldpc_tpu_torch/csrc/gather_pack.cu",
         replaces="qldpc_tpu/ops/osd.py:73", launches=launches["g1"],
         max_abs_err=g1_err, ms=g1["stage1"]["ms"],
+        kernel_ms=g1["stage1"]["kernel_ms"],
         plain_ms=g1["stage1"]["plain_ms"],
         bound_ms=g1["stage1"]["bound_ms"],
         bound_by=g1["stage1"]["bound_by"], library_ms=None,
         ms_by_width={w: r["ms"] for w, r in g1.items()},
+        kernel_ms_by_width={w: r["kernel_ms"] for w, r in g1.items()},
         bound_ms_by_width={w: r["bound_ms"] for w, r in g1.items()},
         plain_ms_by_width={w: r["plain_ms"] for w, r in g1.items()},
-        ms_at_288_basis_rerun=ms288, empty_range_ms=g1_empty_ms,
+        kernel_ms_at_288_basis_rerun=g1_288,
+        empty_range_kernel_ms=g1_empty, host_ms_per_call=host_ms,
         pipeline_depth_shots_per_s={d: r["shots_per_sec"]
                                     for d, r in runs22.items()}))
     kernels += [

@@ -37,30 +37,29 @@
 // __syncwarp for a team of one); then the pivot column's owner writes it
 // as the pivot's unit column, which no other warp reads again. All 32W
 // columns are carried, those past K too, as the words-major plain version
-// XORs whole words. The (B, W, M) words-major input is turned into column
-// words on the way in, and back on the way out, by 32x32 bit transposes of
-// five __shfl_xor_sync butterfly rounds, four interleaved, each warp of the
-// team taking its share of the words. A shot whose columns exceed the shared
-// memory a block may hold (the 70-word basis rerun and the full_jordan
-// reprocess at [[144]], every width at [[288]]) runs the same code on a
-// per-shot slab in device memory of the same layout; gf2_elim_sizes
-// reports whether a width needs it and its size, so the wrapper allocates
-// it by the kernel's rule and formula. The layout, the row state, the
-// pivot search and the host-side plan are shared with K4 and K5
-// (gf2_elim_common.cuh).
+// XORs whole words. The input is G1's column layout (csrc/gather_pack.cu),
+// copied into shared memory as it is. The reduced matrix goes out
+// words-major by 32x32 bit transposes of five __shfl_xor_sync butterfly
+// rounds, four interleaved, each warp of the team taking its share of the
+// words, and only when the caller asks for it (hp_out not null). A shot
+// whose columns exceed the shared memory a block may hold (the 70-word
+// basis rerun and the full_jordan reprocess at [[144]], every width at
+// [[288]]) runs the same code on its column input in device memory,
+// eliminated in place with no load; gf2_elim_sizes reports whether a width
+// does. The layout, the row state, the pivot search and the host-side plan
+// are shared with K4 and K5 (gf2_elim_common.cuh).
 #include "gf2_elim_common.cuh"
 
 namespace {
 
 template <int R, bool kDev>
 __global__ void __launch_bounds__(1024)
-gf2_elim_kernel(const int* __restrict__ hp_in,  // (B, W, M)
-                int* __restrict__ hp_out,       // (B, W, M)
+gf2_elim_kernel(int* __restrict__ hp,           // (B, 32W, S) columns
+                int* __restrict__ hp_out,       // (B, W, M) or null
                 const int* __restrict__ s_in,   // (B, M)
                 int* __restrict__ s_out,        // (B, M)
                 int* __restrict__ colofrow,     // (B, M)
                 int* __restrict__ steps,        // (B): column steps run
-                unsigned* __restrict__ slab,    // (B, shot words) if kDev
                 const int* __restrict__ live,   // [lo, hi) or null
                 int B, int W, int M, int m, int K, int rank, int full_jordan,
                 int exit_on_valid, int spb, int T, int S) {
@@ -78,12 +77,12 @@ gf2_elim_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   }
   const int NR = (M + 31) >> 5;
   const int shot_words = 32 * W * S;
-  unsigned* H = kDev ? slab + (size_t)b * shot_words
+  unsigned* H = kDev ? (unsigned*)hp + (size_t)b * shot_words
                      : smem + (size_t)team * shot_words;
   int* cf = colofrow + (size_t)b * M;
 
-  load_columns(H, (const unsigned*)hp_in + (size_t)b * W * M, W, M, NR, S,
-               t, T, lane);
+  if (!kDev)  // else H is the shot's column input itself
+    load_columns(H, hp, b, W, S, t, T, lane);
   // row state, the same in every warp of the team
   unsigned used[R], sres[R], valid[R];
   valid_rows(valid, m, lane);
@@ -107,8 +106,9 @@ gf2_elim_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   }
   team_sync(team, T);
 
-  store_columns(H, (unsigned*)hp_out + (size_t)b * W * M, W, M, NR, S, t, T,
-                lane);
+  if (hp_out)
+    store_columns(H, (unsigned*)hp_out + (size_t)b * W * M, W, M, NR, S, t,
+                  T, lane);
   if (t == 0) {
     store_rows(sres, s_out + (size_t)b * M, M, NR, lane);
     if (lane == 0) steps[b] = col;
@@ -124,8 +124,8 @@ Plan plan(int B, int W, int M, int smem_limit) {
 }  // namespace
 
 // One shot's column bytes, the column stride in words, the row words a
-// lane holds, and 1 when the columns go to a device-memory slab of B times
-// out[0] bytes, for W words by M rows: out[0..3].
+// lane holds, and 1 when the columns stay in device memory, for W words by
+// M rows: out[0..3].
 extern "C" int gf2_elim_sizes(int W, int M, int smem_limit, long long* out) {
   return plan_sizes(make_plan(1, W, M, smem_limit, 1), out);
 }
@@ -139,15 +139,17 @@ extern "C" int gf2_elim_info(int B, int W, int M, int smem_limit, int* out) {
   return plan_info(p, pick(p.R, p.dev), 1, out);
 }
 
-// `live`: a device int32 pair [lo, hi), the shots to run (null: all B).
-extern "C" int gf2_elim_launch(const int* hp_in, int* hp_out, const int* s_in,
+// `hp`: B shots of G1's column layout (plan_launch); `live`: a device int32
+// pair [lo, hi), the shots to run (null: all B); hp_out null: no reduced
+// matrix.
+extern "C" int gf2_elim_launch(int* hp, int* hp_out, const int* s_in,
                                int* s_out, int* colofrow, int* steps,
-                               void* slab, const int* live, int B, int W,
-                               int M, int m, int K, int rank, int full_jordan,
+                               const int* live, int B, int W, int M, int m,
+                               int K, int rank, int full_jordan,
                                int exit_on_valid, int smem_limit,
                                void* stream) {
   const Plan p = plan(B, W, M, smem_limit);
-  return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
-                     colofrow, steps, slab, live, B, W, M, m, K, rank,
-                     full_jordan, exit_on_valid, stream);
+  return plan_launch(p, pick(p.R, p.dev), hp, hp_out, s_in, s_out, colofrow,
+                     steps, live, B, W, M, m, K, rank, full_jordan,
+                     exit_on_valid, stream);
 }

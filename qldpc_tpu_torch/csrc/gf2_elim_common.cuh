@@ -1,8 +1,8 @@
 // What the three GF(2) eliminators share (K2 csrc/gf2_elim.cu, K4
 // csrc/gf2_elim_fused.cu, K5 csrc/gf2_elim_pair.cu): the column-bitset
-// layout of a shot, its team of warps, the transposes in and out, the row
-// state, the pivot search, the column XOR, and the host-side plan, launch
-// shape and launch.
+// layout of a shot, its team of warps, its load (a copy of G1's column
+// output) and its store, the row state, the pivot search, the column XOR,
+// and the host-side plan, launch shape and launch.
 //
 // Layout: a shot's matrix lives column-major: column j is ceil(M/32) words
 // over the rows (word l holds rows 32l..32l+31), its stride S made odd so
@@ -11,10 +11,12 @@
 // GF2_MAXR) of every column, and every warp of a team keeps the same row
 // state (used rows, the residual syndrome, rows < m) as bitmasks in
 // registers. Warp t of a team of T owns the 32-column groups g = t (mod T).
-// A team carries `spt` shots (1 for K2 and K4, 2 for K5); a block holds
-// several teams and has no block barrier. Where one team's columns exceed
-// the shared memory a block may hold, they live in a per-team slab in
-// device memory of the same layout.
+// The input comes in this layout (G1's column output, csrc/gather_pack.cu):
+// copied into shared memory, or, where one team's columns exceed the shared
+// memory a block may hold, eliminated in place in device memory. The
+// reduced matrix goes out words-major (B, W, M), and only where the caller
+// asks for it. A team carries `spt` shots (1 for K2 and K4, 2 for K5); a
+// block holds several teams and has no block barrier.
 //
 // The gate: a launch may take a device int32 pair [lo, hi), the live shots
 // of its batch. The grid covers every shot; a team whose shot lies outside
@@ -50,7 +52,7 @@ struct Plan {
   int R;                // row words a lane holds, ceil(NR / 32)
   int S;                // column stride in words: NR made odd
   long long team_bytes; // one team's columns (spt shots)
-  int dev;              // 1: the columns live in a device-memory slab
+  int dev;              // 1: the columns stay in device memory
   int T;                // warps a team
   int spb;              // teams a block
   int smem;             // dynamic shared memory bytes a block
@@ -60,8 +62,8 @@ struct Plan {
 // Where B shots of W words by M rows run, `spt` shots a team. A team takes
 // one warp per 2 words, up to GF2_MAX_TEAM; a block holds as many teams as
 // fit its shared memory, but no more than teams / SMs, so a small batch
-// still spreads over every SM. The columns go to a device-memory slab when
-// one team's exceed `smem_limit`.
+// still spreads over every SM. The columns stay in device memory (the
+// input, eliminated in place) when one team's exceed `smem_limit`.
 Plan make_plan(int B, int W, int M, int smem_limit, int sms, int spt = 1,
                bool narrow = false) {
   Plan p;
@@ -116,26 +118,16 @@ __device__ __forceinline__ void team_sync(int team, int T) {
     asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(32 * T) : "memory");
 }
 
-// One shot's words-major rows (W, M) -> its column words in H; warp t of
-// the team takes words t, t + T, ...
-__device__ __forceinline__ void load_columns(unsigned* H, const unsigned* hin,
-                                             int W, int M, int NR, int S,
-                                             int t, int T, int lane) {
-  for (int w = t; w < W; w += T) {
-    unsigned* colw = H + (32 * w + lane) * S;
-    for (int l0 = 0; l0 < NR; l0 += 4) {
-      unsigned x[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = 32 * (l0 + u) + lane;
-        x[u] = (l0 + u < NR && r < M) ? hin[(size_t)w * M + r] : 0u;
-      }
-      transpose32x4(x, lane);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (l0 + u < NR) colw[l0 + u] = x[u];
-    }
-  }
+// One shot's column input (G1's column layout, the same 32 W S words as H)
+// copied into H, 16 bytes a lane, the team's warps taking interleaved
+// vectors. The device-memory branch skips it: there H is the input itself.
+__device__ __forceinline__ void load_columns(unsigned* H, const int* hp,
+                                             size_t b, int W, int S, int t,
+                                             int T, int lane) {
+  const int n4 = 8 * W * S;  // 32 W S words as 16-byte vectors
+  const uint4* src = (const uint4*)hp + b * n4;
+  uint4* dst = (uint4*)H;
+  for (int i = 32 * t + lane; i < n4; i += 32 * T) dst[i] = src[i];
 }
 
 // One shot's column words in H -> its words-major rows (W, M).
@@ -424,9 +416,9 @@ __device__ __forceinline__ bool column_step(
 
 // ---- host side ----
 
-using ElimKernel = void (*)(const int*, int*, const int*, int*, int*, int*,
-                            unsigned*, const int*, int, int, int, int, int,
-                            int, int, int, int, int, int);
+using ElimKernel = void (*)(int*, int*, const int*, int*, int*, int*,
+                            const int*, int, int, int, int, int, int, int,
+                            int, int, int, int);
 
 // The kernel table of one eliminator by row words a lane and branch.
 #define GF2_PICK(kernel)                                                  \
@@ -470,8 +462,7 @@ cudaError_t allow_smem(const Plan& p, ElimKernel k) {
 }
 
 // One team's column bytes, the column stride in words, the row words a
-// lane holds, and 1 when the columns go to a device-memory slab of one
-// team's bytes a team: out[0..3].
+// lane holds, and 1 when the columns stay in device memory: out[0..3].
 int plan_sizes(const Plan& p, long long* out) {
   out[0] = p.team_bytes;
   out[1] = p.S;
@@ -502,20 +493,20 @@ int plan_info(const Plan& p, ElimKernel k, int spt, int* out) {
 
 // `live`: a device int32 pair [lo, hi), the shots the launch runs (null:
 // every shot); the grid covers all B shots whatever the pair holds, so the
-// host never reads it.
-int plan_launch(const Plan& p, ElimKernel k, const int* hp_in, int* hp_out,
+// host never reads it. `hp`: the column layout, B shots of 32 W S words
+// each, 16-byte aligned; on the device-memory branch it is eliminated in
+// place. `hp_out` null: the reduced matrix is not written.
+int plan_launch(const Plan& p, ElimKernel k, int* hp, int* hp_out,
                 const int* s_in, int* s_out, int* colofrow, int* steps,
-                void* slab, const int* live, int B, int W, int M, int m,
-                int K, int rank, int full_jordan, int exit_on_valid,
-                void* stream) {
-  if (!k || m > M || (p.dev && B > 0 && !slab))
-    return (int)cudaErrorInvalidValue;
+                const int* live, int B, int W, int M, int m, int K, int rank,
+                int full_jordan, int exit_on_valid, void* stream) {
+  if (!k || m > M || ((uintptr_t)hp & 15)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(p, k);
   if (err != cudaSuccess) return (int)err;
   if (B > 0) {
     k<<<p.grid, 32 * p.T * p.spb, p.smem, (cudaStream_t)stream>>>(
-        hp_in, hp_out, s_in, s_out, colofrow, steps, (unsigned*)slab, live,
-        B, W, M, m, K, rank, full_jordan, exit_on_valid, p.spb, p.T, p.S);
+        hp, hp_out, s_in, s_out, colofrow, steps, live, B, W, M, m, K, rank,
+        full_jordan, exit_on_valid, p.spb, p.T, p.S);
   }
   return (int)cudaGetLastError();
 }

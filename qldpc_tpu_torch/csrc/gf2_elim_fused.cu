@@ -19,9 +19,9 @@
 // column steps; K2 pays one team barrier and one read-modify-write of every
 // touched tail column per column.
 //
-// Design: K2's column-bitset layout and team of warps per shot
-// (gf2_elim_common.cuh). A group's four columns lie in one 32-column group,
-// owned by one warp. A group:
+// Design: K2's column-bitset layout, input and output, and team of warps
+// per shot (gf2_elim_common.cuh). A group's four columns lie in one
+// 32-column group, owned by one warp. A group:
 //  1. every warp of the team reads the four columns into registers;
 //  2. the four pivots are chosen one after another from registers (ballot
 //     and shuffles, as K2 chooses one); pivot i's elim_i (its column
@@ -90,13 +90,12 @@ __device__ __forceinline__ void xor_columns_fused(
 
 template <int R, bool kDev>
 __global__ void __launch_bounds__(max_block_threads(R, true), 1)
-gf2_elim_fused_kernel(const int* __restrict__ hp_in,  // (B, W, M)
-                      int* __restrict__ hp_out,       // (B, W, M)
+gf2_elim_fused_kernel(int* __restrict__ hp,           // (B, 32W, S) cols
+                      int* __restrict__ hp_out,       // (B, W, M) or null
                       const int* __restrict__ s_in,   // (B, M)
                       int* __restrict__ s_out,        // (B, M)
                       int* __restrict__ colofrow,     // (B, M)
                       int* __restrict__ steps,        // (B): columns run
-                      unsigned* __restrict__ slab,    // (B, shot words)
                       const int* __restrict__ live,   // [lo, hi) or null
                       int B, int W, int M, int m, int K, int rank,
                       int full_jordan, int exit_on_valid, int spb, int T,
@@ -115,12 +114,12 @@ gf2_elim_fused_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   }
   const int NR = (M + 31) >> 5;
   const int shot_words = 32 * W * S;
-  unsigned* H = kDev ? slab + (size_t)b * shot_words
+  unsigned* H = kDev ? (unsigned*)hp + (size_t)b * shot_words
                      : smem + (size_t)team * shot_words;
   int* cf = colofrow + (size_t)b * M;
 
-  load_columns(H, (const unsigned*)hp_in + (size_t)b * W * M, W, M, NR, S,
-               t, T, lane);
+  if (!kDev)  // else H is the shot's column input itself
+    load_columns(H, hp, b, W, S, t, T, lane);
   unsigned used[R], sres[R], valid[R];
   valid_rows(valid, m, lane);
   load_rows(s_in + (size_t)b * M, M, NR, used, sres, lane);
@@ -222,8 +221,9 @@ gf2_elim_fused_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   }
   team_sync(team, T);
 
-  store_columns(H, (unsigned*)hp_out + (size_t)b * W * M, W, M, NR, S, t, T,
-                lane);
+  if (hp_out)
+    store_columns(H, (unsigned*)hp_out + (size_t)b * W * M, W, M, NR, S, t,
+                  T, lane);
   if (t == 0) {
     store_rows(sres, s_out + (size_t)b * M, M, NR, lane);
     if (lane == 0) steps[b] = col < K ? col : K;
@@ -239,8 +239,8 @@ Plan plan(int B, int W, int M, int smem_limit, int sms) {
 }  // namespace
 
 // One shot's column bytes, the column stride in words, the row words a
-// lane holds, and 1 when the columns go to a device-memory slab of B times
-// out[0] bytes, for W words by M rows: out[0..3].
+// lane holds, and 1 when the columns stay in device memory, for W words by
+// M rows: out[0..3].
 extern "C" int gf2_elim_fused_sizes(int W, int M, int smem_limit,
                                     long long* out) {
   return plan_sizes(plan(1, W, M, smem_limit, 1), out);
@@ -256,16 +256,17 @@ extern "C" int gf2_elim_fused_info(int B, int W, int M, int smem_limit,
   return plan_info(p, pick(p.R, p.dev), 1, out);
 }
 
-// `live`: a device int32 pair [lo, hi), the shots to run (null: all B).
-extern "C" int gf2_elim_fused_launch(const int* hp_in, int* hp_out,
-                                     const int* s_in, int* s_out,
-                                     int* colofrow, int* steps, void* slab,
+// `hp`: B shots of G1's column layout (plan_launch); `live`: a device int32
+// pair [lo, hi), the shots to run (null: all B); hp_out null: no reduced
+// matrix.
+extern "C" int gf2_elim_fused_launch(int* hp, int* hp_out, const int* s_in,
+                                     int* s_out, int* colofrow, int* steps,
                                      const int* live, int B, int W, int M,
                                      int m, int K, int rank, int full_jordan,
                                      int exit_on_valid, int smem_limit,
                                      void* stream) {
   const Plan p = plan(B, W, M, smem_limit, sm_count());
-  return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
-                     colofrow, steps, slab, live, B, W, M, m, K, rank,
-                     full_jordan, exit_on_valid, stream);
+  return plan_launch(p, pick(p.R, p.dev), hp, hp_out, s_in, s_out, colofrow,
+                     steps, live, B, W, M, m, K, rank, full_jordan,
+                     exit_on_valid, stream);
 }

@@ -33,8 +33,10 @@
 // own column step (column_step), its row state swapped into slot 0, so a
 // stopped shot costs nothing. The last team of an odd batch carries one
 // shot. The pair's columns sit in shared memory where a team's two fit
-// (stage 1 at [[144]]), and otherwise on a per-team slab in device memory
-// of K2's layout; gf2_elim_pair_sizes reports which and its size.
+// (stage 1 at [[144]]), and otherwise in device memory: the column input
+// itself (G1's column layout, one slot a shot), eliminated in place;
+// gf2_elim_pair_sizes reports which. Input and output are K2's
+// (gf2_elim_common.cuh).
 #include "gf2_elim_common.cuh"
 
 namespace {
@@ -93,13 +95,12 @@ __device__ __forceinline__ void swap_rows(unsigned (&a)[R], unsigned (&b)[R]) {
 
 template <int R, bool kDev>
 __global__ void __launch_bounds__(max_block_threads(R, true), 1)
-gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
-                     int* __restrict__ hp_out,       // (B, W, M)
+gf2_elim_pair_kernel(int* __restrict__ hp,           // (B, 32W, S) cols
+                     int* __restrict__ hp_out,       // (B, W, M) or null
                      const int* __restrict__ s_in,   // (B, M)
                      int* __restrict__ s_out,        // (B, M)
                      int* __restrict__ colofrow,     // (B, M)
                      int* __restrict__ steps,        // (B): column steps
-                     unsigned* __restrict__ slab,    // (teams, 2 shots)
                      const int* __restrict__ live,   // [lo, hi) or null
                      int B, int W, int M, int m, int K, int rank,
                      int full_jordan, int exit_on_valid, int spb, int T,
@@ -124,8 +125,10 @@ gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   if (nshot <= 0) return;
   const int NR = (M + 31) >> 5;
   const int shot_words = 32 * W * S;
+  // device memory: the column input's slots of shots b0 and b0 + 1 (the
+  // second read only where nshot is 2)
   unsigned* H[2];
-  H[0] = kDev ? slab + (size_t)pair * 2 * shot_words
+  H[0] = kDev ? (unsigned*)hp + (size_t)b0 * shot_words
               : smem + (size_t)team * 2 * shot_words;
   H[1] = H[0] + shot_words;
 
@@ -138,8 +141,8 @@ gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   for (int h = 0; h < 2; ++h) {
     if (h < nshot) {
       const size_t b = b0 + h;
-      load_columns(H[h], (const unsigned*)hp_in + b * W * M, W, M, NR, S, t,
-                   T, lane);
+      if (!kDev)  // else H[h] is the shot's column input
+        load_columns(H[h], hp, b, W, S, t, T, lane);
       load_rows(s_in + b * M, M, NR, used[h], sres[h], lane);
       if (t == 0)
         for (int r = lane; r < M; r += 32) colofrow[b * M + r] = -1;
@@ -290,8 +293,9 @@ gf2_elim_pair_kernel(const int* __restrict__ hp_in,  // (B, W, M)
   for (int h = 0; h < 2; ++h) {
     if (h < nshot) {
       const size_t b = b0 + h;
-      store_columns(H[h], (unsigned*)hp_out + b * W * M, W, M, NR, S, t, T,
-                    lane);
+      if (hp_out)
+        store_columns(H[h], (unsigned*)hp_out + b * W * M, W, M, NR, S, t,
+                      T, lane);
       if (t == 0) {
         store_rows(sres[h], s_out + b * M, M, NR, lane);
         if (lane == 0) steps[b] = nstep[h];
@@ -309,8 +313,8 @@ Plan plan(int B, int W, int M, int smem_limit, int sms) {
 }  // namespace
 
 // One team's (two shots') column bytes, the column stride in words, the
-// row words a lane holds, and 1 when the columns go to a device-memory slab
-// of ceil(B / 2) times out[0] bytes, for W words by M rows: out[0..3].
+// row words a lane holds, and 1 when the columns stay in device memory, for
+// W words by M rows: out[0..3].
 extern "C" int gf2_elim_pair_sizes(int W, int M, int smem_limit,
                                    long long* out) {
   return plan_sizes(plan(2, W, M, smem_limit, 1), out);
@@ -326,16 +330,17 @@ extern "C" int gf2_elim_pair_info(int B, int W, int M, int smem_limit,
   return plan_info(p, pick(p.R, p.dev), 2, out);
 }
 
-// `live`: a device int32 pair [lo, hi), the shots to run (null: all B).
-extern "C" int gf2_elim_pair_launch(const int* hp_in, int* hp_out,
-                                    const int* s_in, int* s_out,
-                                    int* colofrow, int* steps, void* slab,
+// `hp`: B shots of G1's column layout (plan_launch); `live`: a device int32
+// pair [lo, hi), the shots to run (null: all B); hp_out null: no reduced
+// matrix.
+extern "C" int gf2_elim_pair_launch(int* hp, int* hp_out, const int* s_in,
+                                    int* s_out, int* colofrow, int* steps,
                                     const int* live, int B, int W, int M,
                                     int m, int K, int rank, int full_jordan,
                                     int exit_on_valid, int smem_limit,
                                     void* stream) {
   const Plan p = plan(B, W, M, smem_limit, sm_count());
-  return plan_launch(p, pick(p.R, p.dev), hp_in, hp_out, s_in, s_out,
-                     colofrow, steps, slab, live, B, W, M, m, K, rank,
-                     full_jordan, exit_on_valid, stream);
+  return plan_launch(p, pick(p.R, p.dev), hp, hp_out, s_in, s_out, colofrow,
+                     steps, live, B, W, M, m, K, rank, full_jordan,
+                     exit_on_valid, stream);
 }

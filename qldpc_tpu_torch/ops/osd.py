@@ -2,9 +2,11 @@
 
 Per-shot reliability-ordered Gauss-Jordan elimination over a whole batch of
 failed-BP shots: columns are sorted by |posterior LLR| per shot, the K
-least-reliable columns are gathered and bit-packed 32 per int32 word
-(ops/osd_cuda.py: kernel G1 on the GPU, its plain version on the CPU), and a
-swap-free greedy elimination (kernel K2, or K4 / K5) pivots them.
+least-reliable columns are gathered and bit-packed into the eliminator's
+own column bitsets (ops/osd_cuda.py: kernel G1 on the GPU, its plain
+version on the CPU), and a swap-free greedy elimination (kernel K2, or
+K4 / K5) pivots them, copying its input as it is or, where its columns live
+in device memory, eliminating it in place.
 
 Truncation: elimination runs over the first K = rank + margin columns in
 reliability order PLUS a fixed rank-completing column basis appended after
@@ -213,10 +215,18 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             col_index = column_index(H)
 
         def pack(cols, Kx, span):
-            """G1 over the first Kx of ``cols`` in the eliminator's
-            (B, W, m) layout, gated to ``span``."""
+            """G1 over the first Kx of ``cols`` in the eliminator's column
+            layout, gated to ``span``: a fresh tensor, which the
+            eliminator consumes."""
             return gather_pack(col_index, cols[:, :min(Kx, cols.shape[1])],
                                Kx, live=span)
+
+        def eliminate(Hp, s, Kx, span, **kw):
+            """The eliminator on ``pack``'s output, gated to ``span``;
+            the reduced matrix only where ``want_matrix`` is passed."""
+            kw.setdefault("want_matrix", False)
+            return eliminate_blocks(Hp, s, Kx, m, rank=rank, live=span,
+                                    **kw)
 
         if stage1_cols is None:
             stage1_cols = 768 if K >= 2048 else 256 if K >= 512 else 0
@@ -225,9 +235,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         if staged:
             # --- staged scan: narrow stage-1 + full-prefix tail ---
             K1 = stage1_cols
-            _, s1, prow1, used1, cf1 = eliminate_blocks(
-                pack(colsK, -(-K1 // 32) * 32, span), residual, K1, m,
-                rank=rank, live=span)
+            _, s1, prow1, used1, cf1 = eliminate(
+                pack(colsK, -(-K1 // 32) * 32, span), residual, K1, span)
             covered = torch.where(used1, 0, s1).sum(1) == 0
             if live is not None:
                 covered |= ~live
@@ -239,15 +248,14 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             order2 = torch.sort((~covered).to(i32), stable=True).indices
             c_start = (B - (~covered).sum()) // 32 * 32
             span2 = _span(c_start, B, dev)
-            _, s2, prow2, used2, cf2 = eliminate_blocks(
-                pack(colsK[order2], Kp, span2), residual[order2], K, m,
-                rank=rank, live=span2)
+            _, s2, prow2, used2, cf2 = eliminate(
+                pack(colsK[order2], Kp, span2), residual[order2], K, span2)
             s1, prow1, used1, cf1 = _merge(
                 order2, lane >= c_start, (s1, prow1, used1, cf1),
                 (s2, pad_prow(prow2), used2, cf2))
         else:
-            _, s1, prow1, used1, cf1 = eliminate_blocks(
-                pack(colsK, Kp, span), residual, K, m, rank=rank, live=span)
+            _, s1, prow1, used1, cf1 = eliminate(
+                pack(colsK, Kp, span), residual, K, span)
             prow1 = pad_prow(prow1)
         if basis_cols is not None:
             # basis completion: shots the prefix left uncovered, sorted
@@ -260,9 +268,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             perm = torch.sort((~bad).to(i32), stable=True).indices
             nbad = bad.sum()
             span3 = _span(0, nbad, dev)
-            _, s2, prow2, used2, cf2 = eliminate_blocks(
-                pack(colsE[perm], KTp, span3), residual[perm], KT, m,
-                rank=rank, live=span3)
+            _, s2, prow2, used2, cf2 = eliminate(
+                pack(colsE[perm], KTp, span3), residual[perm], KT, span3)
             s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
                                            (s1, prow1, used1, cf1),
                                            (s2, prow2, used2, cf2))
@@ -276,9 +283,9 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         def reduced_for_reprocess(idx, span_r):
             """Full Gauss-Jordan of the shots ``idx`` at full width, gated
             to ``span_r``: (S, m, W)."""
-            hp_full = eliminate_blocks(
-                pack(colsE[idx], KTp, span_r), residual[idx], KT, m,
-                rank=rank, full_jordan=True, live=span_r)[0]
+            hp_full = eliminate(
+                pack(colsE[idx], KTp, span_r), residual[idx], KT, span_r,
+                full_jordan=True, want_matrix=True)[0]
             return hp_full.transpose(1, 2)
     else:
         HT_u8 = H.T.contiguous()

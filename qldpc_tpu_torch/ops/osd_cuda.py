@@ -2,8 +2,9 @@
 plain twins; and the gather-pack that builds their input, kernel G1.
 
 ``eliminate_blocks`` has the signature and outputs of the JAX package's
-``osd_pallas.eliminate_blocks`` without its TPU block sizing. It dispatches
-on ``_KERNEL_VERSION``, read from ``QLDPC_OSD_KERNEL`` (default 1) as the JAX
+``osd_pallas.eliminate_blocks`` without its TPU block sizing, but takes its
+matrix in the eliminators' column layout (below). It dispatches on
+``_KERNEL_VERSION``, read from ``QLDPC_OSD_KERNEL`` (default 1) as the JAX
 package reads it, and set on this module to switch at run time:
 
   1 -> ``eliminate_blocks_v1``: kernel K2 (``csrc/gf2_elim.cu``), a team
@@ -18,18 +19,33 @@ package reads it, and set on this module to switch at run time:
 
 All three share the column-bitset layout, the plan and the host entry
 points (``csrc/gf2_elim_common.cuh``) and one Python launch path
-(:func:`prepare_elim_launch`): a device-memory slab where a team's columns
-exceed ``_SMEM_LIMIT``, a ``torch.profiler`` range per launch named with
-the kernel and the width (``K2_RANGE``, ``K4_RANGE``, ``K5_RANGE``), and
-the launch count on the wrapper.
+(:func:`prepare_elim_launch`): a ``torch.profiler`` range per launch named
+with the kernel and the width (``K2_RANGE``, ``K4_RANGE``, ``K5_RANGE``),
+and the launch count on the wrapper.
+
+The column layout: (B, Kp, S) int32, column j of a shot being S words over
+the rows, bit i of word l being row 32l + i; S is the eliminators' odd
+column stride (:func:`column_stride`, from the kernel's ``*_sizes`` entry
+point), and the words past ceil(m/32) are zero. G1 (``gather_pack``,
+``csrc/gather_pack.cu``) writes it from a CSC copy of the decoding matrix
+(:class:`ColumnIndex`, built once a matrix). The eliminators copy a shot's
+columns into shared memory, or, where a team's columns exceed
+``_SMEM_LIMIT``, eliminate them in place in device memory (such a launch
+consumes its input). Their reduced matrix goes out words-major (B, W, M),
+and only where ``want_matrix`` (default True; the OSD asks for it only for
+the full-Jordan reprocess).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
-plain version on a CPU tensor: ``eliminate_blocks_plain`` for K2 and K5
-(K5 computes exactly K2's per-shot function), ``eliminate_blocks_fused_plain``
-for K4.
+plain version on a CPU tensor. The plain versions work words-major (bit c
+of word w at row r is column 32w + c): G1's is the dense
+``_gather_pack(..., words_major=True)``, the port of the JAX package's XLA
+gather-pack, bit-transposed by :func:`words_to_columns`; the eliminators'
+are ``eliminate_blocks_plain`` for K2 and K5 (K5 computes exactly K2's
+per-shot function) and ``eliminate_blocks_fused_plain`` for K4, which a
+wrapper hands its column input through :func:`columns_to_words`.
 
-Words travel as int32 (bit c of word w = column 32w + c): PyTorch's uint32
-support is thin, and ``(w >> b) & 1`` is exact after an arithmetic shift.
+Words travel as int32: PyTorch's uint32 support is thin, and
+``(w >> b) & 1`` is exact after an arithmetic shift.
 
 The gate: every eliminator and G1 take ``live``, a device int32 pair
 ``[lo, hi)`` of the batch's live shots (None: every shot). The launch
@@ -40,12 +56,6 @@ and ``steps`` (0), and its G1 words are left unwritten; the OSD
 (ops/osd.py) never consumes them. The plain versions read the pair with
 ``int()`` and run the live slice (gated-off shots keep their inputs, G1's
 read zero).
-
-G1 (``gather_pack``, ``csrc/gather_pack.cu``) writes
-``_gather_pack(..., words_major=True)``'s (B, Kp/32, m) layout from a CSC
-copy of the decoding matrix (:class:`ColumnIndex`, built once a matrix);
-``_gather_pack``, the dense port of the JAX package's XLA gather-pack, is
-its plain version.
 
 Exit points: with ``exit_on_valid=True`` a shot stops once its residual
 syndrome lies in its pivot span, so ``prow_of_col``, ``used``, ``colofrow``
@@ -60,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -80,6 +91,16 @@ _ELIM_KERNELS = {"K2": ("gf2_elim", 1, K2_RANGE),
 
 # Eliminator generation, as osd_pallas._KERNEL_VERSION in the JAX package.
 _KERNEL_VERSION = int(os.environ.get("QLDPC_OSD_KERNEL", "1"))
+_KERNEL_NAMES = {1: "K2", 2: "K4", 3: "K5"}
+
+
+def selected_kernel() -> str:
+    """The eliminator ``eliminate_blocks`` runs: K2, K4 or K5 by
+    ``_KERNEL_VERSION``."""
+    if _KERNEL_VERSION not in _KERNEL_NAMES:
+        raise ValueError(f"QLDPC_OSD_KERNEL={_KERNEL_VERSION}: the "
+                         f"eliminator versions are {sorted(_KERNEL_NAMES)}")
+    return _KERNEL_NAMES[_KERNEL_VERSION]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,14 +158,77 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def column_stride(W: int, M: int, device, kernel: str = None) -> int:
+    """S, the column stride in words of the eliminators' column layout for
+    W words by M rows. On a GPU from eliminator ``kernel``'s (None: the one
+    ``eliminate_blocks`` runs) ``*_sizes`` entry point, the plan's one rule;
+    on the CPU from the plain versions' copy of that rule, ceil(M/32) made
+    odd, which ``tests/test_torch_cuda.py`` holds equal to it."""
+    if (device if isinstance(device, torch.device)
+            else torch.device(device)).type == "cuda":
+        return _sizes(_ELIM_KERNELS[kernel or selected_kernel()][0], W, M,
+                      _SMEM_LIMIT)[1]
+    return -(-M // 32) | 1
+
+
+def _pack_bits32(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 32) uint8 0/1 -> (...) int32 words, bit i = bits[..., i]
+    (bytes packed, then read as little-endian words)."""
+    sh = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    byte = (bits.reshape(*bits.shape[:-1], 4, 8) << sh).sum(
+        -1, dtype=torch.uint8)
+    return byte.contiguous().view(torch.int32)[..., 0]
+
+
+_WORD_CHUNK = 8  # words a plain transpose step unpacks (32x their bytes)
+
+
+def words_to_columns(words: torch.Tensor, S: int) -> torch.Tensor:
+    """Plain bit transpose of the words-major (B, W, M) int32 layout to the
+    column layout (B, 32W, S): word l of column 32w + c holds bit c of
+    words[b, w, 32l + i] as bit i; words ceil(M/32)..S-1 are zero."""
+    B, W, M = words.shape
+    NR = -(-M // 32)
+    if S < NR:
+        raise ValueError(f"stride S={S} is below ceil(M/32)={NR}")
+    out = torch.zeros((B, 32 * W, S), dtype=torch.int32, device=words.device)
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)[:, None]
+    for w0 in range(0, W, _WORD_CHUNK):
+        x = words[:, w0:w0 + _WORD_CHUNK].to(torch.int32)
+        nw = x.shape[1]
+        bits = ((x[:, :, None, :] >> sh) & 1).to(torch.uint8)  # (B,nw,32,M)
+        bits = torch.nn.functional.pad(bits, (0, 32 * NR - M))
+        out[:, 32 * w0:32 * (w0 + nw), :NR] = _pack_bits32(
+            bits.reshape(B, 32 * nw, NR, 32))
+    return out
+
+
+def columns_to_words(cols: torch.Tensor, M: int) -> torch.Tensor:
+    """The inverse of :func:`words_to_columns`: a (B, 32W, S) column layout
+    as (B, W, M) int32 words-major rows."""
+    B = cols.shape[0]
+    W = cols.shape[1] // 32
+    NR = -(-M // 32)
+    out = torch.empty((B, W, M), dtype=torch.int32, device=cols.device)
+    sh = torch.arange(32, dtype=torch.int32, device=cols.device)
+    for w0 in range(0, W, _WORD_CHUNK):
+        x = cols[:, 32 * w0:32 * (w0 + _WORD_CHUNK), :NR].to(torch.int32)
+        nw = x.shape[1] // 32
+        bits = ((x[..., None] >> sh) & 1).to(torch.uint8)      # (B,32nw,NR,32)
+        bits = bits.reshape(B, nw, 32, 32 * NR)[..., :M]        # (B,nw,c,M)
+        out[:, w0:w0 + nw] = _pack_bits32(bits.transpose(2, 3))
+    return out
+
+
 def _gather_pack(HT_u8, colsK, Kp: int, chunk: int = 256,
                  words_major: bool = False) -> torch.Tensor:
     """Per-shot column gather + bit-pack from the (n, m) uint8 transpose of
     H, chunked over columns so the unpacked gather never exceeds
     (B, chunk, m) bytes. Columns past K (up to Kp) pack as zeros. The port
-    of the JAX package's ``osd._gather_pack``, and G1's plain version.
+    of the JAX package's ``osd._gather_pack``; with ``words_major=True``
+    the words-major reference of G1 (module docstring).
 
-    Returns (B, m, Kp//32), or the eliminator's (B, Kp//32, m) layout when
+    Returns (B, m, Kp//32), or the words-major (B, Kp//32, m) layout when
     words_major=True."""
     B, K = colsK.shape
     m = HT_u8.shape[1]
@@ -167,34 +251,66 @@ def _gather_pack(HT_u8, colsK, Kp: int, chunk: int = 256,
     return packed if words_major else packed.transpose(1, 2)
 
 
-def gather_pack(index: ColumnIndex, cols, Kp: int, live=None):
-    """Kernel G1 (``csrc/gather_pack.cu``): each shot's columns ``cols``
-    (B, K) of the matrix behind ``index``, K <= Kp, bit-packed into the
-    eliminators' (B, Kp/32, m) int32 words-major layout (bit c of word w at
-    row r is H[r, cols[b, 32w + c]]; columns at or past K pack as zeros).
-    ``live``: a device int32 pair [lo, hi) of the shots to pack (module
-    docstring). Runs :func:`gather_pack_plain` on a CPU tensor.
-    ``gather_pack.launches`` counts the kernel launches."""
+def _check_pack(cols, Kp: int) -> tuple:
+    """(B, K) of G1's column indices, checked against Kp."""
     B, K = cols.shape
     if Kp % 32 or K > Kp:
         raise ValueError(f"need K={K} <= Kp={Kp}, Kp a multiple of 32")
-    if cols.device.type == "cpu":
-        return gather_pack_plain(index, cols, Kp, live)
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
+    return B, K
+
+
+def prepare_gather_pack(index: ColumnIndex, cols, Kp: int, live=None):
+    """Kernel G1 on CUDA tensors, prepared but not launched: the output's
+    allocation, the column indices' cast and the library load. Returns
+    (launch, out): each ``launch()`` runs the kernel once into ``out`` and
+    counts it on :func:`gather_pack`. A caller can so time the kernel
+    alone."""
+    fn, args, out, cols = _g1_args(index, cols, Kp, live)
     dev = cols.device
+
+    def launch():
+        # the stream is the current one at the launch (a graph's capture)
+        _kernels.check(fn(*args, _kernels.stream_ptr(dev)),
+                       "gather_pack_launch")
+        gather_pack.launches += 1
+
+    launch.tensors = (index, cols, live, out)  # what the arguments point into
+    return launch, out
+
+
+def _g1_args(index: ColumnIndex, cols, Kp: int, live) -> tuple:
+    """(entry point, its arguments but the stream, output, the cast column
+    indices that the arguments point into) of one G1 launch."""
+    B, K = _check_pack(cols, Kp)
+    dev = cols.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     _check_live(live, dev)
-    cols = cols.to(torch.int64)
+    if cols.dtype != torch.int64:
+        cols = cols.to(torch.int64)
     if cols.stride(1) != 1:
         cols = cols.contiguous()
     W = Kp // 32
-    out = torch.empty((B, W, index.m), dtype=torch.int32, device=dev)
-    fn = _gather_pack_lib().gather_pack_launch
-    _kernels.check(fn(index.colptr.data_ptr(), index.rows.data_ptr(),
-                      cols.data_ptr(), cols.stride(0),
-                      None if live is None else live.data_ptr(),
-                      out.data_ptr(), B, K, W, index.m,
-                      _kernels.stream_ptr(dev)), "gather_pack_launch")
+    S = column_stride(W, index.m, dev)
+    out = torch.empty((B, Kp, S), dtype=torch.int32, device=dev)
+    args = (index.colptr.data_ptr(), index.rows.data_ptr(), cols.data_ptr(),
+            cols.stride(0), None if live is None else live.data_ptr(),
+            out.data_ptr(), B, K, W, S)
+    return _gather_pack_lib().gather_pack_launch, args, out, cols
+
+
+def gather_pack(index: ColumnIndex, cols, Kp: int, live=None):
+    """Kernel G1 (``csrc/gather_pack.cu``): each shot's columns ``cols``
+    (B, K) of the matrix behind ``index``, K <= Kp, bit-packed into the
+    eliminators' (B, Kp, S) column layout (module docstring); columns at
+    or past K pack as zeros. ``live``: a device int32 pair [lo, hi) of the
+    shots to pack (module docstring). Runs :func:`gather_pack_plain` on a
+    CPU tensor. ``gather_pack.launches`` counts the kernel launches."""
+    if cols.device.type == "cpu":
+        return gather_pack_plain(index, cols, Kp, live)
+    fn, args, out, cols = _g1_args(index, cols, Kp, live)
+    _kernels.check(fn(*args, _kernels.stream_ptr(cols.device)),
+                   "gather_pack_launch")
     gather_pack.launches += 1
     return out
 
@@ -204,17 +320,20 @@ gather_pack.launches = 0
 
 def gather_pack_plain(index: ColumnIndex, cols, Kp: int, live=None):
     """Plain PyTorch version of G1: ``_gather_pack(..., words_major=True)``
-    over the live slice; gated-off shots read zero."""
-    B = cols.shape[0]
+    over the live slice, bit-transposed by :func:`words_to_columns` into
+    the column layout; gated-off shots read zero."""
+    B, _ = _check_pack(cols, Kp)
     lo, hi = _live_bounds(live, B)
     if (lo, hi) == (0, B):
-        return _gather_pack(index.HT, cols, Kp, words_major=True)
-    out = torch.zeros((B, Kp // 32, index.m), dtype=torch.int32,
-                      device=cols.device)
-    if hi > lo:
-        out[lo:hi] = _gather_pack(index.HT, cols[lo:hi], Kp,
-                                  words_major=True)
-    return out
+        words = _gather_pack(index.HT, cols, Kp, words_major=True)
+    else:
+        words = torch.zeros((B, Kp // 32, index.m), dtype=torch.int32,
+                            device=cols.device)
+        if hi > lo:
+            words[lo:hi] = _gather_pack(index.HT, cols[lo:hi], Kp,
+                                        words_major=True)
+    return words_to_columns(words, column_stride(Kp // 32, index.m,
+                                                 cols.device))
 
 
 def _gather_pack_lib():
@@ -228,12 +347,32 @@ def _gather_pack_lib():
 
 
 def _check_inputs(Hp, s, K: int, m: int):
+    """The words-major (B, W, M) input of the plain eliminators beside s
+    (B, M); raises where the shapes do not fit."""
     if Hp.dim() != 3 or s.dim() != 2 or s.shape != (Hp.shape[0], Hp.shape[2]):
         raise ValueError(f"need Hp (B, W, M) and s (B, M); got "
                          f"{tuple(Hp.shape)} and {tuple(s.shape)}")
     B, W, M = Hp.shape
     if K > 32 * W or m > M:
         raise ValueError(f"K={K} exceeds 32*W={32 * W} or m={m} > M={M}")
+
+
+def _check_columns(Hp, s, K: int, m: int, kernel: str) -> tuple:
+    """(B, W, M) of an eliminator's column input Hp (B, 32W, S) at
+    ``kernel``'s stride beside s (B, M); raises where the shapes do not
+    fit."""
+    if Hp.dim() != 3 or s.dim() != 2:
+        raise ValueError(f"need a 3-d Hp and s (B, M); got {tuple(Hp.shape)}"
+                         f" and {tuple(s.shape)}")
+    B, M = s.shape
+    W = Hp.shape[1] // 32
+    S = column_stride(W, M, Hp.device, kernel)
+    if Hp.shape != (B, 32 * W, S):
+        raise ValueError(f"need Hp (B, 32W, {S}) columns and s (B, M); got "
+                         f"{tuple(Hp.shape)} and {tuple(s.shape)}")
+    if K > 32 * W or m > M:
+        raise ValueError(f"K={K} exceeds 32*W={32 * W} or m={m} > M={M}")
+    return B, W, M
 
 
 def prow_of_col_from(colofrow, K: int):
@@ -251,135 +390,141 @@ def prow_of_col_from(colofrow, K: int):
 
 def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
                      full_jordan: bool = False, exit_on_valid: bool = True,
-                     return_steps: bool = False, live=None):
-    """Batched elimination. Hp (B, W, M) int32 words (M >= m rows; rows at
-    or beyond m never pivot), s (B, M) int32 residual syndrome; ``live``,
+                     return_steps: bool = False, live=None,
+                     want_matrix: bool = True):
+    """Batched elimination. Hp (B, 32W, S) int32, the column layout as
+    :func:`gather_pack` writes it (module docstring), of M >= m rows; rows
+    at or beyond m never pivot. s (B, M) int32 residual syndrome; ``live``,
     a device int32 pair [lo, hi), gates the launch to those shots (module
-    docstring; None: every shot).
+    docstring; None: every shot). On the card, input whose columns live in
+    device memory is eliminated in place: the call consumes it.
 
-    Returns (Hp_reduced (B, W, M), s_reduced (B, M), prow_of_col (B, K),
-    used (B, M) bool, colofrow (B, M)), plus steps (B,) int32 — the column
-    steps each shot ran — when ``return_steps``.
+    Returns (Hp_reduced (B, W, M) words-major, or None unless
+    ``want_matrix``; s_reduced (B, M), prow_of_col (B, K), used (B, M)
+    bool, colofrow (B, M)), plus steps (B,) int32 — the column steps each
+    shot ran — when ``return_steps``.
 
     full_jordan=False skips already-passed words: s_reduced, prow_of_col,
     used and all pivot columns equal full Gauss-Jordan; dependent columns
     left of a pivot's word stay stale. full_jordan=True reduces them too.
     Runs the eliminator ``_KERNEL_VERSION`` selects (module docstring)."""
-    fn = _ELIMINATORS.get(_KERNEL_VERSION)
-    if fn is None:
-        raise ValueError(f"QLDPC_OSD_KERNEL={_KERNEL_VERSION}: the "
-                         f"eliminator versions are {sorted(_ELIMINATORS)}")
+    fn = _ELIMINATORS[selected_kernel()]
     return fn(Hp, s, K, m, rank, full_jordan, exit_on_valid, return_steps,
-              live)
+              live, want_matrix)
 
 
 def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
-         return_steps, live):
-    """Shared body of the three wrappers: the plain version on a CPU
-    tensor, else one launch of ``kernel``."""
-    _check_inputs(Hp, s, K, m)
+         return_steps, live, want_matrix):
+    """Shared body of the three wrappers: on a CPU tensor the plain
+    version of the input turned words-major, else one launch of
+    ``kernel``."""
     if Hp.device.type == "cpu":
-        return plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
-                     return_steps, live=live)
+        _, _, M = _check_columns(Hp, s, K, m, kernel)
+        out = plain(columns_to_words(Hp, M), s, K, m, rank, full_jordan,
+                    exit_on_valid, return_steps, live=live)
+        return out if want_matrix else (None,) + out[1:]
     launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
                                          exit_on_valid, kernel=kernel,
-                                         live=live)
+                                         live=live, want_matrix=want_matrix)
     launch()
     return finish(return_steps)
 
 
 def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False, exit_on_valid: bool = True,
-                        return_steps: bool = False, live=None):
+                        return_steps: bool = False, live=None,
+                        want_matrix: bool = True):
     """Kernel K2 (``csrc/gf2_elim.cu``: a team of warps per shot over
     column bitsets); arguments and outputs as :func:`eliminate_blocks`. s
     holds 0/1 bits. ``eliminate_blocks_v1.launches`` counts the kernel
     launches."""
     return _run("K2", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
-                exit_on_valid, return_steps, live)
+                exit_on_valid, return_steps, live, want_matrix)
 
 
 def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,
                            full_jordan: bool = False,
                            exit_on_valid: bool = True,
-                           return_steps: bool = False, live=None):
+                           return_steps: bool = False, live=None,
+                           want_matrix: bool = True):
     """Kernel K4 (``csrc/gf2_elim_fused.cu``): K2's column steps four
     pivots per team barrier, the tail columns updated in one fused pass per
     4-column group, the exit tested once per group.
     ``eliminate_blocks_fused.launches`` counts the kernel launches."""
     return _run("K4", eliminate_blocks_fused_plain, Hp, s, K, m, rank,
-                full_jordan, exit_on_valid, return_steps, live)
+                full_jordan, exit_on_valid, return_steps, live, want_matrix)
 
 
 def eliminate_blocks_pair(Hp, s, K: int, m: int, rank: int = None,
                           full_jordan: bool = False,
                           exit_on_valid: bool = True,
-                          return_steps: bool = False, live=None):
+                          return_steps: bool = False, live=None,
+                          want_matrix: bool = True):
     """Kernel K5 (``csrc/gf2_elim_pair.cu``): K2's per-shot function with
     two shots through one team of warps; every output equals K2's.
     ``eliminate_blocks_pair.launches`` counts the kernel launches."""
     return _run("K5", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
-                exit_on_valid, return_steps, live)
+                exit_on_valid, return_steps, live, want_matrix)
 
 
 for _fn in (eliminate_blocks_v1, eliminate_blocks_fused,
             eliminate_blocks_pair):
     _fn.launches = 0
-_ELIMINATORS = {1: eliminate_blocks_v1, 2: eliminate_blocks_fused,
-                3: eliminate_blocks_pair}
-_WRAPPERS = {"K2": eliminate_blocks_v1, "K4": eliminate_blocks_fused,
-             "K5": eliminate_blocks_pair}
+_ELIMINATORS = {"K2": eliminate_blocks_v1, "K4": eliminate_blocks_fused,
+                "K5": eliminate_blocks_pair}
 
 
 def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False,
                         exit_on_valid: bool = True, kernel: str = "K2",
-                        live=None):
+                        live=None, want_matrix: bool = True):
     """``kernel`` (K2, K4 or K5) on CUDA tensors, gated to ``live`` (a
     device int32 pair [lo, hi), or None), prepared but not launched: input
-    casts, output and slab allocation, library load.
-    Returns (launch, finish): each ``launch()`` runs the kernel once from
-    the unchanged inputs (it writes its outputs apart from them), inside a
-    ``torch.profiler`` range named by the kernel's ``*_RANGE`` with the
-    width, and counts it on the kernel's wrapper; ``finish(return_steps)``
-    gives :func:`eliminate_blocks`'s outputs. A caller can so time the
-    kernel alone."""
-    _check_inputs(Hp, s, K, m)
-    if Hp.device.type != "cuda":
-        raise ValueError(f"unsupported device {Hp.device}")
-    B, W, M = Hp.shape
+    casts, output allocation, library load.
+    Returns (launch, finish): each ``launch()`` runs the kernel once,
+    inside a ``torch.profiler`` range named by the kernel's ``*_RANGE``
+    with the width, and counts it on the kernel's wrapper;
+    ``finish(return_steps)`` gives :func:`eliminate_blocks`'s outputs.
+    A launch writes its outputs apart from its inputs and runs from the
+    unchanged inputs each time, except where ``launch.consumes_input`` is
+    true: input whose columns live in device memory is eliminated in
+    place, so a caller that launches again must first restore Hp (a copy
+    or a fresh G1 pack) for every launch to eliminate the same matrix. A
+    caller can so time the kernel alone."""
+    B, W, M = _check_columns(Hp, s, K, m, kernel)
+    dev = Hp.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if M > _MAX_ROWS:
         raise ValueError(f"M={M} rows exceed the kernel's {_MAX_ROWS}")
-    name, spt, label = _ELIM_KERNELS[kernel]
-    wrapper = _WRAPPERS[kernel]
-    dev = Hp.device
+    name, _, label = _ELIM_KERNELS[kernel]
+    wrapper = _ELIMINATORS[kernel]
     _check_live(live, dev)
-    hp_in = Hp.to(torch.int32).contiguous()
+    hp = Hp.to(torch.int32).contiguous()
     s_in = s.to(device=dev, dtype=torch.int32).contiguous()
-    hp_out = torch.empty_like(hp_in)
+    hp_out = (torch.empty((B, W, M), dtype=torch.int32, device=dev)
+              if want_matrix else None)
     s_out = torch.empty_like(s_in)
     cf = torch.empty((B, M), dtype=torch.int32, device=dev)
     steps = torch.empty((B,), dtype=torch.int32, device=dev)
-    sizes = elim_sizes(W, M, kernel)
-    slab = None
-    if sizes["device_memory"]:  # the kernel's rule: the columns in a slab
-        slab = torch.empty((-(-B // spt), sizes["team_bytes"]),
-                           dtype=torch.uint8, device=dev)
     fn = getattr(_lib(name), f"{name}_launch")
-    args = (B, W, M, m, K, m if rank is None else rank, int(full_jordan),
+    args = (hp.data_ptr(), None if hp_out is None else hp_out.data_ptr(),
+            s_in.data_ptr(), s_out.data_ptr(), cf.data_ptr(),
+            steps.data_ptr(), None if live is None else live.data_ptr(),
+            B, W, M, m, K, m if rank is None else rank, int(full_jordan),
             int(exit_on_valid), _SMEM_LIMIT)
     label = f"{label}: {W} words" + (", full_jordan" if full_jordan else "")
 
     def launch():
-        # the inputs and the slab stay referenced by this closure
+        # the stream is the current one at the launch (a graph's capture)
         with torch.profiler.record_function(label):
-            code = fn(hp_in.data_ptr(), hp_out.data_ptr(), s_in.data_ptr(),
-                      s_out.data_ptr(), cf.data_ptr(), steps.data_ptr(),
-                      None if slab is None else slab.data_ptr(),
-                      None if live is None else live.data_ptr(), *args,
-                      _kernels.stream_ptr(dev))
+            code = fn(*args, _kernels.stream_ptr(dev))
         _kernels.check(code, f"{name}_launch")
         wrapper.launches += 1
+
+    launch.consumes_input = bool(_sizes(name, W, M, _SMEM_LIMIT)[3])
+    # what the arguments point into
+    launch.tensors = (hp, s_in, hp_out, s_out, cf, steps, live)
 
     def finish(return_steps: bool = False):
         out = (hp_out, s_out, prow_of_col_from(cf, K), cf >= 0, cf)
@@ -394,7 +539,7 @@ def _lib(name: str):
     launch = getattr(lib, f"{name}_launch")
     if not launch.argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
-        launch.argtypes = [P] * 8 + [I] * 9 + [P]
+        launch.argtypes = [P] * 7 + [I] * 9 + [P]
         launch.restype = I
         sizes = getattr(lib, f"{name}_sizes")
         sizes.argtypes = [I, I, I, P]
@@ -408,18 +553,26 @@ def _lib(name: str):
 def elim_sizes(W: int, M: int, kernel: str = "K2") -> dict:
     """``kernel``'s layout of one shot of W words by M rows, as its source
     reports it: the column bytes of a shot and of a team (the shots the
-    kernel runs through one team of warps; the device-memory slab takes a
-    team's bytes a team), the column stride in words, the row words a lane
-    holds, and whether the columns go to the device-memory slab (a team's
-    exceed ``_SMEM_LIMIT``)."""
+    kernel runs through one team of warps), the column stride in words, the
+    row words a lane holds, and whether the columns stay in device memory
+    (a team's exceed ``_SMEM_LIMIT``), where the kernel eliminates its
+    input in place."""
     name, spt, _ = _ELIM_KERNELS[kernel]
+    team_bytes, stride, per_lane, dev = _sizes(name, W, M, _SMEM_LIMIT)
+    return dict(shot_bytes=team_bytes // spt, team_bytes=team_bytes,
+                shots_per_team=spt, column_stride=stride,
+                words_per_lane=per_lane, device_memory=bool(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _sizes(name: str, W: int, M: int, smem_limit: int) -> tuple:
+    """``<name>_sizes`` of the kernel's library, asked once a shape (a host
+    call; G1 and the eliminators ask it for every launch)."""
     out = (ctypes.c_longlong * 4)()
-    _kernels.check(getattr(_lib(name), f"{name}_sizes")(W, M, _SMEM_LIMIT,
+    _kernels.check(getattr(_lib(name), f"{name}_sizes")(W, M, smem_limit,
                                                          out),
                    f"{name}_sizes")
-    return dict(shot_bytes=out[0] // spt, team_bytes=out[0],
-                shots_per_team=spt, column_stride=out[1],
-                words_per_lane=out[2], device_memory=bool(out[3]))
+    return tuple(out)
 
 
 def elim_launch_info(B: int, W: int, M: int, device,
@@ -446,10 +599,11 @@ def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
                            exit_on_valid: bool = True,
                            return_steps: bool = False,
                            count_xor_words: bool = False, live=None):
-    """Plain PyTorch version of kernels K2 and K5: the same per-shot column
-    steps, vectorized over shots, each shot frozen once it is done. One
-    host read per column step, and one of ``live`` (the live slice runs;
-    the other shots keep their inputs, with no pivot and no step).
+    """Plain PyTorch version of kernels K2 and K5, on words-major (B, W, M)
+    input: the same per-shot column steps, vectorized over shots, each shot
+    frozen once it is done. One host read per column step, and one of
+    ``live`` (the live slice runs; the other shots keep their inputs, with
+    no pivot and no step).
 
     ``count_xor_words`` appends a (B,) int64 count of the word XORs the
     steps did: per step, the rows the pivot row was XORed into times the
@@ -465,11 +619,11 @@ def eliminate_blocks_fused_plain(Hp, s, K: int, m: int, rank: int = None,
                                  full_jordan: bool = False,
                                  exit_on_valid: bool = True,
                                  return_steps: bool = False, live=None):
-    """Plain PyTorch version of kernel K4: K2's column steps, with the exit
-    (rank reached, or residual inside the pivot span) tested only at the
-    end of each 4-column group, and the columns of the last group at or
-    beyond K never pivoting. ``steps`` counts the columns of the groups a
-    shot ran, at most K."""
+    """Plain PyTorch version of kernel K4, on words-major (B, W, M) input:
+    K2's column steps, with the exit (rank reached, or residual inside the
+    pivot span) tested only at the end of each 4-column group, and the
+    columns of the last group at or beyond K never pivoting. ``steps``
+    counts the columns of the groups a shot ran, at most K."""
     return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
                             return_steps, group=_FUSED_GROUP, live=live)
 

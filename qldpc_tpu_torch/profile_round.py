@@ -20,7 +20,8 @@ order 2) and reports, for a few steady dispatches:
   the OSD runs it at, from the profiler range its wrapper opens around each
   launch (``osd_cuda.K2_RANGE``, ``K4_RANGE`` or ``K5_RANGE`` for
   ``--osd-kernel`` 1, 2 or 3, named by the width in words and
-  ``full_jordan``).
+  ``full_jordan``), and the gather-pack G1's device time per dispatch (its
+  kernel, ``gather_pack_kernel``).
 
 Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
@@ -176,12 +177,14 @@ def profiled(fn, gen, dispatches: int, depth: int, elim_range: str) -> dict:
             wait_us += ev.cpu_time_total
     busy = sum(kernels.values()) / dispatches
     wait = wait_us / 1e3 / dispatches
+    g1 = sum(v for k, v in kernels.items()
+             if k.startswith("gather_pack")) / dispatches
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     return dict(dispatch_ms=wall, device_busy_ms=busy,
                 device_idle_share=1 - busy / wall, host_wait_ms=wait,
                 host_issue_ms=wall - wait,
                 kernel_ms_per_dispatch={k: v / dispatches for k, v in top},
-                elim_by_width=widths or None)
+                elim_by_width=widths or None, g1_ms=g1)
 
 
 def main(argv=None):
@@ -267,7 +270,7 @@ def main(argv=None):
               f"{pr['device_busy_ms']:.1f} ms, idle share "
               f"{pr['device_idle_share']:.3f}, host wait (synchronising "
               f"calls) {pr['host_wait_ms']:.1f} ms, host issue "
-              f"{pr['host_issue_ms']:.1f} ms")
+              f"{pr['host_issue_ms']:.1f} ms, G1 {pr['g1_ms']:.3f} ms")
         for k, v in pr["kernel_ms_per_dispatch"].items():
             print(f"  {v:9.3f} ms  {k[:90]}")
         widths = pr["elim_by_width"]

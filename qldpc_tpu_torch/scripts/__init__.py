@@ -9,7 +9,9 @@ package's ``scripts/pallas_gather_bench.py``, ``pallas_gather_probe.py`` and
 Each runs on ``cuda`` by default and raises without a GPU; ``--device cpu``
 runs the plain versions (times are then host times, not device metrics).
 ``gather_timing.py`` times P1 and P2 alone on the card (CUDA graphs), for
-this checkout or, with ``--root``, another one's package.
+this checkout or, with ``--root``, another one's package;
+``handoff_timing.py`` does the same for the OSD's hand-off: G1 and K2, K4
+and K5 on G1's output, and the host's time a call of G1 and K2.
 """
 from __future__ import annotations
 

@@ -112,8 +112,8 @@ def test_elim_kernel_matches_plain(cuda, bundles, exit_on_valid,
     Hp = _gather_pack(dec.H.T.contiguous(), cols, dec.K, words_major=True)
     s = torch.as_tensor(syn, device=cuda).to(torch.int32)
     before = osd_cuda.eliminate_blocks_v1.launches
-    a = osd_cuda.eliminate_blocks_v1(Hp, s, dec.K, H.shape[0], rank=dec.rank,
-                                     full_jordan=full_jordan,
+    a = osd_cuda.eliminate_blocks_v1(_columns(Hp), s, dec.K, H.shape[0],
+                                     rank=dec.rank, full_jordan=full_jordan,
                                      exit_on_valid=exit_on_valid,
                                      return_steps=True)
     torch.cuda.synchronize()
@@ -141,6 +141,14 @@ def _elim_case(cuda, bundles, B, seed, K):
     return dec, Hp, s
 
 
+def _columns(Hp):
+    """G1's column layout, which the eliminators take, of words-major Hp
+    (B, W, M) (the plain bit transpose, at the kernels' stride)."""
+    _, W, M = Hp.shape
+    return osd_cuda.words_to_columns(Hp, osd_cuda.column_stride(W, M,
+                                                                Hp.device))
+
+
 def _elim_equal(a, b):
     for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
                           a, b):
@@ -156,11 +164,11 @@ _ELIM = {"K2": (osd_cuda.eliminate_blocks_v1, osd_cuda.eliminate_blocks_plain),
 
 
 def _elim_against_plain(kernel, Hp, s, K, m, **kw):
-    """``kernel`` against its plain version on every output; returns the
-    kernel's outputs."""
+    """``kernel`` on words-major Hp's column layout against its plain
+    version on Hp, every output; returns the kernel's outputs."""
     fn, plain = _ELIM[kernel]
     before = fn.launches
-    a = fn(Hp, s, K, m, return_steps=True, **kw)
+    a = fn(_columns(Hp), s, K, m, return_steps=True, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     _elim_equal(a, plain(Hp, s, K, m, return_steps=True, **kw))
@@ -456,7 +464,7 @@ def test_alternative_elim_kernels_match_plain(cuda, bundles, kernel,
     kw = dict(rank=dec.rank, full_jordan=full_jordan,
               exit_on_valid=exit_on_valid, return_steps=True)
     before = fn.launches
-    a = fn(Hp, s, dec.K, H.shape[0], **kw)
+    a = fn(_columns(Hp), s, dec.K, H.shape[0], **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     b = plain(Hp, s, dec.K, H.shape[0], **kw)
@@ -817,9 +825,10 @@ def test_code_capacity_round_on_card(cuda, name):
 @pytest.mark.parametrize("span", [None, (5, 41), (0, 0)])
 @pytest.mark.parametrize("width", [256, 512, 1024])
 def test_gather_pack_kernel_matches_plain(cuda, bundles, width, span):
-    """G1 against _gather_pack on every live shot, at the stage-1, prefix
-    and full widths of [[72]] (a partial last word at 1000 of 1024
-    columns), over the whole batch, a partial range and an empty one."""
+    """G1 against _gather_pack, bit-transposed into the column layout, on
+    every live shot, at the stage-1, prefix and full widths of [[72]] (a
+    partial last word at 1000 of 1024 columns), over the whole batch, a
+    partial range and an empty one."""
     circ, M, decs = bundles
     dec = decs[str(cuda)][0]
     B, n = 64, dec.H.shape[1]
@@ -833,8 +842,8 @@ def test_gather_pack_kernel_matches_plain(cuda, bundles, width, span):
     got = osd_cuda.gather_pack(dec.col_index, cols[:, :K], width, live=live)
     torch.cuda.synchronize()
     assert osd_cuda.gather_pack.launches == before + 1
-    want = _gather_pack(dec.H.T.contiguous(), cols[:, :K], width,
-                        words_major=True)
+    want = _columns(_gather_pack(dec.H.T.contiguous(), cols[:, :K], width,
+                                 words_major=True))
     lo, hi = (0, B) if span is None else span
     assert got.shape == want.shape
     assert torch.equal(got[lo:hi], want[lo:hi])
@@ -850,8 +859,9 @@ def test_gated_elim_kernels_match_ungated(cuda, bundles, kernel, span):
     fn = getattr(osd_cuda, f"eliminate_blocks_{kernel}")
     m = dec.H.shape[0]
     live = torch.tensor(span, dtype=torch.int32, device=cuda)
-    full = fn(Hp, s, 512, m, rank=dec.rank, return_steps=True)
-    gated = fn(Hp, s, 512, m, rank=dec.rank, return_steps=True, live=live)
+    full = fn(_columns(Hp), s, 512, m, rank=dec.rank, return_steps=True)
+    gated = fn(_columns(Hp), s, 512, m, rank=dec.rank, return_steps=True,
+               live=live)
     lo, hi = span
     for name, x, y in zip(("Hp", "s", "prow", "used", "colofrow", "steps"),
                           gated, full):
@@ -886,3 +896,149 @@ def test_steady_pooled_dispatch_reads_nothing_back(cuda, bundles):
     counts = mesh.read_counts([got])[0]
     assert counts["any_err_count"] == int(got["any_err"].sum()) > 0
     assert counts["osd_overflow_count"] == 0
+
+
+# The column hand-off: G1's column layout, and K2, K4 and K5 from it
+@pytest.mark.parametrize("M", [100, 288, 1008, 1024, 2880, 4096])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+def test_column_layout_is_the_kernels_rule(cuda, kernel, M):
+    """The stride the card reports (each kernel's *_sizes) equals the plain
+    versions' copy of the rule: ceil(M/32) made odd."""
+    assert osd_cuda.column_stride(8, M, cuda, kernel) == \
+        osd_cuda.column_stride(8, M, "cpu")
+
+
+@pytest.mark.parametrize("span", [None, (5, 41), (0, 0)])
+@pytest.mark.parametrize("width", [256, 1024])
+@pytest.mark.parametrize("B", [1, 63])
+def test_gather_pack_columns_matches_plain(cuda, bundles, B, width, span):
+    """G1 equals its plain version (the bit transpose of _gather_pack) on
+    every live shot, with the stride's padding word and the columns past K
+    zero, at one shot and at an odd batch (exactly B shots, no padding)."""
+    circ, M, decs = bundles
+    dec = decs[str(cuda)][0]
+    n = dec.H.shape[1]
+    rng = np.random.default_rng(width + 1)
+    cols = torch.as_tensor(np.stack([rng.permutation(n) for _ in range(B)]),
+                           device=cuda)
+    K = width - 24 if width == 1024 else width
+    live = None if span is None else torch.tensor(span, dtype=torch.int32,
+                                                  device=cuda)
+    before = osd_cuda.gather_pack.launches
+    got = osd_cuda.gather_pack(dec.col_index, cols[:, :K], width, live=live)
+    torch.cuda.synchronize()
+    assert osd_cuda.gather_pack.launches == before + 1
+    want = osd_cuda.gather_pack_plain(dec.col_index, cols[:, :K], width)
+    m = dec.H.shape[0]
+    S = osd_cuda.column_stride(width // 32, m, cuda)
+    assert got.shape == want.shape == (B, width, S)
+    lo, hi = (0, B) if span is None else (min(span[0], B), min(span[1], B))
+    assert torch.equal(got[lo:hi], want[lo:hi])
+    assert not got[lo:hi, K:].any() and not got[lo:hi, :, -(-m // 32):].any()
+
+
+@pytest.mark.parametrize("want_matrix", [True, False])
+@pytest.mark.parametrize("branch", ["shared", "device"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+def test_elim_kernels_from_columns(cuda, bundles, monkeypatch, kernel,
+                                   branch, want_matrix):
+    """Each eliminator from G1's column output gives every output of its
+    plain version on the words-major matrix, bit for bit, with its columns
+    in shared memory (copied in) and on the device-memory branch
+    (eliminated in place: the launch consumes its input); without
+    want_matrix it writes no reduced matrix."""
+    dec, Hp, s = _elim_case(cuda, bundles, 37, 13, 256)
+    fn, plain = _ELIM[kernel]
+    m = Hp.shape[2]
+    if branch == "device":
+        monkeypatch.setattr(osd_cuda, "_SMEM_LIMIT", 0)
+    info = osd_cuda.elim_launch_info(37, 8, m, cuda, kernel)
+    assert info["columns_in"] == ("device memory" if branch == "device"
+                                  else "shared memory")
+    kw = dict(rank=dec.rank, return_steps=True)
+    cols = _columns(Hp)
+    before = fn.launches
+    got = fn(cols, s, 256, m, want_matrix=want_matrix, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(Hp, s, 256, m, **kw)
+    if not want_matrix:
+        assert got[0] is None
+        got, ref = got[1:], ref[1:]
+    _elim_equal(got, ref)
+    # in place on the device-memory branch only
+    assert torch.equal(cols, _columns(Hp)) == (branch == "shared")
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+def test_elim_kernels_from_columns_gated(cuda, bundles, kernel):
+    """Column input gated to a range (K5's pairs split at both ends) equals
+    the plain version gated the same way on the live shots."""
+    dec, Hp, s = _elim_case(cuda, bundles, 64, 11, 512)
+    fn, plain = _ELIM[kernel]
+    m = dec.H.shape[0]
+    live = torch.tensor((3, 29), dtype=torch.int32, device=cuda)
+    kw = dict(rank=dec.rank, return_steps=True, live=live)
+    a = fn(_columns(Hp), s, 512, m, **kw)
+    b = plain(Hp, s, 512, m, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x[3:29], y[3:29])
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
+def test_elim_kernels_from_columns_at_288_basis_rerun(cuda, basis_rerun_288,
+                                                      kernel):
+    """At [[288,12,18]]'s basis-rerun width (three row words a lane, the
+    columns in device memory: eliminated in place) each eliminator equals
+    its plain version on every output."""
+    Hp, s, Kw, m, rank = basis_rerun_288
+    _elim_against_plain(kernel, Hp, s, Kw, m, rank=rank)
+
+
+def test_prepared_launch_consumes_column_input_in_device_memory(
+        cuda, bundles, monkeypatch):
+    """A prepared K2 launch reruns from its inputs in shared memory; on the
+    device-memory branch it says it consumes them, and with the input
+    restored before each launch every launch gives the same outputs."""
+    dec, Hp, s = _elim_case(cuda, bundles, 37, 15, 256)
+    cols = _columns(Hp)
+    m = Hp.shape[2]
+    want = osd_cuda.eliminate_blocks_plain(Hp, s, 256, m, rank=dec.rank,
+                                           return_steps=True)
+    for limit in (osd_cuda._SMEM_LIMIT, 0):
+        monkeypatch.setattr(osd_cuda, "_SMEM_LIMIT", limit)
+        x = cols.clone()
+        launch, finish = osd_cuda.prepare_elim_launch(x, s, 256, m,
+                                                      rank=dec.rank)
+        assert launch.consumes_input == (limit == 0)
+        outs = []
+        for _ in range(2):
+            x.copy_(cols)
+            launch()
+            outs.append([t.clone() for t in finish(True)])
+        _elim_equal(outs[0], outs[1])
+        _elim_equal(outs[0], want)
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_osd_batch_layouts_agree_on_card(cuda, bundles, monkeypatch,
+                                         version):
+    """osd_batch through G1's column hand-off on the card equals the CPU's,
+    under K2, K4 and K5."""
+    from qldpc_tpu_torch.ops.osd import osd_batch
+    monkeypatch.setattr(osd_cuda, "_KERNEL_VERSION", version)
+    circ, M, decs = bundles
+    out = {}
+    for dev in ("cpu", str(cuda)):
+        dec = decs[dev][0]
+        H, syn = _syndromes(M, "Z", 96, 21)
+        gen = np.random.default_rng(21)
+        llr = torch.as_tensor(gen.standard_normal((96, H.shape[1])),
+                              dtype=torch.float32, device=dev)
+        out[dev] = osd_batch(
+            dec.H, dec.HT, torch.as_tensor(syn, device=dev), llr,
+            (llr < 0).to(torch.int8), dec.K, order=2, num_test=12,
+            rank=dec.rank, basis_cols=dec.basis_cols,
+            col_index=dec.col_index)
+    for k, v in out["cpu"].items():
+        assert torch.equal(v, out[str(cuda)][k].cpu()), k

@@ -5,16 +5,19 @@ the shot's matrix held column-major: column j is ceil(M/32) words over the
 rows, lane l owns row words l, l + 32, ..., and the row state (used rows,
 the residual syndrome, rows < m) lives as bitmasks. A column step XORs the
 pivot column's other rows into every other column the pivot row touches,
-then writes the pivot column as the pivot's unit column. It turns the
-(B, W, M) words-major input into column words by a 32x32 bit transpose of five
-butterfly rounds, and back on the way out. The kernel itself runs only on
-the card; here its transpose and its column steps, written out in PyTorch
-and vectorised over shots, are held against the plain version
-(``eliminate_blocks_plain``):
+then writes the pivot column as the pivot's unit column. It takes G1's
+column layout (``gather_pack``) as it is, a straight copy, and sends the
+reduced matrix out words-major by a 32x32 bit transpose of five butterfly
+rounds. The kernel itself runs only on the card; here its transpose and
+its column steps, written out in PyTorch and vectorised over shots, are
+held against the plain version (``eliminate_blocks_plain``, words-major):
 
 * the transpose round-trips words to column bitsets and back exactly, and
   its column words hold the right bits, for ragged M and M > m;
-* the column-bitset algorithm equals the plain version on every output.
+* the transpose maps words to exactly G1's column layout (the plain
+  ``words_to_columns``), so the store is the inverse of G1's layout;
+* the column-bitset algorithm on G1's column layout equals the plain
+  version on the same matrix words-major, on every output.
 """
 import numpy as np
 import pytest
@@ -24,8 +27,10 @@ import torch.nn.functional as F
 import qldpc_tpu_torch as qt
 from qldpc_tpu_torch.models.gf2 import rank_fast
 from qldpc_tpu_torch.ops.osd import _gather_pack, choose_K
-from qldpc_tpu_torch.ops.osd_cuda import (eliminate_blocks_plain,
-                                          prow_of_col_from)
+from qldpc_tpu_torch.ops.osd_cuda import (column_index, columns_to_words,
+                                          eliminate_blocks_plain,
+                                          gather_pack, prow_of_col_from,
+                                          words_to_columns)
 
 torch.set_num_threads(1)
 
@@ -81,12 +86,13 @@ def pack_rows(bits):
 
 def eliminate_columns(Hp, s, K: int, m: int, rank: int = None,
                       full_jordan: bool = False, exit_on_valid: bool = True):
-    """K2's column steps (csrc/gf2_elim.cu, its Tentpole step 4), all shots
-    at once; returns eliminate_blocks' outputs with steps."""
-    B, W, M = Hp.shape
+    """K2's column steps (csrc/gf2_elim.cu), all shots at once, from G1's
+    column layout Hp (B, 32W, S), copied as it is; returns
+    eliminate_blocks' outputs with steps, the matrix words-major."""
+    B, M = s.shape
     rank = m if rank is None else rank
     NR = -(-M // 32)
-    cols = to_columns(Hp)
+    cols = Hp.to(torch.int64) & MASK32
     rows = torch.arange(32 * NR)
     valid = pack_rows((rows < m).expand(B, -1))
     sres = pack_rows(F.pad(s != 0, (0, 32 * NR - M)))
@@ -153,13 +159,16 @@ def c72():
                                      for _ in range(B)]))
     HT = torch.as_tensor(H.T.copy())
     K = choose_K(*H.shape)
-    return dict(H=H, syn=syn, K=K, rank=rank_fast(H),
+    return dict(H=H, syn=syn, K=K, rank=rank_fast(H), cols=cols,
                 Hp={Kx: _gather_pack(HT, cols[:, :Kx], Kx, words_major=True)
                     for Kx in (256, K)})
 
 
 def _check(Hp, s, K, m, **kw):
-    got = eliminate_columns(Hp, s, K, m, **kw)
+    """The column steps on words-major Hp's column layout against the
+    plain version on Hp."""
+    S = -(-Hp.shape[2] // 32) | 1
+    got = eliminate_columns(words_to_columns(Hp, S), s, K, m, **kw)
     want = eliminate_blocks_plain(Hp, s, K, m, return_steps=True, **kw)
     for name, x, y in zip(NAMES, got, want):
         assert torch.equal(x, y), name
@@ -249,3 +258,34 @@ def test_column_steps_three_words_a_lane(full_jordan):
         got = _check(Hp, s, 64, m, full_jordan=full_jordan,
                      exit_on_valid=exit_on_valid)
         assert (got[5] > 0).all() and got[3].any()
+
+
+@pytest.mark.parametrize("M, W", [(1008, 2), (100, 3), (2100, 1), (64, 2)])
+def test_transpose_gives_the_column_layout(M, W):
+    """The kernel's transpose maps words to G1's column layout (the plain
+    words_to_columns at the kernel's stride) word for word, so its store is
+    that layout's inverse."""
+    rng = np.random.default_rng(M + W)
+    Hp = torch.as_tensor(rng.integers(-2**31, 2**31, (3, W, M)),
+                         dtype=torch.int32)
+    S = -(-M // 32) | 1
+    assert torch.equal(to_int32(to_columns(Hp)), words_to_columns(Hp, S))
+
+
+@pytest.mark.parametrize("full_jordan", [False, True])
+@pytest.mark.parametrize("width", ["stage1", "full"])
+def test_column_steps_from_column_input(c72, width, full_jordan):
+    """The copied load: K2's column steps from G1's column layout (an odd
+    batch) equal the plain version on every output."""
+    K = 256 if width == "stage1" else c72["K"]
+    H = c72["H"]
+    m = H.shape[0]
+    cols = gather_pack(column_index(H), c72["cols"][:11, :K], K)
+    assert cols.shape[0] == 11
+    s = c72["syn"][:11]
+    kw = dict(rank=c72["rank"], full_jordan=full_jordan)
+    got = eliminate_columns(cols, s, K, m, **kw)
+    want = eliminate_blocks_plain(columns_to_words(cols, s.shape[1]), s, K,
+                                  m, return_steps=True, **kw)
+    for name, x, y in zip(NAMES, got, want):
+        assert torch.equal(x, y), name

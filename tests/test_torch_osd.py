@@ -26,7 +26,8 @@ from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
 from qldpc_tpu_torch.ops.bp_lift_cuda import decode_batch_lift_plain
 from qldpc_tpu_torch.ops.osd import (_eliminate_xla, _gather_pack,
                                      choose_K, osd_batch)
-from qldpc_tpu_torch.ops.osd_cuda import eliminate_blocks
+from qldpc_tpu_torch.ops.osd_cuda import (column_stride, eliminate_blocks,
+                                          words_to_columns)
 
 torch.set_num_threads(1)
 
@@ -41,6 +42,14 @@ def _random_case(seed, m=40, n=320, K=288, B=8, p=0.1):
     residual[2] = 0  # valid before any elimination
     cols = np.stack([rng.permutation(n)[:K] for _ in range(B)])
     return H, residual, cols
+
+
+def _columns(words):
+    """G1's column layout (what eliminate_blocks takes) of (B, W, M)
+    words-major int32 numpy words."""
+    _, W, M = words.shape
+    return words_to_columns(torch.as_tensor(words),
+                            column_stride(W, M, "cpu"))
 
 
 @pytest.mark.parametrize("full_jordan", [False, True])
@@ -60,7 +69,7 @@ def test_eliminate_blocks_exact_full_scan(full_jordan):
         jnp.asarray(HpT), jnp.asarray(s_pad), K, m, block_shots=4,
         interpret=True, full_jordan=full_jordan, exit_on_valid=False))
     tHp, ts, tprow, tused, tcf = (a.numpy() for a in eliminate_blocks(
-        torch.as_tensor(HpT.view(np.int32)), torch.as_tensor(s_pad), K, m,
+        _columns(HpT.view(np.int32)), torch.as_tensor(s_pad), K, m,
         full_jordan=full_jordan, exit_on_valid=False))
     # vs the Pallas kernel: every output
     assert np.array_equal(tprow, pprow)
@@ -100,7 +109,7 @@ def test_eliminate_blocks_validity_exit_consumed_outputs():
     outs = {}
     for exit_valid in (False, True):
         _, s, prow, used, _, steps = (a.numpy() for a in eliminate_blocks(
-            torch.as_tensor(HpT), torch.as_tensor(residual), K, m,
+            _columns(HpT), torch.as_tensor(residual), K, m,
             exit_on_valid=exit_valid, return_steps=True))
         e0 = np.zeros((B, n), np.int32)
         for b in range(B):

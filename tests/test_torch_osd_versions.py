@@ -164,16 +164,20 @@ def test_fused_exit_trails_v1_by_under_a_group(K):
 def test_dispatch_follows_kernel_version(monkeypatch):
     HpT, s_pad, K, m = _case("narrow")
     args = (torch.as_tensor(HpT), torch.as_tensor(s_pad), K, m)
+    # the wrappers take G1's column layout of the same matrix
+    cols = osd_cuda.words_to_columns(args[0], osd_cuda.column_stride(
+        HpT.shape[1], HpT.shape[2], "cpu"))
     outs = {}
     for ver in (1, 2, 3):
         monkeypatch.setattr(osd_cuda, "_KERNEL_VERSION", ver)
-        outs[ver] = osd_cuda.eliminate_blocks(*args, return_steps=True)
+        outs[ver] = osd_cuda.eliminate_blocks(cols, *args[1:],
+                                              return_steps=True)
         want = PLAIN[ver](*args, return_steps=True)
         for a, b in zip(outs[ver], want):
             assert torch.equal(a, b)
     monkeypatch.setattr(osd_cuda, "_KERNEL_VERSION", 4)
     with pytest.raises(ValueError, match="QLDPC_OSD_KERNEL=4"):
-        osd_cuda.eliminate_blocks(*args)
+        osd_cuda.eliminate_blocks(cols, *args[1:])
 
 
 @pytest.fixture(scope="module")

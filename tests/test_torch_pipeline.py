@@ -2,11 +2,13 @@
 the gather-pack G1, the OSD's reprocess slice and the stopping loop with
 two dispatches in flight.
 
-* G1 (``csrc/gather_pack.cu``): its index arithmetic (a block per word and
-  shot, lane c on column 32w + c, warp k on set bits k, k + warps, ... of
-  the column's CSC range, bits ORed into a row word) emulated in numpy and
-  held against ``_gather_pack``, the plain version, over the whole batch, a
-  partial range and an empty one; and the wrapper's plain path with a gate.
+* G1 (``csrc/gather_pack.cu``): its index arithmetic (a warp per shot and
+  32-column group, lane c on column 32w + c, its bits ORed into its own
+  column of the warp's tile, the tile stored whole) emulated in numpy and
+  held against the plain version (``_gather_pack`` bit-transposed into the
+  eliminators' column layout) over the whole batch, a partial range and an
+  empty one, at an odd and an even batch, with the stride odd and its
+  padding words zero; and the wrapper's plain path with a gate.
 * The gated plain eliminators equal their ungated call on the live shots.
 * ``osd_batch``: a batch decoded with ``n_live`` equals the live prefix
   decoded alone; a reprocess slice too small flags its overflow, and the
@@ -40,8 +42,9 @@ torch.set_num_threads(1)
 
 SRC = (Path(__file__).resolve().parent.parent / "qldpc_tpu_torch" / "csrc"
        / "gather_pack.cu").read_text()
-GP_THREADS = int(re.search(r"^#define GP_THREADS (\d+)\b", SRC,
-                           re.M).group(1))
+GPC_WARPS, GPC_DEG = (int(re.search(rf"^#define {name} (\d+)\b", SRC,
+                                     re.M).group(1))
+                      for name in ("GPC_WARPS", "GPC_DEG"))
 SPANS = [None, (5, 23), (9, 9)]
 
 
@@ -76,64 +79,78 @@ def failed72(code72):
                 rank=rank_fast(H), basis=torch.as_tensor(column_basis(H)))
 
 
-def _emulate_gather_pack(index, cols, ld, K, W, span):
-    """gather_pack.cu's kernel in numpy: (B, W, m) uint32 words, gated-off
-    blocks unwritten (zero here)."""
+def _emulate_gather_pack(index, cols, ld, K, W, S, span):
+    """gather_pack.cu's kernel in numpy: a warp per (shot, 32-column group)
+    task, GPC_WARPS tasks a block; lane c ORs the bits of column 32w + c,
+    its first GPC_DEG rows loaded up front and the rest after, into its own
+    S words of the warp's zeroed tile; the tile goes to the output whole.
+    (B, 32W, S) uint32 words, gated-off shots unwritten (zero here)."""
     colptr, rows = index.colptr.numpy(), index.rows.numpy()
     flat = cols.reshape(-1)
-    B, m = len(cols), index.m
-    warps = GP_THREADS // 32
-    out = np.zeros((B, W, m), np.uint32)
+    B = len(cols)
+    out = np.zeros((B, 32 * W, S), np.uint32)
     lo, hi = (0, B) if span is None else span
-    for b in range(B):                      # blockIdx.y
-        if not lo <= b < hi:
-            continue                        # gated off: leaves at once
-        for w in range(W):                  # blockIdx.x
-            acc = np.zeros(m, np.uint32)    # zeroed shared words
-            for tid in range(GP_THREADS):
-                lane, warp = tid & 31, tid >> 5
+    for block in range(-(-B * W // GPC_WARPS)):      # blockIdx.x
+        for warp in range(GPC_WARPS):
+            task = block * GPC_WARPS + warp
+            if task >= B * W:
+                continue                             # past the last task
+            b, w = divmod(task, W)
+            if not lo <= b < hi:
+                continue                             # gated off
+            tile = np.zeros((32, S), np.uint32)
+            for lane in range(32):
                 c = 32 * w + lane
                 if c >= K:
                     continue
                 j = flat[b * ld + c]
-                for e in range(colptr[j] + warp, colptr[j + 1], warps):
-                    acc[rows[e]] |= np.uint32(1 << lane)
-            out[b, w] = acc
+                e, e1 = colptr[j], colptr[j + 1]
+                first = [rows[e + d] if e + d < e1 else -1
+                         for d in range(GPC_DEG)]
+                rest = rows[e + GPC_DEG:e1]
+                for r in [r for r in first if r >= 0] + list(rest):
+                    tile[lane, r >> 5] |= np.uint32(1 << (r & 31))
+            # 8 S 16-byte vectors, lane i storing i, i + 32, ...: the tile
+            # is 32 S contiguous words of the output, starting at column 32w
+            out[b, 32 * w:32 * w + 32] = tile
     return out
 
 
+@pytest.mark.parametrize("B", [23, 32])
 @pytest.mark.parametrize("span", SPANS)
-def test_gather_pack_emulation_matches_plain(code72, span):
-    """The kernel's arithmetic gives _gather_pack's words on every live
-    shot, from a column-order view with a row stride (the sort indices'
-    prefix) and a partial last word; the wrapper's plain path gated the
-    same way equals it and reads zero elsewhere."""
+def test_gather_pack_emulation_matches_plain(code72, span, B):
+    """The kernel's arithmetic gives the plain version's column words on
+    every live shot, from a column-order view with a row stride (the sort
+    indices' prefix) and a partial last word, at an odd and an even batch;
+    S is odd and every padding word is zero. The wrapper's plain path gated
+    the same way equals it and reads zero elsewhere."""
     _, _, M = code72
     H = (np.asarray(M["HdecZ"]) != 0).astype(np.uint8)
     index = osd_cuda.column_index(H)
-    n = H.shape[1]
+    m, n = H.shape
     rng = np.random.default_rng(4)
     order = torch.as_tensor(np.stack([rng.permutation(n)
-                                      for _ in range(32)]))
+                                      for _ in range(B)]))
     K, Kp = 200, 224
     cols = order[:, :K]
     assert cols.stride(0) == n                       # a view: ld = n
-    got = _emulate_gather_pack(index, order.numpy(), n, K, Kp // 32, span)
-    want = osd_cuda._gather_pack(index.HT, cols, Kp, words_major=True)
-    lo, hi = (0, 32) if span is None else span
+    S = osd_cuda.column_stride(Kp // 32, m, "cpu")
+    assert S % 2 == 1 and S == -(-m // 32) | 1
+    lo, hi = (0, B) if span is None else (span[0], min(span[1], B))
+    got = _emulate_gather_pack(index, order.numpy(), n, K, Kp // 32, S,
+                               (lo, hi))
+    want = osd_cuda.words_to_columns(
+        osd_cuda._gather_pack(index.HT, cols, Kp, words_major=True), S)
+    assert want.shape == (B, Kp, S)
     assert np.array_equal(got[lo:hi].view(np.int32), want[lo:hi].numpy())
+    assert not want[:, K:].any()                     # columns past K
+    assert not want[..., -(-m // 32):].any()         # the stride's padding
     live = None if span is None else torch.tensor(span, dtype=torch.int32)
     plain = osd_cuda.gather_pack(index, cols, Kp, live=live)
     assert torch.equal(plain[lo:hi], want[lo:hi])
-    off = torch.ones(32, dtype=torch.bool)
+    off = torch.ones(B, dtype=torch.bool)
     off[lo:hi] = False
     assert not plain[off].any()
-    # the CSC copy holds exactly H's set bits, by column then row
-    colptr = index.colptr.numpy()
-    assert colptr[-1] == H.sum() and index.HT.shape == (n, H.shape[0])
-    j = int(order[0, 0])
-    assert np.array_equal(index.rows.numpy()[colptr[j]:colptr[j + 1]],
-                          np.nonzero(H[:, j])[0])
 
 
 @pytest.mark.parametrize("span", [(3, 29), (0, 0), (0, 40), (17, 18)])
