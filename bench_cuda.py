@@ -113,25 +113,13 @@ def estimate_python_baseline(H, prior, syndromes, maxIter=20) -> float:
 
 def build(code_name: str, p: float, maxIter: int, osd_order: int, dev):
     """Code, circuit, matrices (cached in ``matrix_cache/``, the JAX
-    package's format) and both decode bases with the dynamical schedule."""
-    import qldpc_tpu_torch as qt
+    package's format) and both decode bases with the dynamical schedule
+    (``qldpc_tpu_torch.scripts.build``), and the schedule."""
     from qldpc_tpu_torch.ops.bp import alpha_schedule
-    from qldpc_tpu_torch.parallel.engine import _make_basis
-    from qldpc_tpu_torch.utils.caching import (compute_cache_key,
-                                               load_matrices, save_matrices)
+    from qldpc_tpu_torch.scripts import build as build_bases
 
-    code = qt.get_code(code_name)
-    cycles = code.distance
-    circ = qt.SyndromeCircuit(code, num_cycles=cycles)
-    key = compute_cache_key(code.Hx, code.Hz, code.Lx, code.Lz, cycles, p)
-    M = load_matrices("matrix_cache", key)
-    if M is None:
-        M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, p)
-        save_matrices("matrix_cache", key, M)
-    seq = alpha_schedule("dynamical", maxIter)
-    decs = [_make_basis(circ, M, b, seq, osd_order=osd_order, device=dev)
-            for b in "ZX"]
-    return circ, M, decs, seq
+    circ, M, decs = build_bases(code_name, p, maxIter, osd_order, dev)
+    return circ, M, decs, alpha_schedule("dynamical", maxIter)
 
 
 def bench_config(code_name, p, batch, rpd, maxIter, osd_order, dev,

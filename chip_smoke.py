@@ -102,7 +102,22 @@ launch gated to nothing timed (the gate's cost); one steady pooled
 dispatch under torch.cuda.set_sync_debug_mode("error") (no host read),
 its flags equal to phase 4's shot for shot; and run_simulation at the
 bench configuration with one and with two dispatches in flight, on one
-seed, with identical tallies.
+seed, with identical tallies, (23) the bench sweeps and the OSD studies
+(the entry points of qldpc_tpu_torch/scripts that port the JAX package's
+scripts of the same names), each at full width for a short time, its
+output captured and its result line and launches printed:
+multicode_bench (K1, G1, K2), pooled_ab (scanned, pooled, pooled+layered,
+pooled@c512: K1, K3, G1, K2), maxiter_sweep, bench288_sweep (256,200,2),
+scaling_bench (1 and 2 shards), osd144_stage_ab and osd288_ab (one
+maxIter, two stage-1 widths, sums independent of the width),
+osd288_probe (K1, K3, G1, K2), osd_margin_probe at [[144,12,12]] and
+[[288,12,18]] (G1, K2), osd_microbench under QLDPC_OSD_KERNEL=1, 2 and 3
+(G1 with K2, K4, K5; equal valid counts) and bp_lift_bench (K1); the
+studies' statistics (stage sums, exit depths, stage-1 coverage, valid
+shots within each K, the basis rerun's outputs) on the card against the
+plain versions on the same BP-failed posteriors at [[144,12,12]] and
+[[288,12,18]]; and every pooled@cN flag equal to pool/8's on one
+dispatch's draws.
 Each path runs with every launch count set to 0 just before it and read
 just after; every path that runs OSD launches G1 beside its eliminator.
 Exits non-zero, and prints
@@ -2320,6 +2335,219 @@ def main():
              f"phase 4: {got}")
     print(f"phase 22: {time.time() - t22:.1f} s", flush=True)
 
+    # ---- phase 23: the bench sweeps and the OSD studies ----
+    # the eleven entry points of qldpc_tpu_torch/scripts that port the JAX
+    # package's bench sweeps and OSD studies, each at full width for a
+    # short time (one configuration a sweep, 1-second windows), each with
+    # the launches it made; the OSD studies' statistics on the card against
+    # the plain versions on the same posteriors; osd_microbench under each
+    # eliminator; and every pooled@cN against pool/8 on one dispatch's
+    # randoms
+    import io
+
+    from qldpc_tpu_torch.scripts import (
+        bench288_sweep, bp_lift_bench, eliminate, maxiter_sweep,
+        multicode_bench, osd144_stage_ab, osd288_ab, osd288_probe,
+        osd_margin_probe, osd_microbench, pooled_ab, residual_order,
+        scaling_bench)
+    t23 = time.time()
+    cpu = torch.device("cpu")
+    for name, M_c in zip(MC_CODES, mc_M):  # multicode_bench's cache
+        c = qt.get_code(name)
+        save_matrices(str(bp_breakdown.CACHE_DIR), compute_cache_key(
+            c.Hx, c.Hz, c.Lx, c.Lz, MC_CYCLES, P), M_c)
+    c23 = {}
+
+    def entry(label, main_fn, argv, want):
+        """``main_fn(argv)`` on the card with its output captured; fails
+        unless it printed the card's line first and a result line last and
+        launched the kernels ``want`` (keys of counts()) and no other."""
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = main_fn(argv)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - the phase fails either way
+            fail(f"phase 23: {label} raised {type(e).__name__}: {e}")
+        c23[label] = c = counts()
+        lines = buf.getvalue().strip().splitlines()
+        if len(lines) < 2 or not lines[0].startswith("card: "):
+            fail(f"phase 23: {label} printed no card line or no result: "
+                 f"{lines[:2]}")
+        if {k for k, v in c.items() if v} != set(want):
+            fail(f"phase 23: {label} launched {c}, not {sorted(want)} alone")
+        print(f"phase 23: {label} ({time.time() - t0:.1f} s): launches "
+              + ", ".join(f"{k.upper()} {c[k]}" for k in sorted(want))
+              + f"; {lines[-1][:400]}", flush=True)
+        return out, lines
+
+    def quiet(fn, *a):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*a)
+
+    mc23, lines = entry("multicode_bench", multicode_bench.main,
+                        [str(BATCH), str(RPD), "1", "--windows", "1"],
+                        {"k1", "k2", "g1"})
+    if json.loads(lines[-1])["shots_per_sec_per_code"] <= 0:
+        fail(f"phase 23: multicode_bench measured nothing: {mc23}")
+    ab23, lines = entry("pooled_ab", pooled_ab.main, [
+        "--seconds", "1", "--reps", "1", "--windows", "1", "--configs",
+        "scanned", "pooled", "pooled+layered", "pooled@c512"],
+        {"k1", "k3", "k2", "g1"})
+    if json.loads(lines[-1])["best_shots_per_sec"] != \
+            ab23["best_shots_per_sec"]:
+        fail("phase 23: pooled_ab's result line differs from its result")
+    mi23, lines = entry("maxiter_sweep", maxiter_sweep.main,
+                        ["50", "--pooled", "--seconds", "1"],
+                        {"k1", "k2", "g1"})
+    if "best-of-2 per config:" not in lines:
+        fail("phase 23: maxiter_sweep printed no best-of-2 table")
+    b288, lines = entry("bench288_sweep", bench288_sweep.main, [
+        "--seconds", "1", "--windows", "1", "--configs", "256,200,2"],
+        {"k1", "k2", "g1"})
+    if [r["shots_per_sec"] > 0 for r in json.loads(lines[-1])["results"]
+            .values()] != [True]:
+        fail(f"phase 23: bench288_sweep measured nothing: {b288}")
+    sc23, _ = entry("scaling_bench", scaling_bench.main,
+                    ["--devices", "1", "2", "--reps", "2"],
+                    {"k1", "k2", "g1"})
+    saved = (osd144_stage_ab.STAGE1, osd288_ab.MAX_ITERS, osd288_ab.STAGE1)
+    osd144_stage_ab.STAGE1, osd288_ab.MAX_ITERS = (0, 256), (200,)
+    osd288_ab.STAGE1 = (0, 768)
+    try:
+        s144, _ = entry("osd144_stage_ab", osd144_stage_ab.main,
+                        [str(BATCH), str(MAXITER)], {"k1", "k2", "g1"})
+        s288, _ = entry("osd288_ab", osd288_ab.main, ["256"],
+                        {"k1", "k2", "g1"})
+    finally:
+        osd144_stage_ab.STAGE1, osd288_ab.MAX_ITERS, osd288_ab.STAGE1 = saved
+    for label, res in (("osd144_stage_ab", s144), ("osd288_ab", s288[200])):
+        if len({v[:3] for v in res.values()}) != 1:
+            fail(f"phase 23: {label}'s sums depend on the stage-1 width: "
+                 f"{res}")
+    pr23, _ = entry("osd288_probe", osd288_probe.main, ["256", "50"],
+                    {"k1", "k3", "k2", "g1"})
+    mg144, _ = entry("osd_margin_probe [[144]]", osd_margin_probe.main,
+                     [CODE, str(P), "512", "1"], {"k2", "g1"})
+    mg288, _ = entry("osd_margin_probe [[288]]", osd_margin_probe.main,
+                     [CODE_288, "0.005", "256", "1"], {"k2", "g1"})
+    micro = {}
+    saved = osd_cuda._KERNEL_VERSION
+    try:
+        for version, key in ((1, "k2"), (2, "k4"), (3, "k5")):
+            osd_cuda._KERNEL_VERSION = version
+            micro[key], _ = entry(
+                f"osd_microbench QLDPC_OSD_KERNEL={version}",
+                osd_microbench.main, [CODE, str(P), "512"], {key, "g1"})
+    finally:
+        osd_cuda._KERNEL_VERSION = saved
+    valid_keys = [k for k in micro["k2"] if k.endswith("_valid")]
+    if any(micro[v][k] != micro["k2"][k] for v in micro for k in valid_keys):
+        fail(f"phase 23: osd_microbench's valid counts differ by "
+             f"eliminator: {micro}")
+    # 128 shots: the PyTorch-op decoders take 2-7 ms an iteration at 512
+    bl23, _ = entry("bp_lift_bench", bp_lift_bench.main,
+                    [CODE, str(P), "128", "20"], {"k1"})
+
+    # the studies' statistics: the card against the plain versions on the
+    # same BP-failed posteriors (K1, maxIter 50): [[144,12,12]] 16 shots,
+    # [[288,12,18]] 4 shots (p=0.005, its matrices from the cache)
+    def failed_shots(dec_c, n_locs_c, p_c, B_c, keep):
+        g = torch.Generator(device=dev).manual_seed(SEED + 23)
+        syn_c = trial_batch(g, p_c, dec_c.maps, dec_c.maps, n_locs_c,
+                            B_c)["syndrome_z"]
+        r = bp_lift_cuda.decode_batch_lift_cuda(dec_c.lifted, syn_c,
+                                                dec_c.prior,
+                                                dec_c.alpha_seq, MAXITER)
+        f = torch.nonzero(~r["converged"])[:keep, 0]
+        return syn_c[f], r["values"][f], r["hard"][f]
+
+    def studies(dec_g, dec_c, shots, stage1, order, where):
+        """Each study's statistic on the card and on the CPU (the stage
+        sums at OSD order ``order``); fails unless they are equal."""
+        got = []  # card, CPU
+        for d, device in ((dec_g, dev), (dec_c, cpu)):
+            syn_d, vals, hard = (t.to(device) for t in shots)
+            residual, ranked = residual_order(d, syn_d, vals, hard)
+            bp_d = dict(values=vals, hard=hard)
+            full = torch.cat([ranked[:, :d.K], d.basis_cols[None].expand(
+                len(ranked), d.basis_cols.numel())], 1)
+            s_red, used, cf, _ = eliminate(d, full, residual,
+                                           d.K + d.basis_cols.numel(), True,
+                                           0, device)
+            probe = quiet(osd288_probe.probe, d, syn_d, vals, hard, stage1,
+                          0, device)
+            got.append(dict(
+                stage=quiet(osd144_stage_ab.run_widths, d, syn_d, bp_d,
+                            (0,) + stage1, order,
+                            d.num_test if order else 0, 0, device),
+                depth=probe["depth"].tolist(),
+                unsat=(probe["unsat"] != 0).tolist(),
+                prefix=probe["prefix"],
+                valid={K: v.tolist() for K, v in
+                       osd_margin_probe.valid_within(
+                           d, ranked, residual,
+                           osd_margin_probe.K_GRID, device).items()},
+                basis_rerun=[s_red.tolist(), used.tolist(), cf.tolist()]))
+        for key in got[0]:
+            a, b = got[0][key], got[1][key]
+            if key == "stage":
+                a = {s: v[:3] for s, v in a.items()}
+                b = {s: v[:3] for s, v in b.items()}
+            if a != b:
+                fail(f"phase 23: {where} {key} differs between the card "
+                     f"and the plain versions: {a} vs {b}"[:2000])
+        return got[0]
+
+    dec_cpu = engine._make_basis(circ, M, "Z", seq, osd_order=OSD_ORDER,
+                                 device=cpu)
+    st144 = studies(decs[0], dec_cpu,
+                    failed_shots(decs[0], n_locs, P, BATCH, 16), (256,),
+                    OSD_ORDER, CODE)
+    from qldpc_tpu_torch.scripts.bp_breakdown import cached_matrices
+    code288 = qt.get_code(CODE_288)
+    circ288c, M288c = cached_matrices(code288, CYCLES_288, 0.005)
+    seq50 = alpha_schedule("dynamical", MAXITER)
+    d288 = [engine._make_basis(circ288c, M288c, "Z", seq50, device=d)
+            for d in (dev, cpu)]
+    st288 = studies(*d288, failed_shots(d288[0], circ288c.num_error_locs,
+                                        0.005, 64, 4), (768,), 0,
+                    CODE_288)
+    print(f"phase 23: the studies' statistics equal the plain versions' on "
+          f"the same posteriors: {CODE} 16 failed shots (order 2, stage-1 "
+          f"widths 0 and 256: delta-sum, valid, rank-deficient "
+          f"{st144['stage'][0][:3]}"
+          f"; exit depths max {max(st144['depth'])}; stage 1 leaves "
+          f"{st144['prefix'].get(256)} uncovered; valid within K "
+          + str({K: sum(v) for K, v in st144["valid"].items()})
+          + f"; the basis rerun's outputs), {CODE_288} 4 failed shots "
+          f"(stage-1 width 768 leaves {st288['prefix'].get(768)} uncovered, "
+          f"exit depths {st288['depth']}, the basis rerun's outputs)",
+          flush=True)
+
+    # pooled@cN: every chunk gives pool/8's flags on one dispatch's draws
+    cfgs = ["pooled"] + [f"pooled@c{n}" for n in (512, 1024, 2048,
+                                                   RPD * BATCH)]
+    fns23 = pooled_ab.make_config_fns(cfgs, *decs, n_locs, P, BATCH, RPD,
+                                      MAXITER, OSD_ORDER)
+    g23 = torch.Generator(device=dev).manual_seed(SEED + 23)
+    draws23 = [sample_gate_randoms(g23, BATCH, n_locs, P)
+               for _ in range(RPD)]
+    ref23 = fns23["pooled"](None, randoms=draws23)
+    for cfg in cfgs[1:]:
+        got23 = fns23[cfg](None, randoms=draws23)
+        bad = [k for k in ref23 if not torch.equal(got23[k], ref23[k])]
+        if bad:
+            fail(f"phase 23: {cfg} flags {bad} differ from pool/8's")
+    print(f"phase 23: pooled@c512/1024/2048/4096 flags equal pool/8's on one "
+          f"dispatch ({int(ref23['any_err'].sum())} errors in "
+          f"{RPD * BATCH}); "
+          + pooled_ab.chunk_plan(f"pooled@c{RPD * BATCH}", decs, RPD * BATCH,
+                                 dev), flush=True)
+    print(f"phase 23: {time.time() - t23:.1f} s", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -2418,6 +2646,14 @@ def main():
              bound_ms=p2_top["bound_ms"], bound_by="bytes",
              library_ms=p2_top["library_ms"]),
     ]
+    keys23 = dict(bp_flood_kernel="k1", gf2_elim_kernel="k2",
+                  bp_layered_kernel="k3", gf2_elim_fused_kernel="k4",
+                  gf2_elim_pair_kernel="k5", gather_pack_kernel="g1")
+    for kd in kernels:
+        if kd["name"] in keys23:
+            kd["entry_point_launches"] = {
+                lab: c[keys23[kd["name"]]] for lab, c in c23.items()
+                if c[keys23[kd["name"]]]}
     print(f"max SM clock {sm_clock}, {sms} SMs; every phase passed in "
           f"{time.time() - t_start:.1f} s")
     print(card)

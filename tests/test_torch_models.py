@@ -168,7 +168,13 @@ def test_port_imports_without_jax():
                  "scripts.validate_ler", "scripts.merge_validation",
                  "examples", "examples.toy_example", "examples.toy_422",
                  "ops.osd", "ops.sampler", "parallel.decoder",
-                 "parallel.code_capacity", "utils.benchloop"):
+                 "parallel.code_capacity", "utils.benchloop",
+                 "scripts.multicode_bench", "scripts.pooled_ab",
+                 "scripts.maxiter_sweep", "scripts.bench288_sweep",
+                 "scripts.scaling_bench", "scripts.osd144_stage_ab",
+                 "scripts.osd288_ab", "scripts.osd288_probe",
+                 "scripts.osd_margin_probe", "scripts.osd_microbench",
+                 "scripts.bp_lift_bench"):
         assert f"qldpc_tpu_torch.{name}" in names, name
     tree = ast.parse((root / "chip_smoke.py").read_text())
     imported = set()

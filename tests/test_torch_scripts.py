@@ -19,7 +19,13 @@ from qldpc_tpu.utils import caching as jcaching
 
 import qldpc_tpu_torch as qt
 from qldpc_tpu_torch.ops import sampler
-from qldpc_tpu_torch.scripts import bp_breakdown, gather_bench, gather_probe
+from qldpc_tpu_torch.scripts import (bench288_sweep, bp_breakdown,
+                                     bp_lift_bench, gather_bench,
+                                     gather_probe, maxiter_sweep,
+                                     multicode_bench, osd144_stage_ab,
+                                     osd288_ab, osd288_probe,
+                                     osd_margin_probe, osd_microbench,
+                                     pooled_ab, scaling_bench)
 from qldpc_tpu_torch.utils import caching
 
 torch.set_num_threads(1)
@@ -138,7 +144,10 @@ def test_gather_probe_runs_on_cpu(capsys):
     assert capsys.readouterr().out.count("OK  match=True") == len(results)
 
 
-@pytest.mark.parametrize("entry", [bp_breakdown, gather_bench, gather_probe])
+@pytest.mark.parametrize("entry", [
+    bp_breakdown, gather_bench, gather_probe, multicode_bench, pooled_ab,
+    maxiter_sweep, bench288_sweep, scaling_bench, osd144_stage_ab, osd288_ab,
+    osd288_probe, osd_margin_probe, osd_microbench, bp_lift_bench])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device is valid")
