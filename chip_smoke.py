@@ -117,7 +117,16 @@ studies' statistics (stage sums, exit depths, stage-1 coverage, valid
 shots within each K, the basis rerun's outputs) on the card against the
 plain versions on the same BP-failed posteriors at [[144,12,12]] and
 [[288,12,18]]; and every pooled@cN flag equal to pool/8's on one
-dispatch's draws.
+dispatch's draws, (24) the last JAX-side scripts: ler_oracle's decode of
+the committed reference-sampled [[90,8,10]] trials (4,000, maxIter 20 and
+50; K1, G1, K2) against the JAX package's per-trial flags (|z| <= 3), the
+first 64 trials equal to the plain path's; profile_round --cumulative at
+the bench configuration (its BP and OSD chunks equal to the plain
+versions on 256 shots); osd_batch's prefixes (osd_microbench) on the card
+equal to the plain versions on 16 failed shots; osd_post_micro (its ops
+equal on the card and the CPU); bp_microbench (K1 and the padded-CSR loop
+equal to the plain versions); and bp_lift_bench --layered at
+[[288,12,18]] (K1 and K3 equal to their plain versions there).
 Each path runs with every launch count set to 0 just before it and read
 just after; every path that runs OSD launches G1 beside its eliminator.
 Exits non-zero, and prints
@@ -2358,7 +2367,7 @@ def main():
             c.Hx, c.Hz, c.Lx, c.Lz, MC_CYCLES, P), M_c)
     c23 = {}
 
-    def entry(label, main_fn, argv, want):
+    def entry(label, main_fn, argv, want, phase=23):
         """``main_fn(argv)`` on the card with its output captured; fails
         unless it printed the card's line first and a result line last and
         launched the kernels ``want`` (keys of counts()) and no other."""
@@ -2370,15 +2379,16 @@ def main():
                 out = main_fn(argv)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 - the phase fails either way
-            fail(f"phase 23: {label} raised {type(e).__name__}: {e}")
+            fail(f"phase {phase}: {label} raised {type(e).__name__}: {e}")
         c23[label] = c = counts()
         lines = buf.getvalue().strip().splitlines()
         if len(lines) < 2 or not lines[0].startswith("card: "):
-            fail(f"phase 23: {label} printed no card line or no result: "
-                 f"{lines[:2]}")
+            fail(f"phase {phase}: {label} printed no card line or no "
+                 f"result: {lines[:2]}")
         if {k for k, v in c.items() if v} != set(want):
-            fail(f"phase 23: {label} launched {c}, not {sorted(want)} alone")
-        print(f"phase 23: {label} ({time.time() - t0:.1f} s): launches "
+            fail(f"phase {phase}: {label} launched {c}, not {sorted(want)} "
+                 f"alone")
+        print(f"phase {phase}: {label} ({time.time() - t0:.1f} s): launches "
               + ", ".join(f"{k.upper()} {c[k]}" for k in sorted(want))
               + f"; {lines[-1][:400]}", flush=True)
         return out, lines
@@ -2547,6 +2557,191 @@ def main():
           + pooled_ab.chunk_plan(f"pooled@c{RPD * BATCH}", decs, RPD * BATCH,
                                  dev), flush=True)
     print(f"phase 23: {time.time() - t23:.1f} s", flush=True)
+
+    # ---- phase 24: the oracle, the round and OSD breakdowns, the BP
+    # micro-benchmarks ----
+    # ler_oracle's decode of the committed reference-sampled [[90,8,10]]
+    # trials (maxIter 20 and 50) against the JAX package's flags, the first
+    # 64 trials against the plain path; profile_round --cumulative at the
+    # bench configuration; osd_batch's prefixes (osd_microbench) on the card
+    # against the plain versions; osd_post_micro; bp_microbench; and
+    # bp_lift_bench --layered at [[288,12,18]], each entry point's kernels
+    # against their plain versions on its own inputs
+    from qldpc_tpu_torch import profile_round
+    from qldpc_tpu_torch.scripts import (bp_microbench, build, ler_oracle,
+                                         osd_post_micro)
+    t24 = time.time()
+
+    def same(a, b, where):
+        """Fails unless ``a`` (the card's tensors) equals ``b``."""
+        a = a if isinstance(a, (tuple, list)) else (a,)
+        b = b if isinstance(b, (tuple, list)) else (b,)
+        if len(a) != len(b) or not all(
+                torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b)):
+            fail(f"phase 24: {where} differs between the card and the "
+                 f"plain versions")
+
+    orc, _ = entry("ler_oracle [[90,8,10]]", ler_oracle.main, [
+        "ourdecode", "--code", "[[90, 8, 10]]", "--cycles", "10", "--p",
+        "0.004", "--max-iter", "20", "50"], {"k1", "k2", "g1"}, phase=24)
+    code90 = ler_oracle.load_code("[[90, 8, 10]]")
+    circ90, M90 = cached_matrices(code90, 10, 0.004)
+    data90 = np.load(ler_oracle.data_path("[[90, 8, 10]]", 10, 0.004))
+    oracle = {}
+    for r in orc:
+        x, line, mi = r["extra"], r["line"], r["line"]["max_iter"]
+        plain90 = ler_oracle.decode_file(circ90, M90, data90, mi, OSD_ORDER,
+                                         cpu, first=64)
+        for b in "ZX":
+            for key in ("err", "conv", "rank_deficient"):
+                if not np.array_equal(r["flags"][b][key][:64],
+                                      plain90[b][key]):
+                    fail(f"phase 24: ler_oracle maxIter {mi} basis {b} "
+                         f"{key} differs from the plain path on the first "
+                         f"64 trials")
+        if abs(x["z"]) > 3:
+            fail(f"phase 24: ler_oracle maxIter {mi} LER {line['ler']:.5f} "
+                 f"is {x['z']:+.2f} sigma from the record "
+                 f"{x['record_ler']:.5f}")
+        oracle[mi] = dict(ler=line["ler"], errors=line["errors"],
+                          record_ler=x["record_ler"], z=x["z"],
+                          disagree=dict(Z=x["z_disagree"],
+                                        X=x["x_disagree"]),
+                          overflow=x["overflow_trials"],
+                          seconds=x["seconds"], launches=x["launches"])
+        print(f"phase 24: ler_oracle [[90,8,10]] maxIter {mi}: LER "
+              f"{line['ler']:.5f} ({line['errors']}/{line['n']}) against the "
+              f"record {x['record_ler']:.5f} ({x['record_errors']}), z "
+              f"{x['z']:+.2f}; trials disagreeing Z {x['z_disagree']}, X "
+              f"{x['x_disagree']}; reprocess replayed for "
+              f"{x['overflow_trials']} trials; K1 {x['launches']['K1']}, G1 "
+              f"{x['launches']['G1']}, K2 {x['launches']['eliminator']} "
+              f"launches; {x['seconds']:.1f} s; the first 64 trials equal the "
+              f"plain path's", flush=True)
+
+    cum, _ = entry("profile_round --cumulative", profile_round.main, [
+        "--cumulative", CODE, str(P), str(BATCH), "2", "--max-iter",
+        str(MAXITER), "--reps", "5"], {"k1", "k2", "g1"}, phase=24)
+    g24 = torch.Generator(device=dev).manual_seed(SEED + 24)
+    e24, p24, c24 = sample_gate_randoms(g24, 256, n_locs, P)
+    syn24 = augmented_bits(fault_bits(e24, p24, c24, decs[0].maps, "Z"),
+                           decs[0].maps)[:, :decs[0].maps.num_syn]
+    syn24 = syn24.contiguous()
+    bp24 = engine._bp_one_basis(syn24, decs[0], MAXITER)
+    plain24 = bp_lift_cuda.decode_batch_lift_plain(
+        decs[0].lifted, syn24, decs[0].prior, decs[0].alpha_seq, MAXITER)
+    same([bp24[k] for k in ("hard", "converged", "iterations")],
+         [plain24[k] for k in ("hard", "converged", "iterations")],
+         "the cumulative round's BP (K1)")
+    osd_in = (syn24, bp24["values"], bp24["hard"], bp24["converged"])
+    same(engine._osd_fallback(*osd_in, decs[0], OSD_ORDER, 128),
+         engine._osd_fallback(*(t.cpu() for t in osd_in), dec_cpu,
+                              OSD_ORDER, 128),
+         "the cumulative round's OSD chunks (G1, K2)")
+    print(f"phase 24: cumulative round ({CODE}, B={BATCH}, maxIter "
+          f"{MAXITER}, 2 in flight) ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cum["variant_ms"].items())
+          + "; stage deltas " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                           cum["delta_ms"].items())
+          + f"; its BP and OSD chunks equal the plain versions on 256 shots",
+          flush=True)
+
+    shots24 = failed_shots(decs[0], n_locs, P, BATCH, 16)
+    for stop in osd.PREFIXES + (None,):
+        outs = []
+        for d, device in ((decs[0], dev), (dec_cpu, cpu)):
+            s_, v_, h_ = (t.to(device) for t in shots24)
+            o = osd.osd_batch(d.H, d.HT, s_, v_, h_, K=d.K, order=OSD_ORDER,
+                              num_test=d.num_test, rank=d.rank,
+                              basis_cols=d.basis_cols,
+                              logical_pack=d.logical_pack,
+                              return_solution=False, col_index=d.col_index,
+                              stop_after=stop)
+            outs.append(o if stop else [o[k] for k in (
+                "logical_delta_packed", "valid", "rank_deficient",
+                "reprocess_overflow")])
+        same(*outs, f"osd_batch through {stop or 'readout'} (16 failed "
+                    f"shots)")
+    pre = micro["k2"]["prefix_ms"]
+    print(f"phase 24: osd_batch's prefixes equal the plain versions' on 16 "
+          f"failed {CODE} shots; osd_microbench (K2, B=512) prefix ms "
+          f"(delta): " + ", ".join(f"{k} {v[0]:.2f} ({v[1]:+.2f})"
+                                   for k, v in pre.items()), flush=True)
+
+    post, _ = entry("osd_post_micro", osd_post_micro.main, [], set(),
+                    phase=24)
+    # the same ops on the card and the CPU, each row's pivot columns
+    # distinct (as an elimination gives them), so that the scatters have
+    # one writer a slot
+    small = [osd_post_micro.inputs(64, 100, 900, 256, 100, d)
+             for d in (dev, cpu)]
+    distinct = torch.stack([torch.randperm(
+        small[1]["KT"], generator=torch.Generator().manual_seed(b))[
+        :small[1]["M"]] for b in range(64)]).to(torch.int32)
+    for x in small:
+        x["colofrow"] = distinct.to(x["s_red"].device)
+    for (name, fn_g), (_, fn_c) in zip(*(osd_post_micro.ops(x)
+                                          for x in small)):
+        same(fn_g(), fn_c(), f"osd_post_micro's {name}")
+    print("phase 24: osd_post_micro's ops (B=512, m=1008, n=8785, K=1280, "
+          "R=930) host ms less the no-op's, device ms: " + "; ".join(
+              f"{k} {v['minus_floor_ms']:.3f}, {v['device_ms']:.3f}"
+              for k, v in post.items())
+          + "; the card equals the CPU on every op at a small shape",
+          flush=True)
+
+    # 128 shots and 10 iterations: the roll decoder, host-bound, takes
+    # 8-18 ms an iteration at any batch
+    mb, _ = entry("bp_microbench", bp_microbench.main,
+                  [CODE, str(P), "128", "10"], {"k1"}, phase=24)
+    seq20 = alpha_schedule("dynamical", 20)
+    seq20_t = torch.as_tensor(seq20, device=dev)
+    rng24 = np.random.default_rng(0)
+    Hz = (np.asarray(M["HdecZ"]) != 0).astype(np.uint8)
+    e_mb = (rng24.random((64, Hz.shape[1])) < M["channel_probsZ"])
+    syn_mb = torch.as_tensor((e_mb.astype(np.int64) @ Hz.T) % 2,
+                             dtype=torch.int8, device=dev)
+    k1_mb = (decs[0].lifted, syn_mb, decs[0].prior, seq20_t, 20)
+    same(bp_lift_cuda.decode_batch_lift_cuda(*k1_mb)["hard"],
+         bp_lift_cuda.decode_batch_lift_plain(*k1_mb)["hard"],
+         "bp_microbench's K1")
+    same(bp_microbench.csr_loop(decs[0].graph, syn_mb, decs[0].prior,
+                                seq20_t, 20, check=True),
+         bp_microbench.csr_loop(dec_cpu.graph, syn_mb.cpu(), dec_cpu.prior,
+                                seq20_t.cpu(), 20, check=True),
+         "bp_microbench's padded-CSR loop")
+    print("phase 24: bp_microbench an iteration (ms): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in mb["split"].items())
+        + "; K1 and the padded-CSR loop equal the plain versions on 64 shots",
+        flush=True)
+
+    lay, _ = entry("bp_lift_bench --layered", bp_lift_bench.main,
+                   ["--layered"], {"k1", "k3", "k2", "g1"}, phase=24)
+    circ_l, _M_l, (d_l,) = build(CODE_288, 0.005, 20, OSD_ORDER, dev,
+                                 which="Z")
+    g_l = torch.Generator(device=dev).manual_seed(0)
+    syn_l = trial_batch(g_l, 0.005, d_l.maps, d_l.maps,
+                        circ_l.num_error_locs, 64)["syndrome_z"]
+    args_l = (d_l.lifted, syn_l, d_l.prior, d_l.alpha_seq, 20)
+    for key, fn_k, plain in (
+            ("K1", bp_lift_cuda.decode_batch_lift_cuda,
+             bp_lift_cuda.decode_batch_lift_plain),
+            ("K3", bp_lift_layered_cuda.decode_batch_lift_layered_cuda,
+             bp_lift_layered_cuda.decode_batch_lift_layered_plain)):
+        a, b = fn_k(*args_l), plain(*args_l)
+        same([a[k] for k in ("hard", "converged", "iterations", "values")],
+             [b[k] for k in ("hard", "converged", "iterations", "values")],
+             f"bp_lift_bench --layered's {key} at {CODE_288}")
+    print(f"phase 24: bp_lift_bench --layered ({CODE_288}, B=64, maxIter "
+          f"20): " + "; ".join(
+              f"{k} {v['ms']:.2f} ms ({v['ms_per_iter']:.4f} a sweep), "
+              f"converged {v['converged']}, pays {v.get('pays_ms', 0):.2f} "
+              f"saves {v.get('saves_ms', 0):.2f} ms"
+              for k, v in lay.items() if isinstance(v, dict))
+          + f"; OSD {lay['osd_ms']:.2f} ms; K1 and K3 equal their plain "
+          f"versions there", flush=True)
+    print(f"phase 24: {time.time() - t24:.1f} s", flush=True)
 
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",

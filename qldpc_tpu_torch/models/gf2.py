@@ -199,3 +199,32 @@ def css_logical_ops(Hx, Hz):
                 M[:, c] ^= M[:, i]
     assert np.array_equal((LX @ LZ.T) % 2, np.eye(k, dtype=np.uint8))
     return LX, LZ
+
+
+def css_standard_form_logicals(Hx, Hz):
+    """Paired logical operators (Lx, Lz) of a CSS code in standard form.
+
+    The columns split into the pivot columns P of Hx's reduced row-echelon
+    form, the pivot columns Q of Hz's reduced form on the remaining
+    columns, and the k columns T left over. Logical j is the unit vector
+    on T[j] completed into a kernel vector: Lz[j] = e_T[j] plus Hx's
+    reduced column T[j] on P (zero on Q), Lx[j] = e_T[j] plus Hz's reduced
+    column T[j] on Q (zero on P). So Lx @ Lz.T = I. This is the basis in
+    which the reference's sampled trials record their true logicals
+    (``scripts/oracle_data/``); :func:`css_logical_ops` gives another
+    basis of the same logical operators."""
+    Hx = _as_bits(Hx)
+    Hz = _as_bits(Hz)
+    n = Hx.shape[1]
+    Rx, px = row_reduce(Hx)
+    rest = np.setdiff1d(np.arange(n), px)
+    Rz, qz = row_reduce(Hz[:, rest])
+    T = np.setdiff1d(np.arange(len(rest)), qz)
+    k = len(T)
+    Lx = np.zeros((k, n), np.uint8)
+    Lz = np.zeros((k, n), np.uint8)
+    for j, t in enumerate(T):
+        Lz[j, rest[t]] = Lx[j, rest[t]] = 1
+        Lz[j, px] = Rx[:len(px), rest[t]]
+        Lx[j, rest[qz]] = Rz[:len(qz), t]
+    return Lx, Lz

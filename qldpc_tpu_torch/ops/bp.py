@@ -347,10 +347,13 @@ def decode_batch_tanh(graph: TannerGraph, syndrome, prior, maxIter: int,
 
 
 def harvest_messages(graph: TannerGraph, syndrome, prior, alpha_seq,
-                     advance_iters: int, clip_llr: float = 20.0):
-    """Advance undamped float32 min-sum ``advance_iters`` iterations with no
+                     advance_iters: int, damping: float = 1.0,
+                     clip_llr: float = 20.0):
+    """Advance float32 min-sum ``advance_iters`` iterations with no
     convergence exit (calibration advances state unconditionally, reference
     alpha.py:219-244), then run one unscaled (alpha = 1) check pass.
+    ``damping`` != 1 mixes each iteration's messages with the last ones as
+    :func:`decode_batch` does.
 
     Returns (R_rows (m, dr, B) unscaled messages, row_cols (m, dr)): the
     Alvarado estimators bucket these messages by the true bit of each
@@ -362,9 +365,15 @@ def harvest_messages(graph: TannerGraph, syndrome, prior, alpha_seq,
     alpha_seq = torch.as_tensor(alpha_seq, device=dev).to(torch.float32)
     index = _edge_index(graph)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    d_new = torch.tensor(damping, dtype=torch.float32, device=dev)
+    d_old = torch.tensor(1.0 - damping, dtype=torch.float32, device=dev)
     for it in range(int(advance_iters)):
         R, *parts = _check_update(Q, sgn_syn, alpha_seq[it], parts=True)
         _, Q_new, _ = _variable_update(R, prior, graph, index, parts)
-        Q = torch.where(mask3, torch.clamp(Q_new, -clip_llr, clip_llr), big)
+        Q_new = torch.clamp(Q_new, -clip_llr, clip_llr)
+        if damping != 1.0:
+            Q_new = torch.clamp(_fused_mix(d_new, Q_new, d_old, Q),
+                                -clip_llr, clip_llr)
+        Q = torch.where(mask3, Q_new, big)
     R = _check_update(Q, sgn_syn, 1.0)
     return R, graph.row_cols

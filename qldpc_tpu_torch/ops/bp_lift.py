@@ -237,7 +237,8 @@ def _to_col(A, e, g: LiftedGraph, dead):
 
 def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
                       maxIter: int, damping: float = 1.0,
-                      clip_llr: float = 20.0, msg_dtype=torch.float32):
+                      clip_llr: float = 20.0, msg_dtype=torch.float32,
+                      exit_check: bool = True):
     """Roll-based min-sum on a LiftedGraph: the twin of the JAX package's
     ``decode_batch_lift``, and the port's damped lifted decoder.
 
@@ -253,8 +254,10 @@ def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
     Edge messages live in CHECK layout, so the check update and the syndrome
     parity are reductions over the EB axis; the only cross-layout traffic is
     two rolls per edge per iteration. Runs until every shot has converged or
-    maxIter (one host read per iteration). Damping 1 on the card is kernel
-    K1's (ops/bp_lift_cuda.py); this runs the damped path there."""
+    maxIter (one host read per iteration; ``exit_check=False`` runs all
+    maxIter iterations without it, the outputs unchanged, for timing that
+    read). Damping 1 on the card is kernel K1's (ops/bp_lift_cuda.py); this
+    runs the damped path there."""
     B = syndrome.shape[0]
     dev = syndrome.device
     ell, mm, T, NB, EB = g.ell, g.mm, g.T, g.NB, g.EB
@@ -285,7 +288,7 @@ def decode_batch_lift(g: LiftedGraph, syndrome, prior, alpha_seq,
     vals = torch.zeros((NB, ell, mm, T, B), dtype=f32, device=dev)
     iters = torch.full((B,), maxIter - 1, dtype=torch.int32, device=dev)
     it = 0
-    while it < maxIter and not bool(done.all()):
+    while it < maxIter and not (exit_check and bool(done.all())):
         alpha = alpha_seq[it].to(dt)
         # --- check pass: pure reductions over the EB axis ---
         absQ = Q.abs()                       # dead positions hold +_BIG

@@ -264,10 +264,10 @@ def estimate_alpha_alvarado_autoregressive(
 def estimate_scopt_beta(H, error_rate, trials=10000, bins=50, alpha=1.0,
                         alpha_mode="dynamical", maxIter=50, llrs=None,
                         seed=0, plot_path: Optional[str] = None,
-                        device=None) -> Tuple[float, float]:
+                        chunk=_CHUNK, device=None) -> Tuple[float, float]:
     """SCOPT beta: fit log(f1/f0) = beta * x on the final posterior LLRs of
     a full (early-exiting) float32 min-sum decode (reference
-    scopt.py:8-177). Returns (beta, R^2)."""
+    scopt.py:8-177), ``chunk`` trials a decode. Returns (beta, R^2)."""
     _check_rate(error_rate)
     dev, graph, HT, prior = _setup(H, llrs, device)
     seq = torch.as_tensor(alpha_schedule(alpha_mode, maxIter, alpha),
@@ -275,7 +275,7 @@ def estimate_scopt_beta(H, error_rate, trials=10000, bins=50, alpha=1.0,
     f0, f1 = [], []
     done = 0
     while done < trials:
-        t = min(_CHUNK, trials - done)
+        t = min(chunk, trials - done)
         e, syn = _sample_errors_and_syndromes(
             _generator(dev, seed, done), HT, graph.n, error_rate, t)
         vals = decode_batch(graph, syn, prior, seq, maxIter)["values"]

@@ -54,6 +54,11 @@ from .osd_cuda import (_gather_pack, _to_int32, column_index,
 # flagged and its round replayed with the whole chunk as the slice.
 REPROCESS_SLICE = 32
 
+# The points after which ``osd_batch(..., stop_after=...)`` returns, in
+# pipeline order: timing each prefix gives each stage's cost by difference
+# (``scripts/osd_microbench.py``).
+PREFIXES = ("residual", "sort", "stage1", "tail", "basis", "reprocess")
+
 _combo_cache: dict = {}
 
 
@@ -122,7 +127,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
               num_test: int = 0, use_blocks: bool = True, rank: int = None,
               basis_cols=None, logical_pack=None,
               return_solution: bool = True, stage1_cols: int = None,
-              n_live=None, reprocess_slice: int = None, col_index=None):
+              n_live=None, reprocess_slice: int = None, col_index=None,
+              stop_after: str = None):
     """Batched OSD post-processing of failed-BP shots.
 
     Args:
@@ -158,6 +164,10 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
       col_index: the :class:`~qldpc_tpu_torch.ops.osd_cuda.ColumnIndex` of
         H that G1 reads; None builds it here (a host copy of H: callers in
         a loop pass it).
+      stop_after: one of :data:`PREFIXES`: return the stage's outputs (a
+        tuple of tensors) right after it, for timing the pipeline's
+        prefixes (use_blocks only past "sort"; "tail" is "stage1"'s when
+        the scan is single-stage). None runs the whole OSD.
 
     Returns dict: solution (B, n) int8 (if return_solution), valid (B,) bool
     (syndrome exactly reproduced), rank_deficient (B,) bool,
@@ -178,12 +188,19 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     # counts exact (see ops/sampler.py)
     hard_syn = (hard.to(torch.float32) @ HT).to(i32) & 1
     residual = syndrome.to(i32) ^ hard_syn                       # (B, m)
+    if stop_after == "residual":
+        return (residual,)
+    if stop_after not in (None,) + PREFIXES or (
+            not use_blocks and stop_after in ("stage1", "tail", "basis")):
+        raise ValueError(f"stop_after={stop_after!r}")
 
     # reliability ordering (stable: ties keep column order)
     order_idx = torch.sort(llr.abs(), dim=1, stable=True).indices
     colsK = order_idx[:, :K]
     lp_sorted = (logical_pack.to(i32)[order_idx]
                  if logical_pack is not None else None)
+    if stop_after == "sort":
+        return residual, colsK
 
     if basis_cols is not None and K == n:
         basis_cols = None  # full-width prefix: nothing left to complete
@@ -237,6 +254,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             K1 = stage1_cols
             _, s1, prow1, used1, cf1 = eliminate(
                 pack(colsK, -(-K1 // 32) * 32, span), residual, K1, span)
+            if stop_after == "stage1":
+                return s1, prow1, used1, cf1
             covered = torch.where(used1, 0, s1).sum(1) == 0
             if live is not None:
                 covered |= ~live
@@ -257,6 +276,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             _, s1, prow1, used1, cf1 = eliminate(
                 pack(colsK, Kp, span), residual, K, span)
             prow1 = pad_prow(prow1)
+        if stop_after in ("stage1", "tail"):
+            return s1, prow1, used1, cf1
         if basis_cols is not None:
             # basis completion: shots the prefix left uncovered, sorted
             # first, rerun at full width (prefix + basis words); the others
@@ -273,6 +294,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
                                            (s1, prow1, used1, cf1),
                                            (s2, prow2, used2, cf2))
+        if stop_after == "basis":
+            return s1, prow1, used1, cf1
         s_red, prow_of_col, used, cf = s1, prow1, used1, cf1
         # OSD-0 correction scattered from row space: e0[colofrow[r]] =
         # s_red[r] for pivot rows; unused rows dump into slot KT
@@ -329,6 +352,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
                 hard[idx], colsE[idx], order, num_test, S, KT, m)
             e_perm = e_perm.index_copy(0, idx, e_r)
             valid = valid.index_copy(0, idx, valid_r)
+    if stop_after == "reprocess":
+        return e_perm, valid, overflow
 
     out = dict(valid=valid, rank_deficient=rank_deficient,
                reprocess_overflow=overflow)

@@ -61,6 +61,10 @@ class TrialMaps:
     num_syn: int            # syndrome rows (first num_syn rows of R axis)
     k: int                  # logical rows (last k rows)
 
+    @property
+    def num_locations(self) -> int:
+        return self.A_loc_T.shape[1]
+
 
 def trial_maps_from_arrays(sel, gate_loc, A_loc, num_syn: int, k: int,
                            device) -> TrialMaps:

@@ -269,13 +269,21 @@ def _decode_logicals(syndrome, dec: BasisDecoder, maxIter: int,
 def _decode_one_basis(syndrome, true_log, dec: BasisDecoder, maxIter: int,
                       osd_order: int, damping: float = 1.0,
                       clip_llr: float = 20.0, msg_dtype=torch.float32,
-                      bp_variant: str = "minsum"):
+                      bp_variant: str = "minsum",
+                      return_overflow: bool = False):
     """:func:`_decode_logicals` scored against the true logical effect:
-    (err (B,) bool, converged, rank_deficient)."""
-    dec_log, conv, rdef = _decode_logicals(syndrome, dec, maxIter, osd_order,
-                                           damping, clip_llr, msg_dtype,
-                                           bp_variant)
-    return (dec_log != true_log.to(torch.int32)).any(1), conv, rdef
+    (err (B,) bool, converged, rank_deficient). A batch whose OSD reprocess
+    slice overflowed is decoded again with whole chunks (one host read), so
+    no answer comes from a truncated reprocess; ``return_overflow`` adds
+    the first pass's overflow flags (the shots that made it replay)."""
+    args = (syndrome, dec, maxIter, osd_order, damping, clip_llr, msg_dtype,
+            bp_variant)
+    dec_log, conv, rdef, overflow = _decode_logicals(*args,
+                                                     return_overflow=True)
+    if bool(overflow.any()):
+        dec_log, conv, rdef = _decode_logicals(*args, replay=True)
+    out = ((dec_log != true_log.to(torch.int32)).any(1), conv, rdef)
+    return out + (overflow,) if return_overflow else out
 
 
 def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,

@@ -29,6 +29,20 @@ Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
         [--bp-variant minsum|layered] [--osd-kernel 1|2|3]
         [--alpha-mode dynamical|alvarado|alvarado-autoregressive]
         [--pipeline-depth 1 2]
+    python -m qldpc_tpu_torch.profile_round --cumulative [code] [p=0.004]
+        [batch=512] [inflight=2] [--max-iter 20] [--device cuda|cpu]
+
+``--cumulative`` is the JAX package's ``scripts/round_breakdown.py``: one
+unpooled round of ``batch`` shots (the registry code at its distance in
+cycles, OSD order 2, chunks of batch/8) in cumulative variants, null
+dispatch -> + sampling and syndromes of both bases -> + BP of both bases
+(K1) -> + the residual sort -> + the OSD chunks (G1 and the eliminator,
+each chunk gated on the device) -> the full round with the readout
+(``engine.make_round_fn``). Each variant is timed in this one process,
+``inflight`` dispatches in flight as the bench keeps them, each reduced to
+one device scalar and read back oldest first; successive differences give
+each stage's share of a dispatch's wall time (the CUDA-event split above
+gives device time only).
 
 ``--bp-variant`` picks the BP schedule (flooding K1, layered K3) and
 ``--osd-kernel`` the eliminator generation (K2, K4, K5), as
@@ -119,6 +133,11 @@ def stage_split(decs, n_locs, gen, cfg, dispatches: int) -> tuple:
              for k, v in acc.items()}, staged_ms)
 
 
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def pipelined(fn, gen, dispatches: int, depth: int) -> dict:
     """``dispatches`` dispatches of ``fn(gen)`` with up to ``depth`` in
     flight, each consumed (read to the host) oldest first; the last ones
@@ -127,7 +146,7 @@ def pipelined(fn, gen, dispatches: int, depth: int) -> dict:
     (issue) and inside the consumption (reading the oldest round)."""
     inflight: deque = deque()
     issue = consume = 0.0
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     issued = 0
     while issued < dispatches or inflight:
@@ -187,8 +206,98 @@ def profiled(fn, gen, dispatches: int, depth: int, elim_range: str) -> dict:
                 elim_by_width=widths or None, g1_ms=g1)
 
 
+CUMULATIVE = ("null dispatch", "sample+syndrome both bases",
+              "+ BP both bases", "+ residual sort", "+ OSD chunks",
+              "FULL round (engine round_fn)")
+
+
+def cumulative_fn(level: int, decs, n_locs: int, p: float, batch: int,
+                  maxIter: int, osd_order: int = 2):
+    """Variant ``level`` of :data:`CUMULATIVE` as ``fn(gen)`` -> one 0-d
+    device tensor (every output the variant computes, summed)."""
+    if level == 5:
+        full = engine.make_round_fn(decs[0], decs[1], n_locs, p, batch,
+                                    maxIter, osd_order)
+        return lambda gen: sum(v.sum() for v in full(gen).values())
+    chunk = batch if batch <= 64 else max(64, batch // 8)
+
+    def run(gen):
+        dev = decs[0].H.device
+        if level == 0:
+            return torch.randint(0, 1 << 30, (8,), generator=gen,
+                                 device=dev).sum()
+        err, pauli, cat2 = sample_gate_randoms(gen, batch, n_locs, p)
+        acc = []
+        for name, dec in zip("ZX", decs):
+            aug = augmented_bits(fault_bits(err, pauli, cat2, dec.maps,
+                                            name), dec.maps)
+            syn = aug[:, :dec.maps.num_syn].contiguous()
+            if level == 1:
+                acc.append(aug.sum())
+                continue
+            bp = engine._bp_one_basis(syn, dec, maxIter)
+            conv, hard, values = bp["converged"], bp["hard"], bp["values"]
+            if level == 2:
+                acc.append(conv.sum() + hard.sum() + values.sum())
+                continue
+            if level == 3:
+                res_wt = (syn.to(torch.int32) ^ (
+                    (hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
+                          ).sum(1)
+                order = torch.sort(torch.where(conv, syn.shape[1] + 1,
+                                               res_wt), stable=True).indices
+                acc.append(syn[order].sum() + values[order].sum()
+                           + hard[order].sum() + conv[order].sum())
+                continue
+            delta = engine._osd_fallback(syn, values, hard, conv, dec,
+                                         osd_order, chunk)[0]
+            acc.append(delta.sum() + conv.sum())
+        return sum(acc)
+    return run
+
+
+def cumulative(args) -> dict:
+    """``--cumulative``: the variants' ms per dispatch, the stage
+    differences and the round's shots/s; printed, and returned."""
+    from . import resolve_device
+    from .scripts import build, card_line
+    dev = resolve_device(args.device)
+    print(card_line(dev), flush=True)
+    circ, _M, decs = build(args.code, args.p, args.max_iter, 2, dev)
+    B = args.batch
+    print(f"{args.code} p={args.p} B={B} inflight={args.inflight} "
+          f"maxIter={args.max_iter}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ms = []
+    for level, name in enumerate(CUMULATIVE):
+        fn = cumulative_fn(level, decs, circ.num_error_locs, args.p, B,
+                           args.max_iter)
+        _to_host(fn(gen))  # warm-up
+        ms.append(pipelined(fn, gen, args.reps, args.inflight)["dispatch_ms"])
+        print(f"{name:44s} {ms[-1]:9.2f} ms", flush=True)
+    stages = ("sample", "BP", "sort", "OSD", "readout")
+    deltas = {k: ms[i + 1] - ms[i] for i, k in enumerate(stages)}
+    print("\ndeltas: " + " | ".join(f"{k} {v:.1f}"
+                                    for k, v in deltas.items()) + " ms")
+    print("shares of the full round: " + " | ".join(
+        f"{k} {v / ms[-1]:.1%}" for k, v in deltas.items()))
+    print(f"round throughput: {B / ms[-1] * 1e3:,.0f} shots/s", flush=True)
+    return dict(variant_ms=dict(zip(CUMULATIVE, ms)), delta_ms=deltas,
+                shots_per_s=B / ms[-1] * 1e3)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cumulative", action="store_true",
+                    help="the cumulative variants of one round (the JAX "
+                         "package's scripts/round_breakdown.py)")
+    ap.add_argument("code", nargs="?", default="[[144, 12, 12]]")
+    ap.add_argument("p", nargs="?", type=float, default=0.004)
+    ap.add_argument("batch", nargs="?", type=int, default=512)
+    ap.add_argument("inflight", nargs="?", type=int, default=2)
+    ap.add_argument("--max-iter", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--dispatches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--json", help="write the full report here")
@@ -201,6 +310,8 @@ def main(argv=None):
     ap.add_argument("--pipeline-depth", type=int, nargs="+", default=[1, 2],
                     help="dispatches in flight; each depth is measured")
     args = ap.parse_args(argv)
+    if args.cumulative:
+        return cumulative(args)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA GPU")
     dev = torch.device("cuda")

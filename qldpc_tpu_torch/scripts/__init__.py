@@ -20,8 +20,22 @@ and the OSD studies and stage costs:
     python -m qldpc_tpu_torch.scripts.osd288_ab        # osd288_ab.py
     python -m qldpc_tpu_torch.scripts.osd288_probe     # osd288_probe.py
     python -m qldpc_tpu_torch.scripts.osd_margin_probe # osd_margin_probe.py
-    python -m qldpc_tpu_torch.scripts.osd_microbench   # osd_microbench.py
-    python -m qldpc_tpu_torch.scripts.bp_lift_bench    # bp_lift_bench.py
+    python -m qldpc_tpu_torch.scripts.osd_microbench   # osd_microbench.py,
+                                                       # osd_breakdown.py
+    python -m qldpc_tpu_torch.scripts.bp_lift_bench    # bp_lift_bench.py;
+                     # --layered: bp288_layered_lift_probe.py
+    python -m qldpc_tpu_torch.scripts.osd_post_micro   # osd_post_micro.py
+    python -m qldpc_tpu_torch.scripts.bp_microbench    # bp_microbench.py
+
+the decode of the reference-sampled trials of ``scripts/oracle_data/``
+(``scripts/ler_oracle.py``'s ``ourdecode`` phase) and the evidence for
+their logical basis:
+
+    python -m qldpc_tpu_torch.scripts.ler_oracle ourdecode ...
+    python -m qldpc_tpu_torch.scripts.ler_oracle basis ...
+
+(``scripts/round_breakdown.py`` is ``python -m qldpc_tpu_torch.profile_round
+--cumulative``.)
 
 Each runs on ``cuda`` by default and raises without a GPU; ``--device cpu``
 runs the plain versions (times are then host times, not device metrics).

@@ -12,7 +12,14 @@ alone:
   alone and on the prefix with the column basis appended, each with and
   without the validity exit, with the valid shots each finds (the same
   with and without the exit);
-* the whole ``ops.osd.osd_batch`` (order 2, with the solution).
+* the whole ``ops.osd.osd_batch`` (order 2, with the solution);
+* the cumulative prefixes of ``osd_batch`` as the engine calls it (the
+  logical delta, no solution), as the JAX package's
+  ``scripts/osd_breakdown.py`` times its own: the residual matmul, + the
+  sort, + stage 1 (G1 and the eliminator), + the staged tail's sort,
+  launches and merge, + the basis rerun's sort, launches and merge, + the
+  order-2 reprocess, + the readout (the whole call). Each line gives the
+  prefix and its difference from the one before, the stage's cost.
 
 On the card the sort, G1 and ``osd_batch`` are the mean of ``REPS`` calls
 between CUDA events, and the eliminator its launch alone
@@ -34,7 +41,7 @@ import torch
 from .. import resolve_device
 from ..ops import osd_cuda
 from ..ops.bp import decode_batch
-from ..ops.osd import osd_batch
+from ..ops.osd import PREFIXES, osd_batch
 from ..ops.sampler import trial_batch
 from . import (build, card_line, device_ms, eliminate, residual_order,
                unsatisfied)
@@ -119,7 +126,27 @@ def main(argv=None) -> dict:
                           num_test=dz.num_test, rank=dz.rank,
                           basis_cols=dz.basis_cols,
                           col_index=dz.col_index)["solution"], REPS, dev))
+    rep["prefix_ms"] = prefixes(dz, syn, vals, hard, dev)
     return rep
+
+
+def prefixes(dec, syn, vals, hard, device) -> dict:
+    """{stage: (prefix ms, its difference from the previous prefix)} of
+    ``osd_batch`` as the engine calls it, the prefixes of
+    ``ops.osd.PREFIXES`` and then the whole call ("readout")."""
+    out, prev = {}, 0.0
+    for stop in PREFIXES + (None,):
+        ms = device_ms(lambda: osd_batch(
+            dec.H, dec.HT, syn, vals, hard, K=dec.K, order=OSD_ORDER,
+            num_test=dec.num_test, rank=dec.rank, basis_cols=dec.basis_cols,
+            logical_pack=dec.logical_pack, return_solution=False,
+            col_index=dec.col_index, stop_after=stop), REPS, device)
+        name = stop or "readout"
+        out[name] = (ms, ms - prev)
+        print(f"{'osd_batch through ' + name:44s} {ms:9.2f} ms   "
+              f"delta {ms - prev:8.2f} ms", flush=True)
+        prev = ms
+    return out
 
 
 if __name__ == "__main__":

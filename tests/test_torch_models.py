@@ -139,7 +139,8 @@ def test_basis_from_jax_round_trip(built, basis):
 
 def test_port_imports_without_jax():
     """Every module of qldpc_tpu_torch imports with jax and the JAX package
-    blocked, and chip_smoke.py imports neither."""
+    blocked, ``scripts.ler_oracle`` reads the committed trials and codes
+    so, and chip_smoke.py imports neither."""
     root = Path(__file__).resolve().parent.parent
     code = (
         "import importlib, pkgutil, sys\n"
@@ -154,6 +155,13 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "assert qldpc_tpu_torch.run_simulation is not None\n"
         "assert qldpc_tpu_torch.run_multi_code_simulation is not None\n"
+        "from qldpc_tpu_torch.scripts import ler_oracle\n"
+        "import numpy as np\n"
+        "c = ler_oracle.load_code('[[90, 8, 10]]')\n"
+        "t = np.load(ler_oracle.data_path('[[90, 8, 10]]', 10, 0.004))\n"
+        "r = np.load(ler_oracle.record_path('[[90, 8, 10]]', 10, 0.004, 20))\n"
+        "assert t['syn_z'].shape[1] == 540 and c.Lx.shape == (8, 90)\n"
+        "assert r['z_err'].shape == (4000,)\n"
         "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
@@ -174,7 +182,8 @@ def test_port_imports_without_jax():
                  "scripts.scaling_bench", "scripts.osd144_stage_ab",
                  "scripts.osd288_ab", "scripts.osd288_probe",
                  "scripts.osd_margin_probe", "scripts.osd_microbench",
-                 "scripts.bp_lift_bench"):
+                 "scripts.bp_lift_bench", "scripts.ler_oracle",
+                 "scripts.osd_post_micro", "scripts.bp_microbench"):
         assert f"qldpc_tpu_torch.{name}" in names, name
     tree = ast.parse((root / "chip_smoke.py").read_text())
     imported = set()

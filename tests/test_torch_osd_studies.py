@@ -31,6 +31,7 @@ from qldpc_tpu.parallel import engine as jengine
 
 import qldpc_tpu_torch as qt
 from qldpc_tpu_torch import scripts
+from qldpc_tpu_torch.ops.osd import PREFIXES
 from qldpc_tpu_torch.scripts import (bp_lift_bench, osd144_stage_ab,
                                      osd288_ab, osd288_probe,
                                      osd_margin_probe, osd_microbench)
@@ -239,6 +240,7 @@ def test_osd_study_mains_on_cpu(at_3_cycles, capsys):
     assert micro["prefix-only_valid-exit_valid"] == \
         micro["prefix-only_full-scan_valid"]
     assert micro["osd_batch_ms"] > 0
+    assert list(micro["prefix_ms"]) == list(PREFIXES) + ["readout"]
     out = capsys.readouterr().out
     assert out.count("exit depth: mean=") == 2
     assert out.count("delta-sum") == 2 + 4
