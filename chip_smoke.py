@@ -126,7 +126,24 @@ versions on 256 shots); osd_batch's prefixes (osd_microbench) on the card
 equal to the plain versions on 16 failed shots; osd_post_micro (its ops
 equal on the card and the CPU); bp_microbench (K1 and the padded-CSR loop
 equal to the plain versions); and bp_lift_bench --layered at
-[[288,12,18]] (K1 and K3 equal to their plain versions there).
+[[288,12,18]] (K1 and K3 equal to their plain versions there), (25) the
+eliminators' block shape: K2, K4 and K5 at block_shots 1, 2, 4 and 8 (K5
+also 16) and at shared-memory budgets of one team and below one team on
+phase 3's inputs ([[144,12,12]] stage 1, prefix and full width,
+[[288,12,18]]'s basis rerun), every output equal to the plain version's
+and the default plan's and the library's plan equal to make_plan's clamps,
+each setting's launch alone at [[144]]; every eliminator launch of phase
+4's pooled dispatch under K2, K4 and K5 asking for no block shape and
+taking make_plan's old rule (its flags phase 4's), and pick_block_shots
+equal to the library's plan there; and the four entry points that set the
+block shape or were left out, at full width for one short pass each:
+osd_blockshots_sweep ([[144]], K1, G1, K2; consumed outputs identical
+across block shapes), osd288_tailblock_ab ([[288]], the default, one-team
+and 64-KB tail budgets; identical outputs), osd_panel_probe (K2 at 8, 16
+and 40 words; the panel-entry transform's bfloat16 products equal to its
+integer XOR version on the card) and bp_grid_experiment (the grid decoder
+on the card against the padded-CSR decoder there: hard decisions,
+convergence and iterations equal).
 Each path runs with every launch count set to 0 just before it and read
 just after; every path that runs OSD launches G1 beside its eliminator.
 Exits non-zero, and prints
@@ -505,6 +522,7 @@ def main():
     g1_src = {w: g1_pack(dec.col_index, cl, Kx)
               for w, (cl, Kx, _) in g1_widths.items()}
 
+    plain25 = {}  # phase 25: the plain versions' outputs, validity exit on
     for width, (Hp, Kw) in widths.items():
         for exit_on_valid in (False, True):
             a, b = k2_exact(Hp, residual, Kw, m, width, g1_src[width],
@@ -512,6 +530,7 @@ def main():
             xor_words = int(b[6].sum())  # data-dependent work of the run
             k2_err = max(k2_err, max(float((x.long() - y.long()).abs().max())
                                      for x, y in zip(a, b)))
+        plain25["K2", width] = b[:6]
         hc = g1_src[width]()
         ms = wrapper_ms(osd_cuda.eliminate_blocks_v1, hc, residual, Kw, m,
                         rank=dec.rank)
@@ -642,6 +661,7 @@ def main():
         err288 = max(float((x.long() - y.long()).abs().max())
                      for x, y in zip(a, b))
         k2_err = max(k2_err, err288)
+    plain25["K2", "basis rerun 288"] = b[:6]
     k2["basis_rerun_288_alone"] = g1_fed_ms(
         "K2", w288["basis rerun"][2], res288, Kw, m288, rank=rank288)
     info = elim_shape(Hp, res288, Kw, m288, a[5], rank=rank288)
@@ -915,6 +935,7 @@ def main():
                              f"version ({where})")
             k45_err["k4"] = max(k45_err["k4"], max_diff(a4, p4))
             k45_err["k5"] = max(k45_err["k5"], max_diff(a5, p2))
+        plain25["K4", width] = p4
         # timed as the main path calls it (validity exit on); both do K2's
         # work, so the bound is K2's at this width
         hc = g1_src[width]()
@@ -1030,10 +1051,11 @@ def main():
         kw = dict(rank=rank288) if rerun else {}
         for key, kname, fn_k, plain in alts:
             for exit_on_valid in (True,) if rerun else (False, True):
-                a, _ = alt_exact(key, fn_k, plain, Hp, res288, Kw, m288,
-                                 f"{CODE_288} {width}", src,
-                                 exit_on_valid=exit_on_valid, **kw)
+                a, pr = alt_exact(key, fn_k, plain, Hp, res288, Kw, m288,
+                                  f"{CODE_288} {width}", src,
+                                  exit_on_valid=exit_on_valid, **kw)
             if rerun:
+                plain25[kname, "basis rerun 288"] = pr  # K5's: K2's plain
                 k45[key]["basis_rerun_288_alone"] = g1_fed_ms(
                     kname, src, res288, Kw, m288, **kw)
                 print(f"phase 6: {kname} at {CODE_288} basis rerun "
@@ -1052,6 +1074,7 @@ def main():
                   f"without the validity exit; steps mean "
                   f"{float(a[5].float().mean()):.1f} max "
                   f"{int(a[5].max())}; " + shape_line(info), flush=True)
+    rerun288 = w288["basis rerun"]  # phase 25's [[288]] input
     del w288
 
     # ---- phase 7: layered path (K3 + K2) ----
@@ -2743,6 +2766,219 @@ def main():
           f"versions there", flush=True)
     print(f"phase 24: {time.time() - t24:.1f} s", flush=True)
 
+    # ---- phase 25: the eliminators' block shape ----
+    # (a) K2, K4 and K5 at block_shots 1, 2, 4 and 8 (K5 also 16) and at
+    # tail budgets of one team and below one team, on phase 3's inputs
+    # ([[144]] stage 1, prefix and full width; [[288]]'s basis rerun): every
+    # output equal to the plain version's and the default plan's, and the
+    # shots a block elim_launch_info reports equal to make_plan's clamps;
+    # (b) every eliminator launch of phase 4's pooled dispatch (under each
+    # eliminator) on make_plan's old rule, and pick_block_shots against the
+    # library at those shapes; (c) the four entry points that set the block
+    # shape or were left out, at full width, each for one short pass; (d)
+    # the grid decoder on the card against the padded-CSR decoder there
+    from qldpc_tpu_torch.scripts import (bp_grid_experiment,
+                                         osd288_tailblock_ab,
+                                         osd_blockshots_sweep,
+                                         osd_panel_probe)
+    t25 = time.time()
+    elim25 = dict(K2=osd_cuda.eliminate_blocks_v1,
+                  K4=osd_cuda.eliminate_blocks_fused,
+                  K5=osd_cuda.eliminate_blocks_pair)
+
+    def plan25(B, W, M_, kname, block_shots=None, smem_budget=None):
+        """make_plan's rule (csrc/gf2_elim_common.cuh), copied: teams / SMs
+        a block (the old rule) when block_shots is None, else
+        ceil(block_shots / spt) teams and the batch's teams at most;
+        clamped by what fits the budget, 8 teams (4 on the device-memory
+        branch) and the warps a block."""
+        spt = 2 if kname == "K5" else 1
+        NR = -(-M_ // 32)
+        tb = spt * 4 * 32 * W * (NR | 1)
+        budget = (osd_cuda._SMEM_LIMIT if smem_budget is None
+                  else min(smem_budget, osd_cuda._SMEM_LIMIT))
+        in_dev = budget // tb < 1
+        cap = 4 if in_dev else min(budget // tb, 8)
+        warps = (512 if kname != "K2" and NR > 32 else 1024) // 32
+        cap = min(cap, warps // min(max(W // 2, 1), 16))
+        teams = -(-B // spt)
+        spb = teams // sms
+        if block_shots is not None:
+            spb = min(-(-block_shots // spt), teams)
+        spb = max(min(spb, cap), 1)
+        return dict(shots_per_block=spb * spt,
+                    smem_bytes=0 if in_dev else spb * tb,
+                    blocks=-(-teams // spb),
+                    columns_in="device memory" if in_dev else "shared memory")
+
+    def plan_of(info) -> dict:
+        return {k: info[k] for k in ("shots_per_block", "smem_bytes",
+                                     "blocks", "columns_in")}
+
+    m144 = decs[0].H.shape[0]
+    cases25 = {f"{CODE} {w}": (Hp, Kw, g1_src[w], residual, m144,
+                               decs[0].rank, w)
+               for w, (Hp, Kw) in widths.items()}
+    cases25[f"{CODE_288} basis rerun"] = (*rerun288, res288, m288, rank288,
+                                          "basis rerun 288")
+    block25 = {k: {} for k in elim25}
+    reset_counts()
+    for where, (Hp, Kw, src, s25, mm, rk, key) in cases25.items():
+        Bc, W = Hp.shape[0], Hp.shape[1]
+        for kname, fn_k in elim25.items():
+            want = plain25.get((kname, key), plain25["K2", key])
+            base = fn_k(src(), s25, Kw, mm, rank=rk, return_steps=True)
+            tb = osd_cuda.elim_sizes(W, mm, kname)["team_bytes"]
+            settings = [dict(block_shots=b) for b in (1, 2, 4, 8)
+                        + ((16,) if kname == "K5" else ())]
+            settings += [dict(smem_budget=tb), dict(smem_budget=tb - 1),
+                         dict(block_shots=8, smem_budget=tb)]
+            taken = []
+            for st in settings:
+                got = fn_k(src(), s25, Kw, mm, rank=rk, return_steps=True,
+                           **st)
+                torch.cuda.synchronize()
+                for nm, g, y, z in zip(names, got, want, base):
+                    if not (torch.equal(g, y) and torch.equal(g, z)):
+                        fail(f"phase 25: {kname} {where} {st}: {nm} differs "
+                             f"from its plain version or its default plan")
+                info = plan_of(osd_cuda.elim_launch_info(Bc, W, mm, dev,
+                                                         kname, **st))
+                if info != plan25(Bc, W, mm, kname, **st):
+                    fail(f"phase 25: {kname} {where} {st}: the library plans "
+                         f"{info}, make_plan's rule "
+                         f"{plan25(Bc, W, mm, kname, **st)}")
+                taken.append((st, info))
+            ms25 = {}
+            if key != "basis rerun 288":  # each setting's launch alone
+                for st in [{}] + settings[:4]:
+                    x = src()
+                    launch, _ = osd_cuda.prepare_elim_launch(
+                        x, s25, Kw, mm, rank=rk, kernel=kname,
+                        want_matrix=False, **st)
+                    x0 = x.clone() if launch.consumes_input else None
+                    ms25[st.get("block_shots", "default")] = \
+                        handoff_timing.alone_ms(
+                            launch, 5, dev, (lambda: x.copy_(x0))
+                            if x0 is not None else None)
+            block25[kname][key] = dict(
+                team_bytes=tb, kernel_ms=ms25,
+                taken={", ".join(f"{k}={v}" for k, v in st.items()):
+                       info["shots_per_block"] for st, info in taken})
+            print(f"phase 25: {kname} {where} ({W} words, {Bc} shots): every "
+                  f"output equal to its plain version and its default plan; "
+                  f"shots a block taken: " + ", ".join(
+                      f"{', '.join(f'{k}={v}' for k, v in st.items())} -> "
+                      f"{info['shots_per_block']}"
+                      + (" (device memory)"
+                         if info["columns_in"] == "device memory" else "")
+                      for st, info in taken)
+                  + (("; alone (no matrix) ms: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in ms25.items()))
+                     if ms25 else ""), flush=True)
+    launches25 = counts()
+    torch.cuda.empty_cache()
+
+    # (b) the default plan on the main path: every eliminator launch of
+    # phase 4's pooled dispatch asks for no block shape and takes the old
+    # rule; the flags stay phase 4's
+    seen25 = []
+    prep = osd_cuda.prepare_elim_launch
+
+    def recording_prep(Hp, s, K, m, *a, kernel="K2", **kw):
+        seen25.append((Hp.shape[0], Hp.shape[1] // 32, s.shape[1], kernel,
+                       kw.get("block_shots"), kw.get("smem_budget")))
+        return prep(Hp, s, K, m, *a, kernel=kernel, **kw)
+    saved_version = osd_cuda._KERNEL_VERSION
+    osd_cuda.prepare_elim_launch = recording_prep
+    try:
+        for version in (1, 2, 3):
+            osd_cuda._KERNEL_VERSION = version
+            out25 = fn(None, randoms=randoms)
+            torch.cuda.synchronize()
+            for k, v in out_k.items():
+                if not torch.equal(v, out25[k]):
+                    fail(f"phase 25: flag {k} of phase 4's dispatch under "
+                         f"QLDPC_OSD_KERNEL={version} differs from phase 4's")
+    finally:
+        osd_cuda.prepare_elim_launch = prep
+        osd_cuda._KERNEL_VERSION = saved_version
+    if any(bs is not None or bud is not None
+           for *_, bs, bud in seen25):
+        fail("phase 25: a launch of the main path asked for a block shape")
+    plans25 = {}
+    for B5, W5, M5, kname, _, _ in sorted(set(seen25)):
+        info = plan_of(osd_cuda.elim_launch_info(B5, W5, M5, dev, kname))
+        if info != plan25(B5, W5, M5, kname):
+            fail(f"phase 25: {kname} at B={B5}, {W5} words took {info}, not "
+                 f"make_plan's old rule {plan25(B5, W5, M5, kname)}")
+        plans25[f"{kname} B={B5} W={W5}"] = info
+        # pick_block_shots against the library at this shape
+        tb = osd_cuda.elim_sizes(W5, M5, kname)["team_bytes"]
+        spt = 2 if kname == "K5" else 1
+        for budget in (None, tb, tb - 1):
+            p = osd_cuda.pick_block_shots(M5, W5, budget, 64, kname)
+            lib = osd_cuda.elim_launch_info(4096, W5, M5, dev, kname, p,
+                                            budget)
+            most = osd_cuda.elim_launch_info(4096, W5, M5, dev, kname, 64,
+                                             budget)
+            pow2 = 1 << (most["shots_per_block"].bit_length() - 1)
+            if lib["shots_per_block"] != max(p, spt) or (
+                    most["columns_in"] == "shared memory" and p != pow2) or (
+                    most["columns_in"] == "device memory" and p != spt):
+                fail(f"phase 25: pick_block_shots({M5}, {W5}, {budget}, 64, "
+                     f"{kname}) = {p}; the library takes "
+                     f"{lib['shots_per_block']}, at most "
+                     f"{most['shots_per_block']} in {most['columns_in']}")
+    print(f"phase 25: phase 4's dispatch under K2, K4 and K5: "
+          f"{len(seen25)} eliminator launches, none asking for a block "
+          f"shape, flags equal to phase 4's; each on make_plan's old rule "
+          f"(shots a block, shared memory, blocks): " + "; ".join(
+              f"{k} {v['shots_per_block']}, {v['smem_bytes']}, "
+              f"{v['blocks']}" + (" (device memory)"
+                                  if v["columns_in"] == "device memory"
+                                  else "")
+              for k, v in plans25.items())
+          + "; pick_block_shots equals the library's plan there", flush=True)
+
+    # (c) and (d): the four entry points at full width, one short pass
+    for mod in (osd_blockshots_sweep, osd288_tailblock_ab, osd_panel_probe,
+                bp_grid_experiment):
+        mod.REPS = 1
+    sweep25, _ = entry("osd_blockshots_sweep", osd_blockshots_sweep.main,
+                       [], {"k1", "k2", "g1"}, phase=25)
+    tail25, _ = entry("osd288_tailblock_ab", osd288_tailblock_ab.main,
+                      ["--budgets-kb", "64"], {"k1", "k2", "g1"}, phase=25)
+    panel25, _ = entry("osd_panel_probe", osd_panel_probe.main, [], {"k2"},
+                       phase=25)
+    grid25, _ = entry("bp_grid_experiment", bp_grid_experiment.main, [],
+                      set(), phase=25)
+    if len({(r["delta_sum"], r["valid"]) for r in sweep25.values()}) != 1:
+        fail("phase 25: the sweep's outputs depend on the block shape")
+    rng25 = np.random.default_rng(25)
+    tin = osd_panel_probe.transform_inputs(rng25, 64, 1024)
+    got = osd_panel_probe.apply_transform(*(torch.as_tensor(
+        x.view(np.int32) if x.dtype == np.uint32 else x, device=dev)
+        for x in tin)).cpu().numpy()
+    if not np.array_equal(got, osd_panel_probe.transform_plain(
+            tin[0].view(np.int32), tin[1].view(np.int32), tin[2])):
+        fail("phase 25: the panel-entry transform's bfloat16 products on "
+             "the card differ from its integer XOR version")
+    print(f"phase 25: osd_blockshots_sweep ms by block_shots: " + ", ".join(
+        f"{k} {v['ms']:.2f}" for k, v in sweep25.items())
+        + f"; osd288_tailblock_ab best ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in tail25["best_ms"].items())
+        + f"; osd_panel_probe us a step " + ", ".join(
+            f"W={w} {panel25[w]['us_per_step']:.3f}" for w in (8, 16, 40))
+        + f", transform ms {panel25['transform_ms']['pair']:.3f} / "
+        f"{panel25['transform_ms']['six_pairs']:.3f} (its bits equal the "
+        f"integer XOR version on 64 shots); grid ms an iteration " + ", ".join(
+            f"{k.split()[0]} {v['ms_per_iter']:.4f}"
+            for k, v in grid25["rows"].items())
+        + f" (values differ by at most {grid25['max_value_diff']:g})",
+        flush=True)
+    print(f"phase 25: {time.time() - t25:.1f} s", flush=True)
+
     kernels = [
         dict(name="bp_flood_kernel", route="cuda",
              source="qldpc_tpu_torch/csrc/bp_lift_flood.cu",
@@ -2774,6 +3010,7 @@ def main():
              empty_range_ms=gate_ms["k2"],
              kernel_ms_on_g1={w: k2[w]["alone"] for w in widths},
              kernel_ms_on_g1_288_basis_rerun=k2["basis_rerun_288_alone"],
+             block_shape=block25["K2"], block_shape_launches=launches25["k2"],
              at_multicode={n: {b: {w: dict(ms=r[f"k2_{w}"]["ms"],
                                            bound_ms=r[f"k2_{w}"]["bound_ms"])
                                    for w in ("stage1", "prefix", "full")}
@@ -2805,7 +3042,9 @@ def main():
             empty_range_ms=gate_ms[key],
             kernel_ms_on_g1={w: k45[key][w]["alone"] for w in widths},
             kernel_ms_on_g1_288_basis_rerun=k45[key][
-                "basis_rerun_288_alone"]))
+                "basis_rerun_288_alone"],
+            block_shape=block25[key.upper()],
+            block_shape_launches=launches25[key]))
     kernels.append(dict(
         name="gather_pack_kernel", route="cuda",
         source="qldpc_tpu_torch/csrc/gather_pack.cu",

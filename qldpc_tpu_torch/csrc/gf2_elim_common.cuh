@@ -63,9 +63,14 @@ struct Plan {
 // one warp per 2 words, up to GF2_MAX_TEAM; a block holds as many teams as
 // fit its shared memory, but no more than teams / SMs, so a small batch
 // still spreads over every SM. The columns stay in device memory (the
-// input, eliminated in place) when one team's exceed `smem_limit`.
+// input, eliminated in place) when one team's exceed `smem_limit`, the
+// caller's shared-memory budget a block. `block_shots` > 0, the caller's
+// shots a block, sets the teams a block to ceil(block_shots / spt) in place
+// of teams / SMs, clamped as that rule is (what fits the budget,
+// GF2_BLOCK_SHOTS or GF2_DEV_SHOTS, the warps a block) and to the batch's
+// teams; 0 keeps the rule.
 Plan make_plan(int B, int W, int M, int smem_limit, int sms, int spt = 1,
-               bool narrow = false) {
+               bool narrow = false, int block_shots = 0) {
   Plan p;
   p.NR = (M + 31) / 32;
   p.R = (p.NR + 31) / 32;
@@ -81,6 +86,10 @@ Plan make_plan(int B, int W, int M, int smem_limit, int sms, int spt = 1,
   if (cap > warps / p.T) cap = warps / p.T;
   const int teams = (B + spt - 1) / spt;
   int spb = sms > 0 ? teams / sms : 1;
+  if (block_shots > 0) {
+    spb = (block_shots + spt - 1) / spt;
+    if (spb > teams) spb = teams;
+  }
   spb = spb < cap ? spb : cap;
   p.spb = spb > 1 ? spb : 1;
   p.smem = p.dev ? 0 : (int)(p.spb * p.team_bytes);

@@ -232,8 +232,9 @@ gf2_elim_fused_kernel(int* __restrict__ hp,           // (B, 32W, S) cols
 
 GF2_PICK(gf2_elim_fused_kernel)
 
-Plan plan(int B, int W, int M, int smem_limit, int sms) {
-  return make_plan(B, W, M, smem_limit, sms, 1, true);
+Plan plan(int B, int W, int M, int smem_limit, int sms,
+          int block_shots = 0) {
+  return make_plan(B, W, M, smem_limit, sms, 1, true, block_shots);
 }
 
 }  // namespace
@@ -249,23 +250,23 @@ extern "C" int gf2_elim_fused_sizes(int W, int M, int smem_limit,
 // The launch of B shots of W words by M rows: registers and local (spill)
 // bytes a thread, shots a block, dynamic shared memory a block, 1 on the
 // device-memory branch, blocks, blocks resident per SM, and warps a shot:
-// out[0..7].
+// out[0..7]. `smem_limit` and `block_shots` as for gf2_elim_info.
 extern "C" int gf2_elim_fused_info(int B, int W, int M, int smem_limit,
-                                   int* out) {
-  const Plan p = plan(B, W, M, smem_limit, sm_count());
+                                   int block_shots, int* out) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count(), block_shots);
   return plan_info(p, pick(p.R, p.dev), 1, out);
 }
 
 // `hp`: B shots of G1's column layout (plan_launch); `live`: a device int32
 // pair [lo, hi), the shots to run (null: all B); hp_out null: no reduced
-// matrix.
+// matrix; `smem_limit` and `block_shots` as for gf2_elim_info.
 extern "C" int gf2_elim_fused_launch(int* hp, int* hp_out, const int* s_in,
                                      int* s_out, int* colofrow, int* steps,
                                      const int* live, int B, int W, int M,
                                      int m, int K, int rank, int full_jordan,
                                      int exit_on_valid, int smem_limit,
-                                     void* stream) {
-  const Plan p = plan(B, W, M, smem_limit, sm_count());
+                                     int block_shots, void* stream) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count(), block_shots);
   return plan_launch(p, pick(p.R, p.dev), hp, hp_out, s_in, s_out, colofrow,
                      steps, live, B, W, M, m, K, rank, full_jordan,
                      exit_on_valid, stream);

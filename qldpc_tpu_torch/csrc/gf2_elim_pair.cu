@@ -306,8 +306,9 @@ gf2_elim_pair_kernel(int* __restrict__ hp,           // (B, 32W, S) cols
 
 GF2_PICK(gf2_elim_pair_kernel)
 
-Plan plan(int B, int W, int M, int smem_limit, int sms) {
-  return make_plan(B, W, M, smem_limit, sms, 2, true);
+Plan plan(int B, int W, int M, int smem_limit, int sms,
+          int block_shots = 0) {
+  return make_plan(B, W, M, smem_limit, sms, 2, true, block_shots);
 }
 
 }  // namespace
@@ -323,23 +324,24 @@ extern "C" int gf2_elim_pair_sizes(int W, int M, int smem_limit,
 // The launch of B shots of W words by M rows: registers and local (spill)
 // bytes a thread, shots a block, dynamic shared memory a block, 1 on the
 // device-memory branch, blocks, blocks resident per SM, and warps a team
-// of two shots: out[0..7].
+// of two shots: out[0..7]. `smem_limit` and `block_shots` as for
+// gf2_elim_info (K5 rounds an odd block_shots up to a team of two).
 extern "C" int gf2_elim_pair_info(int B, int W, int M, int smem_limit,
-                                  int* out) {
-  const Plan p = plan(B, W, M, smem_limit, sm_count());
+                                  int block_shots, int* out) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count(), block_shots);
   return plan_info(p, pick(p.R, p.dev), 2, out);
 }
 
 // `hp`: B shots of G1's column layout (plan_launch); `live`: a device int32
 // pair [lo, hi), the shots to run (null: all B); hp_out null: no reduced
-// matrix.
+// matrix; `smem_limit` and `block_shots` as for gf2_elim_info.
 extern "C" int gf2_elim_pair_launch(int* hp, int* hp_out, const int* s_in,
                                     int* s_out, int* colofrow, int* steps,
                                     const int* live, int B, int W, int M,
                                     int m, int K, int rank, int full_jordan,
                                     int exit_on_valid, int smem_limit,
-                                    void* stream) {
-  const Plan p = plan(B, W, M, smem_limit, sm_count());
+                                    int block_shots, void* stream) {
+  const Plan p = plan(B, W, M, smem_limit, sm_count(), block_shots);
   return plan_launch(p, pick(p.R, p.dev), hp, hp_out, s_in, s_out, colofrow,
                      steps, live, B, W, M, m, K, rank, full_jordan,
                      exit_on_valid, stream);

@@ -35,11 +35,13 @@ round with the whole batch as the slice.
 """
 from __future__ import annotations
 
+import os
 from itertools import combinations
 
 import numpy as np
 import torch
 
+from . import osd_cuda
 from .osd_cuda import (_gather_pack, _to_int32, column_index,
                        eliminate_blocks, gather_pack)
 
@@ -58,6 +60,24 @@ REPROCESS_SLICE = 32
 # pipeline order: timing each prefix gives each stage's cost by difference
 # (``scripts/osd_microbench.py``).
 PREFIXES = ("residual", "sort", "stage1", "tail", "basis", "reprocess")
+
+# The staged tail's and the basis rerun's shared-memory budget a block, in
+# KB, read when ``osd_batch`` is called; unset: the eliminators' own plan.
+# The counterpart of the JAX package's QLDPC_OSD_TAIL_MB (osd_batch below).
+TAIL_BUDGET_ENV = "QLDPC_OSD_TAIL_SMEM_KB"
+
+
+def auto_stage1(K: int) -> int:
+    """``osd_batch``'s stage-1 width when ``stage1_cols`` is None: 768
+    columns when K >= 2048, 256 when K >= 512, else 0 (single-stage)."""
+    return 768 if K >= 2048 else 256 if K >= 512 else 0
+
+
+def tail_smem_budget():
+    """The tail budget in bytes from ``QLDPC_OSD_TAIL_SMEM_KB``, or None
+    when it is unset (the plan's own rule)."""
+    kb = os.environ.get(TAIL_BUDGET_ENV, "").strip()
+    return int(kb) * 1024 if kb else None
 
 _combo_cache: dict = {}
 
@@ -169,6 +189,24 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         prefixes (use_blocks only past "sort"; "tail" is "stage1"'s when
         the scan is single-stage). None runs the whole OSD.
 
+    The block shape (use_blocks): every eliminator launch asks
+    ``osd_cuda.pick_block_shots`` for its shots a block at its width, where
+    the JAX package's ``osd_batch`` asks ``osd_pallas.pick_block_shots``
+    (stage 1, the tail, the unstaged prefix, the basis rerun, the
+    full-Jordan reprocess), so a script can patch it as JAX's sweep does.
+    The tail and the basis rerun pass the tail budget, read from
+    ``QLDPC_OSD_TAIL_SMEM_KB`` at the call (:func:`tail_smem_budget`) as
+    their ``smem_budget``; the other sites pass none. With neither set,
+    ``pick_block_shots`` gives None and every launch takes the plan's own
+    rule. The budget maps JAX's ``QLDPC_OSD_TAIL_MB`` (default 78; 26 MB
+    elsewhere), the TPU VMEM its tail blocks of shots are sized against,
+    to the card's terms: an H100 block holds at most
+    ``_kernels.SMEM_PER_BLOCK`` (~227 KB) of shared memory, so a budget in
+    MB has no meaning there, and the counterpart is the shared memory a
+    tail block may take for its teams' columns, in KB. A budget of one
+    team's columns gives one team a block; below it, the device-memory
+    branch. Consumed outputs do not depend on the block shape.
+
     Returns dict: solution (B, n) int8 (if return_solution), valid (B,) bool
     (syndrome exactly reproduced), rank_deficient (B,) bool,
     reprocess_overflow (B,) bool (OSD-0 failed and the reprocess slice did
@@ -238,15 +276,22 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             return gather_pack(col_index, cols[:, :min(Kx, cols.shape[1])],
                                Kx, live=span)
 
-        def eliminate(Hp, s, Kx, span, **kw):
-            """The eliminator on ``pack``'s output, gated to ``span``;
-            the reduced matrix only where ``want_matrix`` is passed."""
+        tail_budget = tail_smem_budget()
+
+        def eliminate(Hp, s, Kx, span, budget=None, **kw):
+            """The eliminator on ``pack``'s output, gated to ``span``, in
+            the block shape ``osd_cuda.pick_block_shots`` gives at its
+            width under ``budget``; the reduced matrix only where
+            ``want_matrix`` is passed."""
             kw.setdefault("want_matrix", False)
+            shots = osd_cuda.pick_block_shots(m, -(-Kx // 32),
+                                              smem_budget=budget)
             return eliminate_blocks(Hp, s, Kx, m, rank=rank, live=span,
+                                    block_shots=shots, smem_budget=budget,
                                     **kw)
 
         if stage1_cols is None:
-            stage1_cols = 768 if K >= 2048 else 256 if K >= 512 else 0
+            stage1_cols = auto_stage1(K)
         staged = bool(stage1_cols) and stage1_cols < K
         span = None if live is None else _span(0, n_live, dev)
         if staged:
@@ -268,7 +313,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             c_start = (B - (~covered).sum()) // 32 * 32
             span2 = _span(c_start, B, dev)
             _, s2, prow2, used2, cf2 = eliminate(
-                pack(colsK[order2], Kp, span2), residual[order2], K, span2)
+                pack(colsK[order2], Kp, span2), residual[order2], K, span2,
+                tail_budget)
             s1, prow1, used1, cf1 = _merge(
                 order2, lane >= c_start, (s1, prow1, used1, cf1),
                 (s2, pad_prow(prow2), used2, cf2))
@@ -290,7 +336,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             nbad = bad.sum()
             span3 = _span(0, nbad, dev)
             _, s2, prow2, used2, cf2 = eliminate(
-                pack(colsE[perm], KTp, span3), residual[perm], KT, span3)
+                pack(colsE[perm], KTp, span3), residual[perm], KT, span3,
+                tail_budget)
             s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
                                            (s1, prow1, used1, cf1),
                                            (s2, prow2, used2, cf2))

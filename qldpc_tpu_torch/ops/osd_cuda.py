@@ -2,8 +2,9 @@
 plain twins; and the gather-pack that builds their input, kernel G1.
 
 ``eliminate_blocks`` has the signature and outputs of the JAX package's
-``osd_pallas.eliminate_blocks`` without its TPU block sizing, but takes its
-matrix in the eliminators' column layout (below). It dispatches on
+``osd_pallas.eliminate_blocks``, but takes its matrix in the eliminators'
+column layout (below) and sizes its blocks in the card's terms (the block
+shape, below). It dispatches on
 ``_KERNEL_VERSION``, read from ``QLDPC_OSD_KERNEL`` (default 1) as the JAX
 package reads it, and set on this module to switch at run time:
 
@@ -47,6 +48,22 @@ wrapper hands its column input through :func:`columns_to_words`.
 Words travel as int32: PyTorch's uint32 support is thin, and
 ``(w >> b) & 1`` is exact after an arithmetic shift.
 
+The block shape: every eliminator and :func:`prepare_elim_launch` and
+:func:`elim_launch_info` take ``block_shots`` and ``smem_budget``, the
+counterparts of JAX's ``block_shots`` and of the VMEM budget of its
+``pick_block_shots``. ``block_shots`` sets the shots a block (K5 rounds an
+odd count up to its team of two), clamped by what fits the budget, the
+eight teams a block's named barriers allow (four on the device-memory
+branch), the warps a block holds and the batch; ``smem_budget`` is the
+shared memory a block may take for its teams' columns, at most
+``_SMEM_LIMIT``, and a budget below one team's columns sends the launch to
+the device-memory branch. None, the default, keeps the plan's own rule
+(``make_plan`` in ``csrc/gf2_elim_common.cuh``: teams / SMs a block, up to
+what fits ``_SMEM_LIMIT``). :func:`pick_block_shots` is JAX's rule in these
+terms. The plain versions accept both and ignore them: the port's
+eliminators exit per shot, so every output is a function of the shot
+alone, whatever the block shape.
+
 The gate: every eliminator and G1 take ``live``, a device int32 pair
 ``[lo, hi)`` of the batch's live shots (None: every shot). The launch
 covers the whole batch and the kernel reads the pair, so no host read sizes
@@ -81,13 +98,19 @@ from .. import _kernels
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024  # dynamic bytes a block takes
 _MAX_ROWS = 32 * 32 * 4      # 32 lanes x GF2_MAXR words of 32 rows
 _FUSED_GROUP = 4             # columns per K4 group (GF2_GROUP)
+# the plan's limits (csrc/gf2_elim_common.cuh): most teams a block holds
+# (GF2_BLOCK_SHOTS, its named barriers) and most warps a team
+# (GF2_MAX_TEAM)
+_BLOCK_TEAMS, _MAX_TEAM = 8, 16
 # profiler range of each launch, named with the width, by kernel
 K2_RANGE, K4_RANGE, K5_RANGE = "K2 launch", "K4 launch", "K5 launch"
 # each kernel's library (csrc/<name>.cu, exporting <name>_launch, _sizes and
-# _info), the shots a team carries, and its profiler range
-_ELIM_KERNELS = {"K2": ("gf2_elim", 1, K2_RANGE),
-                 "K4": ("gf2_elim_fused", 1, K4_RANGE),
-                 "K5": ("gf2_elim_pair", 2, K5_RANGE)}
+# _info), the shots a team carries, its profiler range, and whether its
+# block holds 512 threads where a lane holds more than one row word
+# (max_block_threads' `narrow`)
+_ELIM_KERNELS = {"K2": ("gf2_elim", 1, K2_RANGE, False),
+                 "K4": ("gf2_elim_fused", 1, K4_RANGE, True),
+                 "K5": ("gf2_elim_pair", 2, K5_RANGE, True)}
 
 # Eliminator generation, as osd_pallas._KERNEL_VERSION in the JAX package.
 _KERNEL_VERSION = int(os.environ.get("QLDPC_OSD_KERNEL", "1"))
@@ -166,6 +189,7 @@ def column_stride(W: int, M: int, device, kernel: str = None) -> int:
     odd, which ``tests/test_torch_cuda.py`` holds equal to it."""
     if (device if isinstance(device, torch.device)
             else torch.device(device)).type == "cuda":
+        # the stride does not depend on the budget: G1 writes it
         return _sizes(_ELIM_KERNELS[kernel or selected_kernel()][0], W, M,
                       _SMEM_LIMIT)[1]
     return -(-M // 32) | 1
@@ -391,7 +415,8 @@ def prow_of_col_from(colofrow, K: int):
 def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
                      full_jordan: bool = False, exit_on_valid: bool = True,
                      return_steps: bool = False, live=None,
-                     want_matrix: bool = True):
+                     want_matrix: bool = True, block_shots: int = None,
+                     smem_budget: int = None):
     """Batched elimination. Hp (B, 32W, S) int32, the column layout as
     :func:`gather_pack` writes it (module docstring), of M >= m rows; rows
     at or beyond m never pivot. s (B, M) int32 residual syndrome; ``live``,
@@ -407,14 +432,16 @@ def eliminate_blocks(Hp, s, K: int, m: int, rank: int = None,
     full_jordan=False skips already-passed words: s_reduced, prow_of_col,
     used and all pivot columns equal full Gauss-Jordan; dependent columns
     left of a pivot's word stay stale. full_jordan=True reduces them too.
-    Runs the eliminator ``_KERNEL_VERSION`` selects (module docstring)."""
+    ``block_shots`` and ``smem_budget`` set the launch's block shape (module
+    docstring; None: the plan's own). Runs the eliminator
+    ``_KERNEL_VERSION`` selects (module docstring)."""
     fn = _ELIMINATORS[selected_kernel()]
     return fn(Hp, s, K, m, rank, full_jordan, exit_on_valid, return_steps,
-              live, want_matrix)
+              live, want_matrix, block_shots, smem_budget)
 
 
 def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
-         return_steps, live, want_matrix):
+         return_steps, live, want_matrix, block_shots, smem_budget):
     """Shared body of the three wrappers: on a CPU tensor the plain
     version of the input turned words-major, else one launch of
     ``kernel``."""
@@ -425,7 +452,9 @@ def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
         return out if want_matrix else (None,) + out[1:]
     launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
                                          exit_on_valid, kernel=kernel,
-                                         live=live, want_matrix=want_matrix)
+                                         live=live, want_matrix=want_matrix,
+                                         block_shots=block_shots,
+                                         smem_budget=smem_budget)
     launch()
     return finish(return_steps)
 
@@ -433,38 +462,44 @@ def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
 def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False, exit_on_valid: bool = True,
                         return_steps: bool = False, live=None,
-                        want_matrix: bool = True):
+                        want_matrix: bool = True, block_shots: int = None,
+                        smem_budget: int = None):
     """Kernel K2 (``csrc/gf2_elim.cu``: a team of warps per shot over
     column bitsets); arguments and outputs as :func:`eliminate_blocks`. s
     holds 0/1 bits. ``eliminate_blocks_v1.launches`` counts the kernel
     launches."""
     return _run("K2", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
-                exit_on_valid, return_steps, live, want_matrix)
+                exit_on_valid, return_steps, live, want_matrix, block_shots,
+                smem_budget)
 
 
 def eliminate_blocks_fused(Hp, s, K: int, m: int, rank: int = None,
                            full_jordan: bool = False,
                            exit_on_valid: bool = True,
                            return_steps: bool = False, live=None,
-                           want_matrix: bool = True):
+                           want_matrix: bool = True, block_shots: int = None,
+                           smem_budget: int = None):
     """Kernel K4 (``csrc/gf2_elim_fused.cu``): K2's column steps four
     pivots per team barrier, the tail columns updated in one fused pass per
     4-column group, the exit tested once per group.
     ``eliminate_blocks_fused.launches`` counts the kernel launches."""
     return _run("K4", eliminate_blocks_fused_plain, Hp, s, K, m, rank,
-                full_jordan, exit_on_valid, return_steps, live, want_matrix)
+                full_jordan, exit_on_valid, return_steps, live, want_matrix,
+                block_shots, smem_budget)
 
 
 def eliminate_blocks_pair(Hp, s, K: int, m: int, rank: int = None,
                           full_jordan: bool = False,
                           exit_on_valid: bool = True,
                           return_steps: bool = False, live=None,
-                          want_matrix: bool = True):
+                          want_matrix: bool = True, block_shots: int = None,
+                          smem_budget: int = None):
     """Kernel K5 (``csrc/gf2_elim_pair.cu``): K2's per-shot function with
     two shots through one team of warps; every output equals K2's.
     ``eliminate_blocks_pair.launches`` counts the kernel launches."""
     return _run("K5", eliminate_blocks_plain, Hp, s, K, m, rank, full_jordan,
-                exit_on_valid, return_steps, live, want_matrix)
+                exit_on_valid, return_steps, live, want_matrix, block_shots,
+                smem_budget)
 
 
 for _fn in (eliminate_blocks_v1, eliminate_blocks_fused,
@@ -477,10 +512,13 @@ _ELIMINATORS = {"K2": eliminate_blocks_v1, "K4": eliminate_blocks_fused,
 def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
                         full_jordan: bool = False,
                         exit_on_valid: bool = True, kernel: str = "K2",
-                        live=None, want_matrix: bool = True):
+                        live=None, want_matrix: bool = True,
+                        block_shots: int = None, smem_budget: int = None):
     """``kernel`` (K2, K4 or K5) on CUDA tensors, gated to ``live`` (a
-    device int32 pair [lo, hi), or None), prepared but not launched: input
-    casts, output allocation, library load.
+    device int32 pair [lo, hi), or None), in the block shape that
+    ``block_shots`` and ``smem_budget`` set (module docstring; None: the
+    plan's own), prepared but not launched: input casts, output
+    allocation, library load.
     Returns (launch, finish): each ``launch()`` runs the kernel once,
     inside a ``torch.profiler`` range named by the kernel's ``*_RANGE``
     with the width, and counts it on the kernel's wrapper;
@@ -497,9 +535,10 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
         raise ValueError(f"unsupported device {dev}")
     if M > _MAX_ROWS:
         raise ValueError(f"M={M} rows exceed the kernel's {_MAX_ROWS}")
-    name, _, label = _ELIM_KERNELS[kernel]
+    name, _, label, _ = _ELIM_KERNELS[kernel]
     wrapper = _ELIMINATORS[kernel]
     _check_live(live, dev)
+    budget, spb = _smem_budget(smem_budget), _block_shots(block_shots)
     hp = Hp.to(torch.int32).contiguous()
     s_in = s.to(device=dev, dtype=torch.int32).contiguous()
     hp_out = (torch.empty((B, W, M), dtype=torch.int32, device=dev)
@@ -512,8 +551,9 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
             s_in.data_ptr(), s_out.data_ptr(), cf.data_ptr(),
             steps.data_ptr(), None if live is None else live.data_ptr(),
             B, W, M, m, K, m if rank is None else rank, int(full_jordan),
-            int(exit_on_valid), _SMEM_LIMIT)
-    label = f"{label}: {W} words" + (", full_jordan" if full_jordan else "")
+            int(exit_on_valid), budget, spb)
+    label = (f"{label}: {W} words" + (", full_jordan" if full_jordan else "")
+             + (f", block_shots={spb}" if spb else ""))
 
     def launch():
         # the stream is the current one at the launch (a graph's capture)
@@ -522,7 +562,7 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
         _kernels.check(code, f"{name}_launch")
         wrapper.launches += 1
 
-    launch.consumes_input = bool(_sizes(name, W, M, _SMEM_LIMIT)[3])
+    launch.consumes_input = bool(_sizes(name, W, M, budget)[3])
     # what the arguments point into
     launch.tensors = (hp, s_in, hp_out, s_out, cf, steps, live)
 
@@ -539,26 +579,28 @@ def _lib(name: str):
     launch = getattr(lib, f"{name}_launch")
     if not launch.argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
-        launch.argtypes = [P] * 7 + [I] * 9 + [P]
+        launch.argtypes = [P] * 7 + [I] * 10 + [P]
         launch.restype = I
         sizes = getattr(lib, f"{name}_sizes")
         sizes.argtypes = [I, I, I, P]
         sizes.restype = I
         info = getattr(lib, f"{name}_info")
-        info.argtypes = [I] * 4 + [P]
+        info.argtypes = [I] * 5 + [P]
         info.restype = I
     return lib
 
 
-def elim_sizes(W: int, M: int, kernel: str = "K2") -> dict:
+def elim_sizes(W: int, M: int, kernel: str = "K2",
+               smem_budget: int = None) -> dict:
     """``kernel``'s layout of one shot of W words by M rows, as its source
     reports it: the column bytes of a shot and of a team (the shots the
     kernel runs through one team of warps), the column stride in words, the
     row words a lane holds, and whether the columns stay in device memory
-    (a team's exceed ``_SMEM_LIMIT``), where the kernel eliminates its
-    input in place."""
-    name, spt, _ = _ELIM_KERNELS[kernel]
-    team_bytes, stride, per_lane, dev = _sizes(name, W, M, _SMEM_LIMIT)
+    (a team's exceed ``smem_budget``, None: ``_SMEM_LIMIT``), where the
+    kernel eliminates its input in place."""
+    name, spt, _, _ = _ELIM_KERNELS[kernel]
+    team_bytes, stride, per_lane, dev = _sizes(name, W, M,
+                                               _smem_budget(smem_budget))
     return dict(shot_bytes=team_bytes // spt, team_bytes=team_bytes,
                 shots_per_team=spt, column_stride=stride,
                 words_per_lane=per_lane, device_memory=bool(dev))
@@ -575,18 +617,22 @@ def _sizes(name: str, W: int, M: int, smem_limit: int) -> tuple:
     return tuple(out)
 
 
-def elim_launch_info(B: int, W: int, M: int, device,
-                     kernel: str = "K2") -> dict:
-    """``kernel``'s shape on the card for B shots of W words by M rows:
-    registers and spilled bytes a thread, column bytes a shot and where
-    they live, warps a team and shots a team, shots a block, shared memory
-    a block, blocks, and blocks and shots resident per SM."""
-    name, _, _ = _ELIM_KERNELS[kernel]
+def elim_launch_info(B: int, W: int, M: int, device, kernel: str = "K2",
+                     block_shots: int = None, smem_budget: int = None) -> dict:
+    """``kernel``'s shape on the card for B shots of W words by M rows in
+    the block shape ``block_shots`` and ``smem_budget`` set (module
+    docstring; None: the plan's own): registers and spilled bytes a thread,
+    column bytes a shot and where they live, warps a team and shots a
+    team, shots a block (after the plan's clamps), shared memory a block,
+    blocks, and blocks and shots resident per SM."""
+    name = _ELIM_KERNELS[kernel][0]
+    budget = _smem_budget(smem_budget)
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(device):
         _kernels.check(getattr(_lib(name), f"{name}_info")(
-            B, W, M, _SMEM_LIMIT, out), f"{name}_info")
-    return dict(elim_sizes(W, M, kernel), registers=out[0],
+            B, W, M, budget, _block_shots(block_shots), out),
+            f"{name}_info")
+    return dict(elim_sizes(W, M, kernel, budget), registers=out[0],
                 local_bytes=out[1], shots_per_block=out[2],
                 smem_bytes=out[3],
                 columns_in="device memory" if out[4] else "shared memory",
@@ -594,11 +640,68 @@ def elim_launch_info(B: int, W: int, M: int, device,
                 shots_per_sm=out[6] * out[2])
 
 
+def _smem_budget(smem_budget) -> int:
+    """The shared-memory bytes a block may take for its teams' columns:
+    ``smem_budget``, at most ``_SMEM_LIMIT`` (None: ``_SMEM_LIMIT``, read
+    at the call)."""
+    if smem_budget is None:
+        return _SMEM_LIMIT
+    if smem_budget < 0:
+        raise ValueError(f"smem_budget={smem_budget} is negative")
+    return min(int(smem_budget), _SMEM_LIMIT)
+
+
+def _block_shots(block_shots) -> int:
+    """The entry points' ``block_shots`` argument: 0 (the plan's own rule)
+    for None, else the shots a block asked for."""
+    if block_shots is None:
+        return 0
+    if block_shots < 1:
+        raise ValueError(f"block_shots={block_shots} is below 1")
+    return int(block_shots)
+
+
+def team_bytes(M: int, W: int, kernel: str = None) -> int:
+    """One team's column bytes of W words by M rows for eliminator
+    ``kernel`` (None: the one ``eliminate_blocks`` runs): 32 W columns of
+    the odd stride ceil(M/32) | 1 words, for each shot a team carries; the
+    plan's ``team_bytes``, computed without a card."""
+    spt = _ELIM_KERNELS[kernel or selected_kernel()][1]
+    return spt * 4 * 32 * W * (-(-M // 32) | 1)
+
+
+def pick_block_shots(M: int, W: int, smem_budget: int = None,
+                     cap: int = None, kernel: str = None):
+    """The counterpart of the JAX package's ``osd_pallas.pick_block_shots``
+    in the card's terms: the largest power of two of shots a block, at most
+    ``cap`` (None: the most a block holds), whose teams' columns of W words
+    by M rows fit ``smem_budget`` bytes of shared memory (None:
+    ``_SMEM_LIMIT``) and whose warps fit a block, for eliminator ``kernel``
+    (None: the one ``eliminate_blocks`` runs). At least 1, as JAX's: where
+    one team's columns exceed the budget, the launch runs on the
+    device-memory branch, one team a block. None when both ``smem_budget``
+    and ``cap`` are None: the plan's own rule. Computed from the plan's
+    arithmetic (``make_plan``), so it runs without a card; ``chip_smoke.py``
+    holds it against the library's ``_info``."""
+    if smem_budget is None and cap is None:
+        return None
+    kernel = kernel or selected_kernel()
+    _, spt, _, narrow = _ELIM_KERNELS[kernel]
+    fit = _smem_budget(smem_budget) // max(team_bytes(M, W, kernel), 1)
+    warps = (512 if narrow and M > 1024 else 1024) // 32
+    teams = min(fit, _BLOCK_TEAMS, warps // min(max(W // 2, 1), _MAX_TEAM))
+    shots = max(teams, 1) * spt
+    if cap is not None:
+        shots = min(shots, cap)
+    return 1 << (max(shots, 1).bit_length() - 1)
+
+
 def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
                            full_jordan: bool = False,
                            exit_on_valid: bool = True,
                            return_steps: bool = False,
-                           count_xor_words: bool = False, live=None):
+                           count_xor_words: bool = False, live=None,
+                           block_shots: int = None, smem_budget: int = None):
     """Plain PyTorch version of kernels K2 and K5, on words-major (B, W, M)
     input: the same per-shot column steps, vectorized over shots, each shot
     frozen once it is done. One host read per column step, and one of
@@ -609,7 +712,9 @@ def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
     steps did: per step, the rows the pivot row was XORed into times the
     words it updated (those from the pivot's word on, or all of them under
     ``full_jordan``). It measures the elimination's data-dependent work for
-    the kernels' operation bound; the decode path never asks for it."""
+    the kernels' operation bound; the decode path never asks for it.
+    ``block_shots`` and ``smem_budget`` are accepted and ignored: every
+    output is a function of the shot alone."""
     return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
                             return_steps, group=1,
                             count_xor_words=count_xor_words, live=live)
@@ -618,12 +723,15 @@ def eliminate_blocks_plain(Hp, s, K: int, m: int, rank: int = None,
 def eliminate_blocks_fused_plain(Hp, s, K: int, m: int, rank: int = None,
                                  full_jordan: bool = False,
                                  exit_on_valid: bool = True,
-                                 return_steps: bool = False, live=None):
+                                 return_steps: bool = False, live=None,
+                                 block_shots: int = None,
+                                 smem_budget: int = None):
     """Plain PyTorch version of kernel K4, on words-major (B, W, M) input:
     K2's column steps, with the exit (rank reached, or residual inside the
     pivot span) tested only at the end of each 4-column group, and the
     columns of the last group at or beyond K never pivoting. ``steps``
-    counts the columns of the groups a shot ran, at most K."""
+    counts the columns of the groups a shot ran, at most K.
+    ``block_shots`` and ``smem_budget`` are accepted and ignored."""
     return _eliminate_plain(Hp, s, K, m, rank, full_jordan, exit_on_valid,
                             return_steps, group=_FUSED_GROUP, live=live)
 

@@ -27,6 +27,15 @@ and the OSD studies and stage costs:
     python -m qldpc_tpu_torch.scripts.osd_post_micro   # osd_post_micro.py
     python -m qldpc_tpu_torch.scripts.bp_microbench    # bp_microbench.py
 
+the eliminators' block shape (``ops.osd_cuda``'s ``block_shots``,
+``smem_budget`` and ``pick_block_shots``, ``QLDPC_OSD_TAIL_SMEM_KB``) and
+the cycle-periodic BP layout:
+
+    python -m qldpc_tpu_torch.scripts.osd_blockshots_sweep
+    python -m qldpc_tpu_torch.scripts.osd288_tailblock_ab
+    python -m qldpc_tpu_torch.scripts.osd_panel_probe
+    python -m qldpc_tpu_torch.scripts.bp_grid_experiment
+
 the decode of the reference-sampled trials of ``scripts/oracle_data/``
 (``scripts/ler_oracle.py``'s ``ourdecode`` phase) and the evidence for
 their logical basis:

@@ -183,7 +183,10 @@ def test_port_imports_without_jax():
                  "scripts.osd288_ab", "scripts.osd288_probe",
                  "scripts.osd_margin_probe", "scripts.osd_microbench",
                  "scripts.bp_lift_bench", "scripts.ler_oracle",
-                 "scripts.osd_post_micro", "scripts.bp_microbench"):
+                 "scripts.osd_post_micro", "scripts.bp_microbench",
+                 "scripts.osd_blockshots_sweep",
+                 "scripts.osd288_tailblock_ab", "scripts.osd_panel_probe",
+                 "scripts.bp_grid_experiment"):
         assert f"qldpc_tpu_torch.{name}" in names, name
     tree = ast.parse((root / "chip_smoke.py").read_text())
     imported = set()
