@@ -100,7 +100,10 @@ host's time a call of G1 and K2; K2, K4 and K5 gated to a
 range of shots against their ungated launch on the live shots, and a
 launch gated to nothing timed (the gate's cost); one steady pooled
 dispatch under torch.cuda.set_sync_debug_mode("error") (no host read),
-its flags equal to phase 4's shot for shot; and run_simulation at the
+its flags equal to phase 4's shot for shot, and again with the program's
+telemetry on (its spans and held counters: no host read, no launch, the
+same flags), and the eliminators' profiler ranges under a profiler; and
+run_simulation at the
 bench configuration with one and with two dispatches in flight, on one
 seed, with identical tallies, (23) the bench sweeps and the OSD studies
 (the entry points of qldpc_tpu_torch/scripts that port the JAX package's
@@ -2335,6 +2338,80 @@ def main():
           f"under set_sync_debug_mode('error'): no host read; flags equal "
           f"phase 4's shot for shot; host issue {issue22 * 1e3:.1f} ms a "
           f"dispatch; counts read one round late {c22[0]}", flush=True)
+
+    # the same steady dispatch with the program's telemetry on: its spans
+    # and held counters add no host read and no launch and change no flag;
+    # then one under the profiler, where each eliminator launch enters its
+    # range (entered only while a profiler runs)
+    from qldpc_tpu_torch.utils import telemetry
+    from torch.profiler import ProfilerActivity, profile
+    reset_counts()
+    telemetry.reset()
+    telemetry.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        with telemetry.dispatch(0):
+            out22t = sharded([None], randoms=[randoms])
+        issue22t = time.perf_counter() - t0
+    except RuntimeError as e:
+        fail(f"phase 22: a steady dispatch with telemetry on read back from "
+             f"the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        telemetry.disable()
+    torch.cuda.synchronize()
+    launches22t = counts()
+    exp22 = telemetry.export()
+    telemetry.reset()
+    for key, v in out_k.items():
+        if not torch.equal(v, out22t[key]):
+            fail(f"phase 22: flag {key} with telemetry on differs from "
+                 "phase 4's")
+    if launches22t != per_dispatch:
+        fail(f"phase 22: launches with telemetry on {launches22t} against "
+             f"{per_dispatch} off")
+    sp22 = exp22["spans"]
+    n22 = {}
+    for sp in sp22:
+        n22[sp["name"]] = n22.get(sp["name"], 0) + 1
+
+    def total22(name, key):
+        return sum(sp["counters"].get(key, 0) for sp in sp22
+                   if sp["name"] == name)
+
+    elim22 = [sp["counters"]["elim.live"] for sp in sp22
+              if sp["name"] == "elim"]
+    fails22 = [int((~out_k[f"{b}_conv"]).sum()) for b in "zx"]
+    if (n22.get("round") != 1 or n22.get("elim") != per_dispatch["k2"]
+            or n22.get("bp") != 2 * RPD
+            or total22("bp", "bp.shots") != 2 * RPD * BATCH
+            or [sp["counters"]["osd.failed"] for sp in sp22
+                if sp["name"] == "osd"] != fails22
+            or any(sp["dispatch"] != 0 for sp in sp22)):
+        fail(f"phase 22: implausible spans {n22}")
+    chunks22 = total22("osd", "osd.chunks_issued")
+    live22 = sum(sp["counters"]["osd.live"] > 0 for sp in sp22
+                 if sp["name"] == "osd.chunk")
+    print(f"phase 22: the dispatch with telemetry on: no host read, flags "
+          f"and launches ({launches22t['k1']} K1, {launches22t['k2']} K2, "
+          f"{launches22t['g1']} G1) as off; host issue "
+          f"{issue22t * 1e3:.1f} ms; {len(sp22)} spans {n22}; BP "
+          f"{total22('bp', 'bp.shot_iterations') / (2 * RPD * BATCH):.2f} "
+          f"iterations a shot-basis; OSD chunks live {live22} of "
+          f"{chunks22}; eliminator launches empty "
+          f"{sum(v == 0 for v in elim22)} of {len(elim22)}, column steps "
+          f"{total22('elim', 'elim.steps')}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof22:
+        sharded([None], randoms=[randoms])
+        torch.cuda.synchronize()
+    ranges22 = sum(e.count for e in prof22.key_averages()
+                   if e.key.startswith(osd_cuda.K2_RANGE))
+    if ranges22 != per_dispatch["k2"]:
+        fail(f"phase 22: {ranges22} eliminator ranges under the profiler "
+             f"against {per_dispatch['k2']} launches")
+    print(f"phase 22: under the profiler {ranges22} '{osd_cuda.K2_RANGE}' "
+          f"ranges, one a launch", flush=True)
 
     # run_simulation at the bench configuration, one and two dispatches in
     # flight, one seed

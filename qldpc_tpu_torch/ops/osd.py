@@ -44,6 +44,7 @@ import torch
 from . import osd_cuda
 from .osd_cuda import (_gather_pack, _to_int32, column_index,
                        eliminate_blocks, gather_pack)
+from ..utils import telemetry
 
 # Shots the order-w reprocess holds per OSD call in the engine's rounds.
 # The reprocess runs on this slice in every chunk and basis, whether or not
@@ -207,6 +208,13 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     team's columns gives one team a block; below it, the device-memory
     branch. Consumed outputs do not depend on the block shape.
 
+    Telemetry (utils/telemetry.py): each step runs in its span,
+    ``osd.prep`` (residual, reliability sort, the columns), ``osd.stage1``,
+    ``osd.tail``, ``osd.basis`` (each step's G1 pack, eliminator and
+    merge; a single-stage scan is ``osd.stage1``), ``osd.osd0`` (the
+    OSD-0 scatter and validity), ``osd.reprocess`` (with the failed count
+    ``osd.reprocess_failed``) and ``osd.delta``.
+
     Returns dict: solution (B, n) int8 (if return_solution), valid (B,) bool
     (syndrome exactly reproduced), rank_deficient (B,) bool,
     reprocess_overflow (B,) bool (OSD-0 failed and the reprocess slice did
@@ -222,44 +230,45 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     lane = torch.arange(B, device=dev)
     live = None if n_live is None or not use_blocks else lane < n_live
 
-    # residual syndrome the correction must reproduce; float32 keeps the
-    # counts exact (see ops/sampler.py)
-    hard_syn = (hard.to(torch.float32) @ HT).to(i32) & 1
-    residual = syndrome.to(i32) ^ hard_syn                       # (B, m)
-    if stop_after == "residual":
-        return (residual,)
-    if stop_after not in (None,) + PREFIXES or (
-            not use_blocks and stop_after in ("stage1", "tail", "basis")):
-        raise ValueError(f"stop_after={stop_after!r}")
+    with telemetry.span("osd.prep"):
+        # residual syndrome the correction must reproduce; float32 keeps the
+        # counts exact (see ops/sampler.py)
+        hard_syn = (hard.to(torch.float32) @ HT).to(i32) & 1
+        residual = syndrome.to(i32) ^ hard_syn                   # (B, m)
+        if stop_after == "residual":
+            return (residual,)
+        if stop_after not in (None,) + PREFIXES or (
+                not use_blocks and stop_after in ("stage1", "tail", "basis")):
+            raise ValueError(f"stop_after={stop_after!r}")
 
-    # reliability ordering (stable: ties keep column order)
-    order_idx = torch.sort(llr.abs(), dim=1, stable=True).indices
-    colsK = order_idx[:, :K]
-    lp_sorted = (logical_pack.to(i32)[order_idx]
-                 if logical_pack is not None else None)
-    if stop_after == "sort":
-        return residual, colsK
+        # reliability ordering (stable: ties keep column order)
+        order_idx = torch.sort(llr.abs(), dim=1, stable=True).indices
+        colsK = order_idx[:, :K]
+        lp_sorted = (logical_pack.to(i32)[order_idx]
+                     if logical_pack is not None else None)
+        if stop_after == "sort":
+            return residual, colsK
 
-    if basis_cols is not None and K == n:
-        basis_cols = None  # full-width prefix: nothing left to complete
-    if basis_cols is not None:
-        if K % 32:
-            raise ValueError("basis_cols requires K % 32 == 0")
-        basis_cols = basis_cols.to(device=dev, dtype=torch.int64)
-        R = basis_cols.shape[0]
-        # K % 32 == 0: the basis columns start a word
-        colsE = torch.cat([colsK, basis_cols[None].expand(B, R)], 1)
-        KT = K + R
-        if lp_sorted is not None:
-            lp_perm = torch.cat(
-                [lp_sorted[:, :K],
-                 logical_pack.to(i32)[basis_cols][None].expand(B, R)], 1)
-    else:
-        colsE = colsK
-        KT = K
-        if lp_sorted is not None:
-            lp_perm = lp_sorted[:, :K]
-    KTp = -(-KT // 32) * 32
+        if basis_cols is not None and K == n:
+            basis_cols = None  # full-width prefix: nothing left to complete
+        if basis_cols is not None:
+            if K % 32:
+                raise ValueError("basis_cols requires K % 32 == 0")
+            basis_cols = basis_cols.to(device=dev, dtype=torch.int64)
+            R = basis_cols.shape[0]
+            # K % 32 == 0: the basis columns start a word
+            colsE = torch.cat([colsK, basis_cols[None].expand(B, R)], 1)
+            KT = K + R
+            if lp_sorted is not None:
+                lp_perm = torch.cat(
+                    [lp_sorted[:, :K],
+                     logical_pack.to(i32)[basis_cols][None].expand(B, R)], 1)
+        else:
+            colsE = colsK
+            KT = K
+            if lp_sorted is not None:
+                lp_perm = lp_sorted[:, :K]
+        KTp = -(-KT // 32) * 32
 
     def pad_prow(p):
         return torch.cat([p, torch.full((p.shape[0], KT - p.shape[1]), -1,
@@ -297,31 +306,35 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         if staged:
             # --- staged scan: narrow stage-1 + full-prefix tail ---
             K1 = stage1_cols
-            _, s1, prow1, used1, cf1 = eliminate(
-                pack(colsK, -(-K1 // 32) * 32, span), residual, K1, span)
+            with telemetry.span("osd.stage1"):
+                _, s1, prow1, used1, cf1 = eliminate(
+                    pack(colsK, -(-K1 // 32) * 32, span), residual, K1, span)
             if stop_after == "stage1":
                 return s1, prow1, used1, cf1
-            covered = torch.where(used1, 0, s1).sum(1) == 0
-            if live is not None:
-                covered |= ~live
-            prow1 = pad_prow(prow1)
-            # coverage sort (stable): uncovered shots form a contiguous
-            # tail, which starts at a 32-shot boundary as in the JAX scan
-            # (boundary shots already covered are rescanned; their consumed
-            # outputs are unchanged). One gated launch covers the tail.
-            order2 = torch.sort((~covered).to(i32), stable=True).indices
-            c_start = (B - (~covered).sum()) // 32 * 32
-            span2 = _span(c_start, B, dev)
-            _, s2, prow2, used2, cf2 = eliminate(
-                pack(colsK[order2], Kp, span2), residual[order2], K, span2,
-                tail_budget)
-            s1, prow1, used1, cf1 = _merge(
-                order2, lane >= c_start, (s1, prow1, used1, cf1),
-                (s2, pad_prow(prow2), used2, cf2))
+            with telemetry.span("osd.tail"):
+                covered = torch.where(used1, 0, s1).sum(1) == 0
+                if live is not None:
+                    covered |= ~live
+                prow1 = pad_prow(prow1)
+                # coverage sort (stable): uncovered shots form a contiguous
+                # tail, which starts at a 32-shot boundary as in the JAX
+                # scan (boundary shots already covered are rescanned; their
+                # consumed outputs are unchanged). One gated launch covers
+                # the tail.
+                order2 = torch.sort((~covered).to(i32), stable=True).indices
+                c_start = (B - (~covered).sum()) // 32 * 32
+                span2 = _span(c_start, B, dev)
+                _, s2, prow2, used2, cf2 = eliminate(
+                    pack(colsK[order2], Kp, span2), residual[order2], K,
+                    span2, tail_budget)
+                s1, prow1, used1, cf1 = _merge(
+                    order2, lane >= c_start, (s1, prow1, used1, cf1),
+                    (s2, pad_prow(prow2), used2, cf2))
         else:
-            _, s1, prow1, used1, cf1 = eliminate(
-                pack(colsK, Kp, span), residual, K, span)
-            prow1 = pad_prow(prow1)
+            with telemetry.span("osd.stage1"):
+                _, s1, prow1, used1, cf1 = eliminate(
+                    pack(colsK, Kp, span), residual, K, span)
+                prow1 = pad_prow(prow1)
         if stop_after in ("stage1", "tail"):
             return s1, prow1, used1, cf1
         if basis_cols is not None:
@@ -329,26 +342,22 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             # first, rerun at full width (prefix + basis words); the others
             # keep their prefix outputs (the full-width run is
             # consumed-identical)
-            bad = torch.where(used1, 0, s1).sum(1) != 0
-            if live is not None:
-                bad &= live
-            perm = torch.sort((~bad).to(i32), stable=True).indices
-            nbad = bad.sum()
-            span3 = _span(0, nbad, dev)
-            _, s2, prow2, used2, cf2 = eliminate(
-                pack(colsE[perm], KTp, span3), residual[perm], KT, span3,
-                tail_budget)
-            s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
-                                           (s1, prow1, used1, cf1),
-                                           (s2, prow2, used2, cf2))
+            with telemetry.span("osd.basis"):
+                bad = torch.where(used1, 0, s1).sum(1) != 0
+                if live is not None:
+                    bad &= live
+                perm = torch.sort((~bad).to(i32), stable=True).indices
+                nbad = bad.sum()
+                span3 = _span(0, nbad, dev)
+                _, s2, prow2, used2, cf2 = eliminate(
+                    pack(colsE[perm], KTp, span3), residual[perm], KT, span3,
+                    tail_budget)
+                s1, prow1, used1, cf1 = _merge(perm, lane < nbad,
+                                               (s1, prow1, used1, cf1),
+                                               (s2, prow2, used2, cf2))
         if stop_after == "basis":
             return s1, prow1, used1, cf1
         s_red, prow_of_col, used, cf = s1, prow1, used1, cf1
-        # OSD-0 correction scattered from row space: e0[colofrow[r]] =
-        # s_red[r] for pivot rows; unused rows dump into slot KT
-        tgt = torch.where(used, cf.long(), KT)
-        e0_perm = torch.zeros((B, KT + 1), dtype=i32, device=dev).scatter_(
-            1, tgt, s_red)[:, :KT]
 
         def reduced_for_reprocess(idx, span_r):
             """Full Gauss-Jordan of the shots ``idx`` at full width, gated
@@ -368,18 +377,26 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
             Hp = torch.cat([Hp, Hb_words[None].expand(B, *Hb_words.shape)],
                            -1)
         Hp, s_red, used, prow_of_col = _eliminate_xla(Hp, residual, KT, m, B)
-        e0_perm = torch.where(
-            prow_of_col >= 0,
-            s_red.gather(1, prow_of_col.clamp(min=0).long()), 0)
 
         def reduced_for_reprocess(idx, span_r):
             return Hp[idx]
 
-    is_pivot = prow_of_col >= 0                                  # (B, KT)
-    # validity: un-pivoted rows must carry zero reduced syndrome
-    unsat0 = torch.where(used, 0, s_red).sum(1)
-    valid0 = unsat0 == 0
-    rank_deficient = ~valid0
+    with telemetry.span("osd.osd0"):
+        if use_blocks:
+            # OSD-0 correction scattered from row space: e0[colofrow[r]] =
+            # s_red[r] for pivot rows; unused rows dump into slot KT
+            tgt = torch.where(used, cf.long(), KT)
+            e0_perm = torch.zeros((B, KT + 1), dtype=i32,
+                                  device=dev).scatter_(1, tgt, s_red)[:, :KT]
+        else:
+            e0_perm = torch.where(
+                prow_of_col >= 0,
+                s_red.gather(1, prow_of_col.clamp(min=0).long()), 0)
+        is_pivot = prow_of_col >= 0                              # (B, KT)
+        # validity: un-pivoted rows must carry zero reduced syndrome
+        unsat0 = torch.where(used, 0, s_red).sum(1)
+        valid0 = unsat0 == 0
+        rank_deficient = ~valid0
 
     e_perm, valid = e0_perm.to(i32), valid0
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -387,26 +404,31 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
         # the order-w search on the failed shots, sorted first into a slice
         # of S shots (JAX's small-slice rule); _reprocess keeps OSD-0 for
         # the valid shots the slice also holds
-        failed = ~valid0 if live is None else ~valid0 & live
-        S = B if reprocess_slice is None else max(0, min(reprocess_slice, B))
-        overflow = failed & (torch.cumsum(failed.to(i32), 0) > S)
-        if S:
-            idx = torch.sort((~failed).to(i32), stable=True).indices[:S]
-            Hp_full = reduced_for_reprocess(idx, _span(0, failed.sum(), dev))
-            e_r, valid_r = _reprocess(
-                Hp_full, s_red[idx], used[idx], prow_of_col[idx],
-                is_pivot[idx], e0_perm[idx], valid0[idx], llr[idx],
-                hard[idx], colsE[idx], order, num_test, S, KT, m)
-            e_perm = e_perm.index_copy(0, idx, e_r)
-            valid = valid.index_copy(0, idx, valid_r)
+        with telemetry.span("osd.reprocess"):
+            failed = ~valid0 if live is None else ~valid0 & live
+            S = (B if reprocess_slice is None
+                 else max(0, min(reprocess_slice, B)))
+            overflow = failed & (torch.cumsum(failed.to(i32), 0) > S)
+            if S:
+                n_failed = failed.sum()
+                telemetry.count("osd.reprocess_failed", n_failed)
+                idx = torch.sort((~failed).to(i32), stable=True).indices[:S]
+                Hp_full = reduced_for_reprocess(idx, _span(0, n_failed, dev))
+                e_r, valid_r = _reprocess(
+                    Hp_full, s_red[idx], used[idx], prow_of_col[idx],
+                    is_pivot[idx], e0_perm[idx], valid0[idx], llr[idx],
+                    hard[idx], colsE[idx], order, num_test, S, KT, m)
+                e_perm = e_perm.index_copy(0, idx, e_r)
+                valid = valid.index_copy(0, idx, valid_r)
     if stop_after == "reprocess":
         return e_perm, valid, overflow
 
     out = dict(valid=valid, rank_deficient=rank_deficient,
                reprocess_overflow=overflow)
     if logical_pack is not None:
-        out["logical_delta_packed"] = _xor_reduce(
-            torch.where(e_perm > 0, lp_perm, 0))
+        with telemetry.span("osd.delta"):
+            out["logical_delta_packed"] = _xor_reduce(
+                torch.where(e_perm > 0, lp_perm, 0))
     if return_solution:
         corr = torch.zeros((B, n), dtype=i32, device=dev).scatter_add_(
             1, colsE.long(), e_perm)

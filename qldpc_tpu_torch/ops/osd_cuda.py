@@ -22,7 +22,7 @@ All three share the column-bitset layout, the plan and the host entry
 points (``csrc/gf2_elim_common.cuh``) and one Python launch path
 (:func:`prepare_elim_launch`): a ``torch.profiler`` range per launch named
 with the kernel and the width (``K2_RANGE``, ``K4_RANGE``, ``K5_RANGE``),
-and the launch count on the wrapper.
+entered only while a profiler runs, and the launch count on the wrapper.
 
 The column layout: (B, Kp, S) int32, column j of a shot being S words over
 the rows, bit i of word l being row 32l + i; S is the eliminators' odd
@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..utils import telemetry
 
 _SMEM_LIMIT = _kernels.SMEM_PER_BLOCK - 1024  # dynamic bytes a block takes
 _MAX_ROWS = 32 * 32 * 4      # 32 lanes x GF2_MAXR words of 32 rows
@@ -444,19 +445,32 @@ def _run(kernel: str, plain, Hp, s, K, m, rank, full_jordan, exit_on_valid,
          return_steps, live, want_matrix, block_shots, smem_budget):
     """Shared body of the three wrappers: on a CPU tensor the plain
     version of the input turned words-major, else one launch of
-    ``kernel``."""
-    if Hp.device.type == "cpu":
-        _, _, M = _check_columns(Hp, s, K, m, kernel)
-        out = plain(columns_to_words(Hp, M), s, K, m, rank, full_jordan,
-                    exit_on_valid, return_steps, live=live)
-        return out if want_matrix else (None,) + out[1:]
-    launch, finish = prepare_elim_launch(Hp, s, K, m, rank, full_jordan,
-                                         exit_on_valid, kernel=kernel,
-                                         live=live, want_matrix=want_matrix,
-                                         block_shots=block_shots,
-                                         smem_budget=smem_budget)
-    launch()
-    return finish(return_steps)
+    ``kernel``. Each call is a telemetry span ``elim`` (utils/telemetry.py)
+    counting its live shots ``elim.live`` and their column steps
+    ``elim.steps`` (the steps the launch writes anyway, held unread)."""
+    with telemetry.span("elim", kernel=kernel, words=Hp.shape[1] // 32,
+                        full_jordan=full_jordan):
+        traced = telemetry.enabled()
+        if Hp.device.type == "cpu":
+            _, _, M = _check_columns(Hp, s, K, m, kernel)
+            out = plain(columns_to_words(Hp, M), s, K, m, rank, full_jordan,
+                        exit_on_valid, return_steps or traced, live=live)
+            if not want_matrix:
+                out = (None,) + out[1:]
+        else:
+            launch, finish = prepare_elim_launch(
+                Hp, s, K, m, rank, full_jordan, exit_on_valid, kernel=kernel,
+                live=live, want_matrix=want_matrix, block_shots=block_shots,
+                smem_budget=smem_budget)
+            launch()
+            out = finish(return_steps or traced)
+        if traced:
+            telemetry.count("elim.live", Hp.shape[0] if live is None
+                            else live, telemetry.live_shots)
+            telemetry.count("elim.steps", out[5])
+            if not return_steps:
+                out = out[:5]
+        return out
 
 
 def eliminate_blocks_v1(Hp, s, K: int, m: int, rank: int = None,
@@ -521,7 +535,8 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
     allocation, library load.
     Returns (launch, finish): each ``launch()`` runs the kernel once,
     inside a ``torch.profiler`` range named by the kernel's ``*_RANGE``
-    with the width, and counts it on the kernel's wrapper;
+    with the width where a profiler runs, and counts it on the kernel's
+    wrapper;
     ``finish(return_steps)`` gives :func:`eliminate_blocks`'s outputs.
     A launch writes its outputs apart from its inputs and runs from the
     unchanged inputs each time, except where ``launch.consumes_input`` is
@@ -556,8 +571,12 @@ def prepare_elim_launch(Hp, s, K: int, m: int, rank: int = None,
              + (f", block_shots={spb}" if spb else ""))
 
     def launch():
-        # the stream is the current one at the launch (a graph's capture)
-        with torch.profiler.record_function(label):
+        # the stream is the current one at the launch (a graph's capture);
+        # the range is entered only under a running profiler
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(label):
+                code = fn(*args, _kernels.stream_ptr(dev))
+        else:
             code = fn(*args, _kernels.stream_ptr(dev))
         _kernels.check(code, f"{name}_launch")
         wrapper.launches += 1

@@ -58,6 +58,7 @@ from ..ops import osd
 from ..ops.osd import choose_K, osd_batch
 from ..ops.osd_cuda import ColumnIndex, column_index
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
+from ..utils import telemetry
 from .mesh import (ShotMesh, broadcast_from_rank0, gather_flags, generator,
                    read_counts, shard_rounds, shot_mesh)
 
@@ -187,6 +188,25 @@ def _bp_one_basis(syndrome, dec: BasisDecoder, maxIter: int,
                         msg_dtype=msg_dtype)
 
 
+def _iterations_run(iterations) -> int:
+    """BP's ``iterations`` (each shot's converging iteration, from 0, or
+    maxIter - 1) as the iterations the shots ran."""
+    return int(iterations.sum()) + iterations.numel()
+
+
+def _bp_traced(syndrome, dec: BasisDecoder, maxIter: int, bp_args: tuple,
+               basis: Optional[str] = None):
+    """:func:`_bp_one_basis` inside the ``bp`` span, with the iterations
+    its shots ran and its shots counted (utils/telemetry.py: the
+    iterations tensor is held, not read)."""
+    with telemetry.span("bp", basis=basis):
+        bp = _bp_one_basis(syndrome, dec, maxIter, *bp_args)
+        telemetry.count("bp.shot_iterations", bp["iterations"],
+                        _iterations_run)
+        telemetry.count("bp.shots", syndrome.shape[0])
+    return bp
+
+
 def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
                   osd_order: int, chunk: int, replay: bool = False):
     """OSD for the BP-failed shots of a (possibly pooled) batch.
@@ -205,30 +225,45 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
     gated to nothing. No host read. The reprocess slice is
     ``osd.REPROCESS_SLICE`` shots, or the whole chunk when ``replay``.
     Per-shot OSD outputs do not depend on how shots are grouped, so the
-    flags equal the JAX package's."""
+    flags equal the JAX package's.
+
+    Telemetry (utils/telemetry.py): spans ``osd.order``, ``osd.chunk`` (one
+    a chunk, with its first shot ``c0`` and its live count ``osd.live``)
+    and ``osd.merge``; the unconverged count ``osd.failed`` and
+    ``osd.chunks_issued`` go to the span the caller opened (``osd``)."""
     B, m = syndrome.shape
     dev = syndrome.device
-    res_wt = (syndrome.to(torch.int32)
-              ^ ((hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
-              ).sum(1)
-    order = torch.sort(torch.where(conv, m + 1, res_wt), stable=True).indices
-    n_fail = (~conv).sum()
+    with telemetry.span("osd.order"):
+        res_wt = (syndrome.to(torch.int32)
+                  ^ ((hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
+                  ).sum(1)
+        order = torch.sort(torch.where(conv, m + 1, res_wt),
+                           stable=True).indices
+        n_fail = (~conv).sum()
+    telemetry.count("osd.failed", n_fail)
     delta = torch.zeros(B, dtype=torch.int32, device=dev)
     rdef = torch.zeros(B, dtype=torch.bool, device=dev)
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
-    for c0 in range(0, B, chunk):
-        idx = order[c0:c0 + chunk]
-        out = osd_batch(dec.H, dec.HT, syndrome[idx], values[idx], hard[idx],
-                        K=dec.K, order=osd_order, num_test=dec.num_test,
-                        rank=dec.rank, basis_cols=dec.basis_cols,
-                        logical_pack=dec.logical_pack, return_solution=False,
-                        n_live=(n_fail - c0).clamp(0, len(idx)),
-                        reprocess_slice=None if replay
-                        else osd.REPROCESS_SLICE,
-                        col_index=dec.col_index)
-        delta.index_copy_(0, idx, out["logical_delta_packed"])
-        rdef.index_copy_(0, idx, out["rank_deficient"])
-        overflow.index_copy_(0, idx, out["reprocess_overflow"])
+    starts = range(0, B, chunk)
+    telemetry.count("osd.chunks_issued", len(starts))
+    for c0 in starts:
+        with telemetry.span("osd.chunk", c0=c0):
+            idx = order[c0:c0 + chunk]
+            n_live = (n_fail - c0).clamp(0, len(idx))
+            telemetry.count("osd.live", n_live)
+            out = osd_batch(dec.H, dec.HT, syndrome[idx], values[idx],
+                            hard[idx], K=dec.K, order=osd_order,
+                            num_test=dec.num_test, rank=dec.rank,
+                            basis_cols=dec.basis_cols,
+                            logical_pack=dec.logical_pack,
+                            return_solution=False, n_live=n_live,
+                            reprocess_slice=None if replay
+                            else osd.REPROCESS_SLICE,
+                            col_index=dec.col_index)
+        with telemetry.span("osd.merge"):
+            delta.index_copy_(0, idx, out["logical_delta_packed"])
+            rdef.index_copy_(0, idx, out["rank_deficient"])
+            overflow.index_copy_(0, idx, out["reprocess_overflow"])
     return delta, rdef & ~conv, overflow & ~conv
 
 
@@ -256,12 +291,14 @@ def _decode_logicals(syndrome, dec: BasisDecoder, maxIter: int,
     flags (B,) bool when ``return_overflow`` (a caller that sees one
     decodes the batch again with ``replay``; see :func:`_osd_fallback`)."""
     B = syndrome.shape[0]
-    bp = _bp_one_basis(syndrome, dec, maxIter, damping, clip_llr, msg_dtype,
-                       bp_variant)
+    bp = _bp_traced(syndrome, dec, maxIter,
+                    (damping, clip_llr, msg_dtype, bp_variant))
     conv = bp["converged"]
     chunk = B if B <= 64 else max(64, B // 8)
-    delta, rdef, overflow = _osd_fallback(syndrome, bp["values"], bp["hard"],
-                                          conv, dec, osd_order, chunk, replay)
+    with telemetry.span("osd", chunk=chunk):
+        delta, rdef, overflow = _osd_fallback(syndrome, bp["values"],
+                                              bp["hard"], conv, dec,
+                                              osd_order, chunk, replay)
     out = (_logical_readout(bp["hard"], conv, delta, dec), conv, rdef)
     return out + (overflow,) if return_overflow else out
 
@@ -292,12 +329,13 @@ def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
     clip_llr, msg_dtype, bp_variant) of :func:`_bp_one_basis`. ``randoms`` =
     (err, pauli, cat2) replaces the draw from ``gen`` (tests feed both
     packages the same draws). Returns the [z, x] per-basis state dicts."""
-    trials = trial_batch(gen, error_rate, dec_z.maps, dec_x.maps, n_locs,
-                         batch, randoms)
+    with telemetry.span("sampling"):
+        trials = trial_batch(gen, error_rate, dec_z.maps, dec_x.maps, n_locs,
+                             batch, randoms)
     per_basis = []
     for name, dec in (("z", dec_z), ("x", dec_x)):
         syndrome = trials[f"syndrome_{name}"]
-        bp = _bp_one_basis(syndrome, dec, maxIter, *bp_args)
+        bp = _bp_traced(syndrome, dec, maxIter, bp_args, name)
         per_basis.append(dict(
             syn=syndrome, true_log=trials[f"true_{name}"],
             values=bp["values"], hard=bp["hard"], conv=bp["converged"]))
@@ -316,15 +354,17 @@ def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None,
     out = {}
     overflow = []
     for name, dec, st in (("z", dec_z, flat[0]), ("x", dec_x, flat[1])):
-        delta, rdef, ovf = _osd_fallback(st["syn"], st["values"], st["hard"],
-                                         st["conv"], dec, osd_order, chunk,
-                                         replay)
-        dec_log = _logical_readout(st["hard"], st["conv"], delta, dec)
-        out[f"{name}_err"] = (dec_log != st["true_log"].to(torch.int32)
-                              ).any(1)
-        out[f"{name}_conv"] = st["conv"]
-        out[f"{name}_rankdef"] = rdef
-        overflow.append(ovf)
+        with telemetry.span("osd", basis=name, chunk=chunk):
+            delta, rdef, ovf = _osd_fallback(st["syn"], st["values"],
+                                             st["hard"], st["conv"], dec,
+                                             osd_order, chunk, replay)
+        with telemetry.span("readout"):
+            dec_log = _logical_readout(st["hard"], st["conv"], delta, dec)
+            out[f"{name}_err"] = (dec_log != st["true_log"].to(torch.int32)
+                                  ).any(1)
+            out[f"{name}_conv"] = st["conv"]
+            out[f"{name}_rankdef"] = rdef
+            overflow.append(ovf)
     out["any_err"] = out["z_err"] | out["x_err"]
     out["osd_overflow"] = overflow[0] | overflow[1]
     return out
@@ -366,14 +406,17 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
     bp_args = (damping, clip_llr, msg_dtype, bp_variant)
 
     def pooled(gen, randoms=None, replay: bool = False):
-        stacked = [_sample_bp_phase(
-            gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter, bp_args,
-            None if randoms is None else randoms[i])
-            for i in range(n_rounds)]
-        flat = [{k: torch.cat([r[b][k] for r in stacked])
-                 for k in stacked[0][b]} for b in (0, 1)]
-        return _pooled_osd_phase(flat, dec_z, dec_x, osd_order,
-                                 chunk=osd_chunk, replay=replay)
+        with telemetry.span("round", rounds=n_rounds, batch=batch,
+                            replay=replay):
+            stacked = [_sample_bp_phase(
+                gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
+                bp_args, None if randoms is None else randoms[i])
+                for i in range(n_rounds)]
+            with telemetry.span("pool"):
+                flat = [{k: torch.cat([r[b][k] for r in stacked])
+                         for k in stacked[0][b]} for b in (0, 1)]
+            return _pooled_osd_phase(flat, dec_z, dec_x, osd_order,
+                                     chunk=osd_chunk, replay=replay)
 
     return pooled
 
@@ -596,18 +639,24 @@ def _drive_stopping_rounds(dispatch, gather, n_streams: int,
     while not all(done):
         while len(inflight) < pipeline_depth:
             states = [g.get_state() for g in generators]
-            inflight.append((round_idx, states, dispatch(round_idx)))
+            with telemetry.dispatch(round_idx):
+                inflight.append((round_idx, states, dispatch(round_idx)))
             round_idx += 1
         ri, states, outs = inflight.popleft()
-        counts = read_counts(outs)
+        with telemetry.dispatch(ri), telemetry.span("consume"):
+            counts = read_counts(outs)
         if any(c.get("osd_overflow_count", 0) for c in counts):
             now = [g.get_state() for g in generators]
             for g, st in zip(generators, states):
                 g.set_state(st)
-            outs = dispatch(ri, replay=True)
+            with telemetry.dispatch(ri, replay=True), \
+                    telemetry.span("replay"):
+                telemetry.count("replays", 1)
+                outs = dispatch(ri, replay=True)
+                with telemetry.span("consume"):
+                    counts = read_counts(outs)
             for g, st in zip(generators, now):
                 g.set_state(st)
-            counts = read_counts(outs)
             replays += 1
             logger.info("round %d: an OSD reprocess slice overflowed; "
                         "replayed with whole chunks", ri + 1)

@@ -898,6 +898,68 @@ def test_steady_pooled_dispatch_reads_nothing_back(cuda, bundles):
     assert counts["osd_overflow_count"] == 0
 
 
+def test_traced_dispatch_reads_nothing_and_counts_as_the_cpu(cuda, bundles,
+                                                             monkeypatch):
+    """With the program's telemetry on, a steady pooled dispatch still
+    issues no host read and launches what it launches off; its spans and
+    counters (BP iterations, OSD live counts, eliminator live shots and
+    column steps) equal the CPU's plain path's on the same randoms; the
+    eliminator's profiler range is entered once a launch under a profiler
+    and never without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    from qldpc_tpu_torch.utils import telemetry
+    circ, M, decs = bundles
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    randoms = [sample_gate_randoms(gen, 128, circ.num_error_locs, 0.006)
+               for _ in range(2)]
+    traced = {}
+    for dev in ("cpu", str(cuda)):
+        dz, dx = decs[dev]
+        fn = mesh.shard_rounds(engine.make_pooled_round_fn(
+            dz, dx, circ.num_error_locs, 0.006, 128, 50, 2, 2),
+            mesh.shot_mesh())
+        rnd = [tuple(t.to(dev) for t in r) for r in randoms]
+        want = fn([None], randoms=[rnd])
+        launches = osd_cuda.eliminate_blocks_v1.launches
+        telemetry.reset()
+        telemetry.enable()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn([None], randoms=[rnd])
+        finally:
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+            telemetry.disable()
+        for k, v in want.items():
+            assert torch.equal(v, got[k]), k
+        spans = telemetry.export()["spans"]
+        telemetry.reset()
+        traced[dev] = [(sp["name"], sp["parent"], sp["counters"])
+                       for sp in spans]
+        elims = [sp for sp in spans if sp["name"] == "elim"]
+        if dev != "cpu":
+            assert len(elims) == \
+                osd_cuda.eliminate_blocks_v1.launches - launches
+    assert traced["cpu"] == traced[str(cuda)]
+    entered = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: entered.append(a) or real(*a, **k))
+    fn([None], randoms=[rnd])
+    torch.cuda.synchronize()
+    assert not entered
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn([None], randoms=[rnd])
+        torch.cuda.synchronize()
+    ranges = sum(e.count for e in prof.key_averages()
+                 if e.key.startswith(osd_cuda.K2_RANGE))
+    assert ranges == len(elims)
+
+
 # The column hand-off: G1's column layout, and K2, K4 and K5 from it
 @pytest.mark.parametrize("M", [100, 288, 1008, 1024, 2880, 4096])
 @pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])

@@ -177,6 +177,7 @@ def test_port_imports_without_jax():
                  "examples", "examples.toy_example", "examples.toy_422",
                  "ops.osd", "ops.sampler", "parallel.decoder",
                  "parallel.code_capacity", "utils.benchloop",
+                 "utils.telemetry",
                  "scripts.multicode_bench", "scripts.pooled_ab",
                  "scripts.maxiter_sweep", "scripts.bench288_sweep",
                  "scripts.scaling_bench", "scripts.osd144_stage_ab",
