@@ -119,7 +119,7 @@ osd288_probe (K1, K3, G1, K2), osd_margin_probe at [[144,12,12]] and
 studies' statistics (stage sums, exit depths, stage-1 coverage, valid
 shots within each K, the basis rerun's outputs) on the card against the
 plain versions on the same BP-failed posteriors at [[144,12,12]] and
-[[288,12,18]]; and every pooled@cN flag equal to pool/8's on one
+[[288,12,18]]; and every pooled@cN flag equal to the default chunk's on one
 dispatch's draws, (24) the last JAX-side scripts: ler_oracle's decode of
 the committed reference-sampled [[90,8,10]] trials (4,000, maxIter 20 and
 50; K1, G1, K2) against the JAX package's per-trial flags (|z| <= 3), the
@@ -2450,8 +2450,8 @@ def main():
     # short time (one configuration a sweep, 1-second windows), each with
     # the launches it made; the OSD studies' statistics on the card against
     # the plain versions on the same posteriors; osd_microbench under each
-    # eliminator; and every pooled@cN against pool/8 on one dispatch's
-    # randoms
+    # eliminator; and every pooled@cN against the default chunk on one
+    # dispatch's randoms
     import io
 
     from qldpc_tpu_torch.scripts import (
@@ -2637,7 +2637,8 @@ def main():
           f"exit depths {st288['depth']}, the basis rerun's outputs)",
           flush=True)
 
-    # pooled@cN: every chunk gives pool/8's flags on one dispatch's draws
+    # pooled@cN: every chunk (c512 is pool/8) gives the default chunk's
+    # flags (the whole pool at this shape) on one dispatch's draws
     cfgs = ["pooled"] + [f"pooled@c{n}" for n in (512, 1024, 2048,
                                                    RPD * BATCH)]
     fns23 = pooled_ab.make_config_fns(cfgs, *decs, n_locs, P, BATCH, RPD,
@@ -2650,12 +2651,13 @@ def main():
         got23 = fns23[cfg](None, randoms=draws23)
         bad = [k for k in ref23 if not torch.equal(got23[k], ref23[k])]
         if bad:
-            fail(f"phase 23: {cfg} flags {bad} differ from pool/8's")
-    print(f"phase 23: pooled@c512/1024/2048/4096 flags equal pool/8's on one "
-          f"dispatch ({int(ref23['any_err'].sum())} errors in "
-          f"{RPD * BATCH}); "
-          + pooled_ab.chunk_plan(f"pooled@c{RPD * BATCH}", decs, RPD * BATCH,
-                                 dev), flush=True)
+            fail(f"phase 23: {cfg} flags {bad} differ from the default "
+                 f"chunk's")
+    print(f"phase 23: pooled@c512/1024/2048/4096 flags equal the default "
+          f"chunk's on one dispatch ({int(ref23['any_err'].sum())} errors "
+          f"in {RPD * BATCH}); "
+          + pooled_ab.chunk_plan("pooled", decs, RPD * BATCH, dev,
+                                 OSD_ORDER), flush=True)
     print(f"phase 23: {time.time() - t23:.1f} s", flush=True)
 
     # ---- phase 24: the oracle, the round and OSD breakdowns, the BP

@@ -48,7 +48,9 @@ from ..utils import telemetry
 
 # Shots the order-w reprocess holds per OSD call in the engine's rounds.
 # The reprocess runs on this slice in every chunk and basis, whether or not
-# a shot needs it (no host read decides it): the full-Jordan elimination
+# a shot needs it (no host read decides it); the pooled round's default
+# chunk is its whole pool wherever that fits (engine.pooled_osd_chunk), so
+# the slice then holds a basis's whole pool. The full-Jordan elimination
 # inside is gated to the shots whose OSD-0 failed, but the flip search's
 # PyTorch ops cost the slice's size (a (32, m, 78) parity table at
 # [[144,12,12]], order 2). Physical syndromes almost never fail OSD-0 with

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from collections import deque
@@ -56,7 +57,7 @@ from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops import osd
 from ..ops.osd import choose_K, osd_batch
-from ..ops.osd_cuda import ColumnIndex, column_index
+from ..ops.osd_cuda import ColumnIndex, column_index, column_stride
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
 from ..utils import telemetry
 from .mesh import (ShotMesh, broadcast_from_rank0, gather_flags, generator,
@@ -69,6 +70,12 @@ _STOP_KEYS = ("any_err", "z_err", "x_err", "z_rankdef", "x_rankdef")
 
 _SAMPLER_KEYS = ("z_loc_gate_loc", "z_loc_role", "z_loc_class",
                  "x_loc_gate_loc", "x_loc_role", "x_loc_class")
+
+# The pooled round's OSD chunk budget (pooled_osd_chunk): the bytes the
+# largest allocation of one chunk may take, 1/OSD_CHUNK_MEMORY_SHARE of the
+# card's memory (~10 GB on an 80 GB H100), or OSD_CHUNK_CPU_BYTES on the CPU
+OSD_CHUNK_MEMORY_SHARE = 8
+OSD_CHUNK_CPU_BYTES = 1 << 30
 
 
 def ensure_sampler_metadata(matrices: Dict, circ: SyndromeCircuit, Lx, Lz,
@@ -214,7 +221,8 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
     Returns (delta (B,) int32 packed logical delta of the OSD correction
     relative to the BP hard decision, rank_deficient (B,) bool, overflow
     (B,) bool: OSD-0 failed and the chunk's reprocess slice did not hold
-    the shot).
+    the shot), each 0 on the converged shots, whose ``osd_batch`` outputs
+    are unspecified (they are gated off).
 
     Shots are sorted unconverged-first and by BP-residual weight
     (syndrome ^ H@hard) within the unconverged, so shots of similar
@@ -264,7 +272,7 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
             delta.index_copy_(0, idx, out["logical_delta_packed"])
             rdef.index_copy_(0, idx, out["rank_deficient"])
             overflow.index_copy_(0, idx, out["reprocess_overflow"])
-    return delta, rdef & ~conv, overflow & ~conv
+    return torch.where(conv, 0, delta), rdef & ~conv, overflow & ~conv
 
 
 def _logical_readout(hard, conv, delta, dec: BasisDecoder):
@@ -342,15 +350,60 @@ def _sample_bp_phase(gen, dec_z, dec_x, n_locs, error_rate, batch, maxIter,
     return per_basis
 
 
-def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int = None,
+def osd_chunk_budget(device) -> int:
+    """The bytes the largest allocation of one pooled OSD chunk may take
+    on ``device``: 1/``OSD_CHUNK_MEMORY_SHARE`` of a card's memory, or
+    ``OSD_CHUNK_CPU_BYTES`` on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return (torch.cuda.get_device_properties(dev).total_memory
+                // OSD_CHUNK_MEMORY_SHARE)
+    return OSD_CHUNK_CPU_BYTES
+
+
+def osd_shot_bytes(dec: BasisDecoder, osd_order: int, device) -> int:
+    """The bytes one shot adds to the largest allocation of an OSD chunk
+    of ``dec`` (ops/osd.py::osd_batch): the larger of the basis rerun's G1
+    output (KTp columns of ``column_stride`` words) and a replayed chunk's
+    reprocess, whose slice is the whole chunk (its float32 parity table of
+    m rows by the flip sets of up to ``osd_order`` test columns, and its
+    full-width reduced matrix of KTp / 32 words by m rows)."""
+    m, n = dec.H.shape
+    KT = dec.K
+    if dec.basis_cols is not None and dec.K < n:
+        KT += dec.basis_cols.shape[0]
+    W = -(-KT // 32)
+    g1 = 32 * W * column_stride(W, m, device) * 4
+    flips = sum(math.comb(dec.num_test, w) for w in range(1, osd_order + 1))
+    reprocess = 4 * m * (flips + W) if flips else 0
+    return max(g1, reprocess)
+
+
+def pooled_osd_chunk(pool: int, decs, osd_order: int, device=None) -> int:
+    """The pooled round's OSD chunk over a pool of ``pool`` shots decoded
+    by the bases' decoders ``decs``: the whole pool where the largest
+    allocation of one chunk (:func:`osd_shot_bytes` of the widest basis,
+    times the chunk) fits :func:`osd_chunk_budget`, else the fewest equal
+    chunks of a multiple of 32 shots that fit. A pool of at most 64 shots
+    stays whole. ``device``: None, the decoders'."""
+    if pool <= 64:
+        return pool
+    dev = decs[0].H.device if device is None else torch.device(device)
+    shot = max(osd_shot_bytes(d, osd_order, dev) for d in decs)
+    fit = max(32, osd_chunk_budget(dev) // shot // 32 * 32)
+    if pool <= fit:
+        return pool
+    return -(-pool // (32 * -(-pool // fit))) * 32
+
+
+def _pooled_osd_phase(flat, dec_z, dec_x, osd_order, chunk: int,
                       replay: bool = False):
-    """Pooled OSD + readout over the flattened multi-round BP state. The
-    default chunk is pool/8 (at least 64), as in the JAX package. The flags
-    gain ``osd_overflow``: shots whose OSD-0 failed in either basis beyond
-    their chunk's reprocess slice (the round must be replayed)."""
-    if chunk is None:
-        pool = flat[0]["syn"].shape[0]
-        chunk = pool if pool <= 64 else max(64, pool // 8)
+    """Pooled OSD + readout over the flattened multi-round BP state, in
+    OSD chunks of ``chunk`` shots (the pooled round's default is
+    :func:`pooled_osd_chunk`'s: the whole pool wherever it fits the
+    budget). The flags gain ``osd_overflow``: shots whose OSD-0 failed in
+    either basis beyond their chunk's reprocess slice (the round must be
+    replayed)."""
     out = {}
     overflow = []
     for name, dec, st in (("z", dec_z, flat[0]), ("x", dec_x, flat[1])):
@@ -400,10 +453,16 @@ def make_pooled_round_fn(dec_z: BasisDecoder, dec_x: BasisDecoder,
     replay=False)`` -> flattened (n_rounds * batch,) per-shot flags, issued
     without a host read; ``randoms`` is a list of per-round (err, pauli,
     cat2) replacing the draws from ``gen``; ``replay`` gives each OSD chunk
-    its whole size as the reprocess slice."""
+    its whole size as the reprocess slice. The OSD chunk is ``osd_chunk``
+    shots, or by default :func:`pooled_osd_chunk`'s, computed here once:
+    the whole pool, one chunk a basis, wherever its largest allocation
+    fits the budget."""
     msg_dtype, bp_variant = _round_defaults(dec_z, damping, msg_dtype,
                                             bp_variant)
     bp_args = (damping, clip_llr, msg_dtype, bp_variant)
+    if osd_chunk is None:
+        osd_chunk = pooled_osd_chunk(n_rounds * batch, (dec_z, dec_x),
+                                     osd_order)
 
     def pooled(gen, randoms=None, replay: bool = False):
         with telemetry.span("round", rounds=n_rounds, batch=batch,

@@ -34,7 +34,8 @@ Usage (from the root of a checkout, on a machine with an NVIDIA GPU):
 
 ``--cumulative`` is the JAX package's ``scripts/round_breakdown.py``: one
 unpooled round of ``batch`` shots (the registry code at its distance in
-cycles, OSD order 2, chunks of batch/8) in cumulative variants, null
+cycles, OSD order 2, the pooled round's OSD chunk,
+``engine.pooled_osd_chunk``) in cumulative variants, null
 dispatch -> + sampling and syndromes of both bases -> + BP of both bases
 (K1) -> + the residual sort -> + the OSD chunks (G1 and the eliminator,
 each chunk gated on the device) -> the full round with the readout
@@ -108,7 +109,8 @@ def _timed_dispatch(decs, n_locs, gen, cfg, acc):
     flat = [{k: torch.cat([r[b][k] for r in rounds]) for k in rounds[0][b]}
             for b in (0, 1)]
     pool = flat[0]["syn"].shape[0]
-    chunk = cfg.get("osd_chunk") or max(64, pool // 8)
+    chunk = cfg.get("osd_chunk") or engine.pooled_osd_chunk(
+        pool, decs, cfg["osd_order"])
     for st, dec in zip(flat, decs):
         delta = timed("osd", lambda: engine._osd_fallback(
             st["syn"], st["values"], st["hard"], st["conv"], dec,
@@ -219,7 +221,7 @@ def cumulative_fn(level: int, decs, n_locs: int, p: float, batch: int,
         full = engine.make_round_fn(decs[0], decs[1], n_locs, p, batch,
                                     maxIter, osd_order)
         return lambda gen: sum(v.sum() for v in full(gen).values())
-    chunk = batch if batch <= 64 else max(64, batch // 8)
+    chunk = engine.pooled_osd_chunk(batch, decs, osd_order)
 
     def run(gen):
         dev = decs[0].H.device

@@ -6,7 +6,7 @@ Counterpart of the JAX package's ``scripts/bench288_sweep.py``. The
 order the OSD's columns better, so the elimination exits earlier), a larger
 batch over the fixed cost of a round, and rounds a dispatch. Every
 configuration runs in one session, the OSD pooled over a dispatch's rounds
-when there are several (chunk pool/8), each timed by
+when there are several (the round's default chunk), each timed by
 ``utils.benchloop.timed_windows`` (best of ``--windows`` windows of
 ``--seconds``, two dispatches in flight). Prints the card's name and power
 limit, a line a configuration with its peak device memory on the card,

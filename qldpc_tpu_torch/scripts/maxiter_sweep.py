@@ -12,8 +12,8 @@ configuration alike; then the best of the two.
 An entry ``MI:VARIANT`` pins its own BP schedule (e.g. ``200:minsum
 50:layered``); plain entries take every variant of ``--variant`` (a comma
 list). ``--pooled`` runs the engine's default pooled schedule (OSD pooled
-over the dispatch's rounds, chunk ``--osd-chunk`` or pool/8), else the
-rounds of a dispatch run unpooled.
+over the dispatch's rounds, chunk ``--osd-chunk`` or the round's
+default), else the rounds of a dispatch run unpooled.
 
 Usage (from the root of a checkout):
 
@@ -99,7 +99,7 @@ def main(argv=None) -> dict:
                     help="the engine's default pooled schedule instead of "
                          "unpooled rounds")
     ap.add_argument("--osd-chunk", type=int, default=None,
-                    help="pooled OSD chunk (None = pool/8)")
+                    help="pooled OSD chunk (None: the round's default)")
     ap.add_argument("--variant", default="minsum",
                     help="bp_variant: minsum | layered | tanh; a comma list "
                          "interleaves variants in the same session")

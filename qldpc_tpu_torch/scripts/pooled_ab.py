@@ -7,7 +7,7 @@ Counterpart of the JAX package's ``scripts/pooled_ab.py``. Configurations
   pooled         - cross-round OSD compaction (``make_pooled_round_fn``)
   pooled+layered - pooled, with the layered BP schedule (kernel K3)
   pooled@cN      - pooled with an OSD chunk of N shots (``osd_chunk=N``;
-                   the default is pool/8)
+                   the default is ``engine.pooled_osd_chunk``'s)
 
 The card's rate drifts with the host's share of a dispatch, so only deltas
 within one session mean much: the configurations are interleaved
@@ -45,7 +45,8 @@ SEED = 0
 
 
 def osd_chunk(cfg: str):
-    """The OSD chunk a ``pooled@cN`` configuration sets (None: pool/8)."""
+    """The OSD chunk a ``pooled@cN`` configuration sets (None: the
+    round's default, ``engine.pooled_osd_chunk``)."""
     return int(cfg.split("@c")[1].split("+")[0]) if "@c" in cfg else None
 
 
@@ -88,11 +89,11 @@ def osd_widths(dec) -> dict:
     return out
 
 
-def chunk_plan(cfg: str, decs, pool: int, device) -> str:
+def chunk_plan(cfg: str, decs, pool: int, device, osd_order: int) -> str:
     """The largest eliminator launch of a pooled configuration: its chunk
     of shots at each width of each basis, the column bytes G1 writes for
     it, and on the card the eliminator's plan for it."""
-    chunk = osd_chunk(cfg) or (pool if pool <= 64 else max(64, pool // 8))
+    chunk = osd_chunk(cfg) or engine.pooled_osd_chunk(pool, decs, osd_order)
     chunk = min(chunk, pool)
     parts = []
     for name, dec in zip("ZX", decs):
@@ -134,7 +135,8 @@ def main(argv=None) -> dict:
                           args.batch, args.rpd, args.maxiter, args.osd_order)
     for cfg in fns:
         if cfg.startswith("pooled"):
-            print(chunk_plan(cfg, decs, args.batch * args.rpd, dev),
+            print(chunk_plan(cfg, decs, args.batch * args.rpd, dev,
+                             args.osd_order),
                   flush=True)
 
     best = {cfg: 0.0 for cfg in fns}

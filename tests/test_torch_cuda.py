@@ -898,6 +898,86 @@ def test_steady_pooled_dispatch_reads_nothing_back(cuda, bundles):
     assert counts["osd_overflow_count"] == 0
 
 
+def _osd_kernel_launches(fn, randoms, monkeypatch, tmp_path) -> tuple:
+    """(flags, kernels launched inside ``engine._osd_fallback``) of one
+    dispatch under the profiler: each kernel matched to the host call that
+    launched it through its correlation id."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = engine._osd_fallback
+
+    def ranged(*args, **kw):
+        with record_function("osd_fallback"):
+            return real(*args, **kw)
+
+    monkeypatch.setattr(engine, "_osd_fallback", ranged)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn([None], randoms=[randoms])
+        torch.cuda.synchronize()
+    monkeypatch.setattr(engine, "_osd_fallback", real)
+    path = tmp_path / "osd_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == "osd_fallback"
+              and e.get("cat") == "user_annotation"]
+    inside = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and any(s <= e["ts"] <= t for s, t in ranges)}
+    return out, sum(e.get("cat") == "kernel"
+                    and (e.get("args") or {}).get("correlation") in inside
+                    for e in events)
+
+
+def test_default_osd_chunk_at_144_bench_shape(cuda, monkeypatch, tmp_path):
+    """[[144,12,12]], p=0.004, 4 rounds of 1024 shots: one pooled dispatch
+    at the default OSD chunk (the whole pool, one chunk a basis) gives the
+    flags of chunks of pool // 8 on the same randoms, flag for flag, with
+    about an eighth of their OSD kernel launches, and a steady one reads
+    nothing back."""
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    code = qt.get_code("[[144, 12, 12]]")
+    circ = qt.SyndromeCircuit(code, num_cycles=12)
+    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.004)
+    seq = alpha_schedule("dynamical", 50)
+    decs = [engine._make_basis(circ, M, b, seq, osd_order=2, device=cuda)
+            for b in "ZX"]
+    pool = 4 * 1024
+    assert engine.pooled_osd_chunk(pool, decs, 2) == pool
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    randoms = [sample_gate_randoms(gen, 1024, circ.num_error_locs, 0.004)
+               for _ in range(4)]
+    fns = {chunk: mesh.shard_rounds(engine.make_pooled_round_fn(
+        *decs, circ.num_error_locs, 0.004, 1024, 50, 2, 4,
+        osd_chunk=chunk), mesh.shot_mesh()) for chunk in (None, pool // 8)}
+    for fn in fns.values():
+        fn([None], randoms=[randoms])              # warm-up
+    launches = {}
+    for chunk, fn in fns.items():
+        out, launches[chunk] = _osd_kernel_launches(fn, randoms, monkeypatch,
+                                                    tmp_path)
+        fns[chunk] = (fn, out)
+    want, got = fns[pool // 8][1], fns[None][1]
+    for k, v in want.items():
+        assert torch.equal(v, got[k]), k
+    assert int(got["osd_overflow"].sum()) == 0
+    assert 0 < int((~got["z_conv"]).sum())
+    print(f"OSD kernel launches: default {launches[None]}, pool // 8 "
+          f"{launches[pool // 8]}")
+    assert 500 <= launches[None] <= 800
+    assert launches[pool // 8] > 6 * launches[None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steady = fns[None][0]([None], randoms=[randoms])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for k, v in want.items():
+        assert torch.equal(v, steady[k]), k
+
+
 def test_traced_dispatch_reads_nothing_and_counts_as_the_cpu(cuda, bundles,
                                                              monkeypatch):
     """With the program's telemetry on, a steady pooled dispatch still

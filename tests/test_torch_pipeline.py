@@ -332,3 +332,111 @@ def test_forced_overflow_is_replayed(decoders, monkeypatch):
         assert sum(r for _, r in calls) == got["replays"]
         assert {k: v for k, v in _tallies(got).items() if k != "replays"} \
             == {k: v for k, v in _tallies(want).items() if k != "replays"}
+
+
+def test_osd_fallback_delta_is_zero_on_converged_shots(decoders, monkeypatch):
+    """``osd_batch``'s outputs past its live shots are unspecified (on the
+    card they are whatever the allocator held); ``_osd_fallback`` gives
+    the converged shots a delta of 0, whatever ``osd_batch`` left there,
+    and the unconverged ones their own."""
+    circ, decs = decoders
+    dec = decs[0]
+    g = torch.Generator().manual_seed(5)
+    shape = (2 * BATCH, circ.num_error_locs)
+    err = torch.rand(shape, generator=g) < P
+    c = torch.randint(0, 45, shape, generator=g, dtype=torch.int32)
+    syn = engine.trial_batch(None, P, decs[0].maps, decs[1].maps,
+                             circ.num_error_locs, 2 * BATCH,
+                             (err, c % 3, c // 3))["syndrome_z"]
+    bp = engine._bp_one_basis(syn, dec, MAXITER)
+    conv = bp["converged"]
+    assert 0 < int(conv.sum()) < len(conv)
+    args = (syn, bp["values"], bp["hard"], conv, dec, 1, BATCH)
+    want = engine._osd_fallback(*args)
+    real = engine.osd_batch
+
+    def unspecified(*a, n_live=None, **kw):
+        out = real(*a, n_live=n_live, **kw)
+        lane = torch.arange(len(out["logical_delta_packed"]))
+        out["logical_delta_packed"] = torch.where(
+            lane < n_live, out["logical_delta_packed"], 448)
+        return out
+
+    monkeypatch.setattr(engine, "osd_batch", unspecified)
+    got = engine._osd_fallback(*args)
+    assert not got[0][conv].any()
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+# The pooled round's OSD chunk (engine.pooled_osd_chunk), as arithmetic on
+# the bench shapes' widths (PERF.md section 6): m rows, n columns, the
+# prefix K and the basis rerun's KTp = K + rank rounded to a word; OSD
+# order 2 with 12 test columns, so 12 + 66 flip sets
+BENCH_SHAPES = {"[[144,12,12]]": (1008, 8785, 1280, 70 * 32, 4096),
+                "[[288,12,18]]": (2880, 26209, 3584, 198 * 32, 1024)}
+H100_MEMORY = 85_029_158_912  # torch.cuda.get_device_properties(...)
+
+
+def _widths(m, n, K, KTp):
+    """A stand-in for a BasisDecoder with only the widths the rule reads
+    (H's shape, a stride-0 view)."""
+    return dataclasses.make_dataclass("Widths", ["H", "K", "basis_cols",
+                                                 "num_test"])(
+        torch.zeros((1, 1), dtype=torch.uint8).expand(m, n), K,
+        torch.zeros(KTp - K, dtype=torch.int64), 12)
+
+
+@pytest.mark.parametrize("shape", sorted(BENCH_SHAPES))
+def test_pooled_osd_chunk_is_the_whole_pool_at_bench_shapes(shape,
+                                                            monkeypatch):
+    """With an H100's budget, [[144]]'s 4,096-shot and [[288]]'s
+    1,024-shot pools are one chunk: the larger of the basis rerun's G1
+    output and a replayed chunk's reprocess (parity table and reduced
+    matrix) over the whole pool is below 1/8 of the card."""
+    m, n, K, KTp, pool = BENCH_SHAPES[shape]
+    monkeypatch.setattr(engine, "OSD_CHUNK_CPU_BYTES",
+                        H100_MEMORY // engine.OSD_CHUNK_MEMORY_SHARE)
+    dec = _widths(m, n, K, KTp)
+    S = -(-m // 32) | 1
+    g1, reprocess = KTp * S * 4, 4 * m * (12 + 66 + KTp // 32)
+    assert engine.osd_shot_bytes(dec, 2, "cpu") == max(g1, reprocess)
+    assert pool * max(g1, reprocess) < 3.5e9
+    assert engine.pooled_osd_chunk(pool, [dec, dec], 2, "cpu") == pool
+    # order 0 holds no reprocess: the G1 output alone
+    assert engine.osd_shot_bytes(dec, 0, "cpu") == g1
+
+
+@pytest.mark.parametrize("fit", [8, 32, 100, 992, 4095, 4096])
+def test_pooled_osd_chunk_splits_into_equal_chunks(fit, monkeypatch):
+    """Under a budget that holds ``fit`` shots of [[144]]'s widths, a
+    4,096-shot pool takes the fewest chunks of at most ``fit`` shots (at
+    least 32), each a multiple of 32 shots, the last at most 32 shots a
+    chunk short of the others; the whole pool where it fits."""
+    m, n, K, KTp, pool = BENCH_SHAPES["[[144,12,12]]"]
+    dec = _widths(m, n, K, KTp)
+    shot = engine.osd_shot_bytes(dec, 2, "cpu")
+    monkeypatch.setattr(engine, "OSD_CHUNK_CPU_BYTES", fit * shot + shot - 1)
+    chunk = engine.pooled_osd_chunk(pool, [dec], 2)
+    cap = max(32, fit // 32 * 32)
+    n_chunks = -(-pool // chunk)
+    if fit >= pool:
+        assert chunk == pool
+        return
+    assert chunk % 32 == 0 and chunk <= cap
+    assert n_chunks == -(-pool // cap)
+    assert 0 <= n_chunks * chunk - pool < 32 * n_chunks
+
+
+def test_pooled_osd_chunk_budget(monkeypatch):
+    """The budget: 1/8 of the card's memory on a card, a fixed size on the
+    CPU; a pool of at most 64 shots stays whole under any budget."""
+    props = type("Props", (), {"total_memory": H100_MEMORY})()
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: props)
+    assert engine.osd_chunk_budget("cuda") == H100_MEMORY // 8
+    assert engine.osd_chunk_budget("cpu") == engine.OSD_CHUNK_CPU_BYTES
+    monkeypatch.setattr(engine, "OSD_CHUNK_CPU_BYTES", 1)
+    dec = _widths(*BENCH_SHAPES["[[288,12,18]]"][:4])
+    assert [engine.pooled_osd_chunk(p, [dec], 2) for p in (1, 37, 64, 65)] \
+        == [1, 37, 64, 32]

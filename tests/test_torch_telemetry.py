@@ -2,8 +2,9 @@
 off, a span is the shared no-op and nothing is recorded; on, every span of
 the pooled round appears under its parent with its dispatch, the counters
 equal what they count, and a span's time lands on a profiler trace's
-clock. [[72,12,6]], 6 cycles, p=0.003, maxIter 20, OSD order 2, two
-rounds of 32 shots a dispatch in OSD chunks of 32, on fixed randoms."""
+clock; at the default OSD chunk a pool that fits is one chunk a basis.
+[[72,12,6]], 6 cycles, p=0.003, maxIter 20, OSD order 2, two rounds of 32
+shots a dispatch in OSD chunks of 32, on fixed randoms."""
 import dataclasses
 import json
 import time
@@ -36,14 +37,20 @@ def setup():
             for b in "ZX"]
     fn = engine.make_pooled_round_fn(*decs, circ.num_error_locs, P, BATCH,
                                      MAXITER, 2, ROUNDS, osd_chunk=CHUNK)
-    g = torch.Generator().manual_seed(11)
-    shape = (BATCH, circ.num_error_locs)
+    return circ, decs, fn, _draws(circ, BATCH, 11)
+
+
+def _draws(circ, batch, seed):
+    """ROUNDS rounds of fixed randoms (err, pauli, cat2) of ``batch``
+    shots."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (batch, circ.num_error_locs)
     randoms = []
     for _ in range(ROUNDS):
         err = torch.rand(shape, generator=g) < P
         c = torch.randint(0, 45, shape, generator=g, dtype=torch.int32)
         randoms.append((err, c % 3, c // 3))
-    return circ, decs, fn, randoms
+    return randoms
 
 
 @pytest.fixture
@@ -182,6 +189,34 @@ def test_counters(setup, traced):
     rep = [s["counters"]["osd.reprocess_failed"] for s in spans
            if s["name"] == "osd.reprocess"]
     assert len(rep) == 2 * BATCH * ROUNDS // CHUNK and min(rep) >= 0
+
+
+def test_default_chunk_is_the_whole_pool(setup, traced):
+    """At the default OSD chunk a pooled round of 128 shots issues one
+    chunk a basis (the pool fits the budget), with one reprocess slice
+    over the whole pool; its flags, ``osd_overflow`` included, equal the
+    same round's in chunks of pool // 8 on the same randoms."""
+    circ, decs, _, _ = setup
+    batch = 64
+    pool = batch * ROUNDS
+    randoms = _draws(circ, batch, 12)
+    assert engine.pooled_osd_chunk(pool, decs, 2) == pool
+    whole = engine.make_pooled_round_fn(*decs, circ.num_error_locs, P,
+                                        batch, MAXITER, 2, ROUNDS)
+    got = _round(whole, randoms)
+    spans = telemetry.export()["spans"]
+    osds = [s for s in spans if s["name"] == "osd"]
+    assert [s["attrs"]["chunk"] for s in osds] == [pool, pool]
+    assert [s["counters"]["osd.chunks_issued"] for s in osds] == [1, 1]
+    assert sum(s["name"] == "osd.reprocess" for s in spans) == 2
+    eighths = engine.make_pooled_round_fn(*decs, circ.num_error_locs, P,
+                                          batch, MAXITER, 2, ROUNDS,
+                                          osd_chunk=pool // 8)
+    want = _round(eighths, randoms)
+    assert set(got) == set(want) and "osd_overflow" in got
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert 0 < int((~got["z_conv"]).sum()) + int((~got["x_conv"]).sum())
 
 
 def test_stopping_loop_dispatch_ids(setup, traced):
