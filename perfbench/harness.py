@@ -6,13 +6,16 @@ metric it reports is read by ``metrics/<name>.py``. Nothing here names a
 cell, a configuration or a metric: a later cell or metric is files and
 manifest entries.
 
-The system under test is ``qldpc_tpu_torch``'s pooled decode round
-(``parallel.engine.make_pooled_round_fn``), built from the benchmark's
-matrices and driven as the program's stopping loop drives it on a GPU:
-``pipeline_depth`` dispatches in flight, each dispatch's flags read to the
-host when it is consumed, a dispatch whose OSD reprocess slice overflowed
-replayed with ``replay=True`` (its shots credited once). Every dispatch
-decodes the benchmark's own draws (``traffic.Draws``), passed through
+The system under test is ``qldpc_tpu_torch``'s pooled decode round, built
+from the benchmark's matrices: ``parallel.engine.make_pooled_round_fn``
+for a configuration of one code, ``make_multi_code_pooled_round_fn`` (what
+``run_multi_code_simulation`` dispatches) for one of several
+(``matrices.parts``). It is driven as the program's stopping loop drives
+it on a GPU: ``pipeline_depth`` dispatches in flight, each dispatch's
+flags (every code's, in code order) read to the host when it is consumed,
+a dispatch whose OSD reprocess slice overflowed in any code replayed with
+``replay=True`` (its shots credited once). Every dispatch decodes the
+benchmark's own draws (``traffic.Draws``, one a code), passed through
 ``randoms=``.
 
 The window starts at a dispatch's completion after the warm-up, runs for
@@ -26,6 +29,7 @@ import argparse
 import contextlib
 import gc
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -71,8 +75,10 @@ class Run:
     dispatches: list
     peak_window_bytes: Optional[int] = None
     trace: Optional[tracing.Trace] = None
-    # per checked dispatch index: the reference's iterations per round and
-    # basis ("z"/"x" -> (rounds,) shot-iterations), and the edges of H
+    # per checked dispatch index: the reference's iterations per round, by
+    # basis ("z"/"x" -> (rounds,) shot-iterations), and the edges and shape
+    # of each basis's H; a configuration of several codes keys code c's
+    # bases "z.c" and "x.c"
     iterations: dict = field(default_factory=dict)
     edges: dict = field(default_factory=dict)
     shape: dict = field(default_factory=dict)
@@ -127,40 +133,107 @@ def power_limit() -> str:
     return out[0].strip() if out else "not read"
 
 
-def program(config: dict, circ_matrices: tuple, p: float, device):
-    """The system under test, set up from the benchmark's matrices: the
-    program's own circuit of the configuration's code, its decode bases
-    and its pooled round. Returns (pooled, n_locs, bases)."""
+def _decoders(part: dict, circ_matrices: tuple, device) -> tuple:
+    """One code's gate locations in the program's own circuit, and its two
+    decode bases (Z, X) from the benchmark's matrices."""
     from qldpc_tpu_torch.models.bb import BBCode
     from qldpc_tpu_torch.models.circuit import SyndromeCircuit
     from qldpc_tpu_torch.ops.bp import alpha_schedule
     from qldpc_tpu_torch.parallel import engine
 
     circ_ref, M, _ = circ_matrices
-    code = dict(config["code"])
+    code = dict(part["code"])
     circ = SyndromeCircuit(BBCode(name=code.pop("name"), **code),
-                           num_cycles=config["num_cycles"])
+                           num_cycles=part["num_cycles"])
     if not np.array_equal(circ.loc_kind, circ_ref.loc_kind):
         raise RuntimeError("the program's circuit differs from the "
                            "benchmark's: its matrices do not apply")
-    d = config["decoder"]
+    d = part["decoder"]
     seq = alpha_schedule(d["alpha"], d["max_iter"])
-    decs = [engine._make_basis(circ, M, b, seq,
-                               clip_channel=d["clip_channel"],
-                               osd_margin=d["osd_margin"],
-                               osd_order=d["osd_order"], device=device)
-            for b in "ZX"]
+    bases = [engine._make_basis(circ, M, b, seq,
+                                clip_channel=d["clip_channel"],
+                                osd_margin=d["osd_margin"],
+                                osd_order=d["osd_order"], device=device)
+             for b in "ZX"]
+    return circ.num_error_locs, bases
+
+
+def multi_code_refusals(config: dict, decs: list) -> list:
+    """What a configuration of several codes states that the program's
+    multi-code round does not run. That round builds each code's round
+    with ``make_pooled_round_fn``'s defaults: flooding min-sum, damping 1,
+    its ``clip_llr``, its default OSD chunk, and messages in float32 only
+    where K1 runs (a lifted decoding graph)."""
+    from qldpc_tpu_torch.parallel import engine
+
+    fixed = {k: v.default for k, v in inspect.signature(
+        engine.make_pooled_round_fn).parameters.items()}
+    d, shape = config["decoder"], config["dispatch"]
+    out = []
+    if (d["bp"] != "flooding normalized min-sum"
+            or fixed["bp_variant"] != "minsum" or fixed["damping"] != 1.0):
+        out.append(f"bp {d['bp']!r}: the round runs flooding min-sum, "
+                   f"damping {fixed['damping']}")
+    if float(d["clip_llr"]) != fixed["clip_llr"]:
+        out.append(f"clip_llr {d['clip_llr']}: the round clips at "
+                   f"{fixed['clip_llr']}")
+    if shape["osd_chunk"] is not None:
+        out.append(f"osd_chunk {shape['osd_chunk']}: the round takes the "
+                   "program's default chunk (null)")
+    if d["msg_dtype"] != "float32" or any(z.lifted is None or x.lifted is None
+                                          for z, x in decs):
+        out.append(f"msg_dtype {d['msg_dtype']}: the round keeps float32 "
+                   "messages only in K1, on a lifted decoding graph")
+    return out
+
+
+def program(config: dict, circ_matrices: list, p: float, device):
+    """The system under test, set up from the benchmark's matrices
+    (``circ_matrices``: each code's, in the order of ``matrices.parts``):
+    the program's own circuit of each code, its decode bases and its pooled
+    round. Returns (pooled, n_locs, decs): ``pooled(randoms, replay=False)``
+    issues one dispatch of every code (``randoms[c]``: code c's rounds) and
+    returns each code's flags; n_locs and decs (Z, X) per code."""
+    from qldpc_tpu_torch.parallel import engine
+
+    n_locs, decs = zip(*[_decoders(part, cm, device) for part, cm in
+                         zip(matrices.parts(config), circ_matrices)])
+    d, shape = config["decoder"], config["dispatch"]
+    if len(decs) == 1:
+        one = engine.make_pooled_round_fn(
+            decs[0][0], decs[0][1], n_locs[0], p, shape["batch"],
+            d["max_iter"], d["osd_order"], shape["rounds"],
+            clip_llr=d["clip_llr"], osd_chunk=shape["osd_chunk"],
+            msg_dtype=torch.float32)
+
+        def pooled(randoms, replay=False):
+            return [one(None, randoms=randoms[0], replay=replay)]
+        return pooled, n_locs, decs
+    refused = multi_code_refusals(config, decs)
+    if refused:
+        raise SystemExit("the configuration states what the multi-code "
+                         "round does not run: " + "; ".join(refused))
+    multi = engine.make_multi_code_pooled_round_fn(
+        [dict(dec_z=z, dec_x=x, n_locs=n, error_rate=p, batch=shape["batch"],
+              maxIter=d["max_iter"], osd_order=d["osd_order"])
+         for (z, x), n in zip(decs, n_locs)], shape["rounds"])
+
+    def pooled(randoms, replay=False):
+        return multi([None] * len(decs), randoms=randoms, replay=replay)
+    return pooled, n_locs, decs
+
+
+def draws_of(config: dict, seed: int, p: float, n_locs: list, device):
+    """Each code's draws (``traffic.Draws``): code c's dispatch i from
+    (seed, i, c)."""
     shape = config["dispatch"]
-    pooled = engine.make_pooled_round_fn(
-        decs[0], decs[1], circ.num_error_locs, p, shape["batch"],
-        d["max_iter"], d["osd_order"], shape["rounds"],
-        clip_llr=d["clip_llr"], osd_chunk=shape["osd_chunk"],
-        msg_dtype=torch.float32)
-    return pooled, circ.num_error_locs, decs
+    return [Draws(seed, p, shape["batch"], shape["rounds"], n, device,
+                  code=c) for c, n in enumerate(n_locs)]
 
 
 def reference_bases(config: dict, circ_matrices: tuple, p: float, device):
-    """The reference's two bases, from the same matrices."""
+    """The reference's two bases of the part ``config`` (one code of
+    ``matrices.parts``), from the same matrices."""
     circ, M, idle = circ_matrices
     code = config["code"]
     out = []
@@ -179,9 +252,40 @@ def reference_bases(config: dict, circ_matrices: tuple, p: float, device):
     return out
 
 
+def judge(run: Run, config: dict, circ_matrices: list, p: float, draws,
+          flags: dict, picked: list) -> dict:
+    """The check: each dispatch of ``picked`` drawn again and decoded by the
+    reference code by code, with that code's bases, against the program's
+    flags (``flags[i]``: (7, codes x shots) in code order). Sets
+    ``run.iterations``, ``run.edges`` and ``run.shape``; returns the
+    numbers compared, summed over codes."""
+    rounds = config["dispatch"]["rounds"]
+    parts = matrices.parts(config)
+    numbers = dict.fromkeys(checks.LIMITS, 0)
+    for c, (part, cm, draw) in enumerate(zip(parts, circ_matrices, draws)):
+        bases = reference_bases(part, cm, p, run.device)
+        tag = "" if len(parts) == 1 else f".{c}"
+        for b in bases:
+            run.edges[b.name.lower() + tag] = b.graph.edges
+            run.shape[b.name.lower() + tag] = (b.graph.m, b.graph.n)
+        for idx in picked:
+            ref = reference.decode_round(bases, draw(idx))
+            ref = {k: v.cpu().numpy() for k, v in ref.items()}
+            n = ref["z_conv"].shape[0]
+            mine = flags[idx][:, c * n:(c + 1) * n]
+            for k, v in checks.compare(mine, ref).items():
+                numbers[k] += v
+            run.iterations.setdefault(idx, {}).update({
+                b + tag: ref[f"{b}_iterations"].reshape(rounds, -1).sum(1)
+                for b in "zx"})
+        del bases
+    return numbers
+
+
 class Loop:
     """The pipelined loop: ``depth`` dispatches in flight, the oldest
-    consumed by reading its flags to the host."""
+    consumed by reading its flags (every code's, in code order) to the
+    host."""
 
     def __init__(self, pooled, draws, depth: int, label: bool):
         self.pooled, self.draws, self.depth = pooled, draws, depth
@@ -189,15 +293,21 @@ class Loop:
         self.inflight: deque = deque()
         self.next = 0
 
+    @staticmethod
+    def _packed(outs):
+        """Each code's flags as one (7, codes x shots) tensor (one code's
+        stack as it is, with no copy)."""
+        per = [torch.stack([o[k] for k in checks.FLAGS]) for o in outs]
+        return per[0] if len(per) == 1 else torch.cat(per, 1)
+
     def _issue(self):
         i = self.next
         self.next += 1
         t0 = time.perf_counter()
         with (record_function(f"{tracing.DISPATCH}{i}") if self.label
               else contextlib.nullcontext()):
-            rnd = self.draws(i)
-            out = self.pooled(None, randoms=rnd)
-            packed = torch.stack([out[k] for k in checks.FLAGS])
+            rnd = [draw(i) for draw in self.draws]
+            packed = self._packed(self.pooled(rnd))
         self.inflight.append((i, t0, time.perf_counter() - t0, rnd, packed))
 
     def step(self) -> tuple:
@@ -209,8 +319,7 @@ class Loop:
         flags = packed.cpu().numpy()
         replayed = bool(flags[checks.FLAGS.index("osd_overflow")].any())
         if replayed:
-            out = self.pooled(None, randoms=rnd, replay=True)
-            flags = torch.stack([out[k] for k in checks.FLAGS]).cpu().numpy()
+            flags = self._packed(self.pooled(rnd, replay=True)).cpu().numpy()
         done = time.perf_counter()
         return Dispatch(i, issue_s, done - t0, replayed), flags, done
 
@@ -234,13 +343,14 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     shape, measure = config["dispatch"], config["measure"]
 
     marks = [("imports", time.time())]
-    circ_matrices = matrices.load(config, p)
+    circ_matrices = [matrices.load(part, p)
+                     for part in matrices.parts(config)]
     marks.append(("matrices", time.time()))
     pooled, n_locs, decs = program(config, circ_matrices, p, device)
     marks.append(("program set-up", time.time()))
-    draws = Draws(seed, p, shape["batch"], shape["rounds"], n_locs, device)
+    draws = draws_of(config, seed, p, n_locs, device)
     loop = Loop(pooled, draws, shape["pipeline_depth"], traced)
-    shots = shape["batch"] * shape["rounds"]
+    shots = shape["batch"] * shape["rounds"] * len(n_locs)
     for _ in range(measure["warmup_dispatches"]):
         loop.step()
     marks.append(("warm-up", time.time()))
@@ -307,21 +417,10 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         trace_path.unlink()
 
     # the check: a sample of the window's dispatches against the reference
-    ref_bases = reference_bases(config, circ_matrices, p, device)
-    run.edges = {b.name.lower(): b.graph.edges for b in ref_bases}
-    run.shape = {b.name.lower(): (b.graph.m, b.graph.n) for b in ref_bases}
-    numbers = dict.fromkeys(checks.LIMITS, 0)
     picked = [records[i].index for i in checks.sample(
         seed, len(records), measure["check_dispatches"])]
     t_check = time.time()
-    for idx in picked:
-        ref = reference.decode_round(ref_bases, draws(idx))
-        ref = {k: v.cpu().numpy() for k, v in ref.items()}
-        for k, v in checks.compare(flags[idx], ref).items():
-            numbers[k] += v
-        run.iterations[idx] = {
-            b: ref[f"{b}_iterations"].reshape(shape["rounds"], -1).sum(1)
-            for b in "zx"}
+    numbers = judge(run, config, circ_matrices, p, draws, flags, picked)
     correct = checks.verdict(numbers)
     log(f"check: {len(picked)} of {len(records)} dispatches judged in "
         f"{time.time() - t_check:.2f} s", file=sys.stderr)
@@ -355,7 +454,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                         for k, v in numbers.items()}
     for k, v in numbers.items():
         log(f"check {k}: {v} (limit {checks.LIMITS[k]}, over "
-            f"{len(picked)} dispatches of {shots} shots, both bases)",
+            f"{len(picked)} dispatches of {shots} shots, both bases, "
+            f"{len(n_locs)} code(s))",
             file=sys.stderr)
     return result
 

@@ -1,7 +1,12 @@
 """A configuration's decoding matrices: built by the frozen copy of the
 circuit-to-matrix arithmetic (``frozen/``), cached in ``build/perfbench/``
 inside the checkout, and handed as the same arrays to the program's set-up
-and to the reference."""
+and to the reference.
+
+A configuration holds one code (``code`` and ``num_cycles``) or several
+(``codes``: a list of ``{"code": ..., "num_cycles": ...}``) that share its
+``decoder``, ``dispatch`` and ``measure``. :func:`parts` turns either into
+one part per code, and everything here works on a part."""
 from __future__ import annotations
 
 import hashlib
@@ -19,6 +24,19 @@ ROOT = Path(__file__).resolve().parent.parent
 CACHE = ROOT / "build" / "perfbench"
 _INT_KEYS = ("first_logical_rowZ", "first_logical_rowX", "num_cycles", "k")
 _BIT_KEYS = ("HdecZ", "HdecX", "HZ_full", "HX_full")
+
+
+def parts(config: dict) -> list:
+    """One configuration per code: the configuration itself where it holds
+    one code; else, for code i of ``codes``, the configuration with that
+    code's ``code`` and ``num_cycles``, named ``<name>.<i>`` (its caches'
+    name)."""
+    if "codes" not in config:
+        return [config]
+    rest = {k: v for k, v in config.items() if k != "codes"}
+    return [dict(rest, name=f"{config['name']}.{i}", code=c["code"],
+                 num_cycles=c["num_cycles"])
+            for i, c in enumerate(config["codes"])]
 
 
 def code_of(config: dict) -> BBCode:
@@ -43,9 +61,9 @@ def _save(path: Path, arrays: dict) -> None:
 
 
 def load(config: dict, p: float) -> tuple:
-    """(circuit, matrices, idle) for ``config`` at noise rate ``p``: the
-    frozen builder's circuit, its decoding matrices (the bit matrices as
-    uint8) and, per gate location, whether it is an idle."""
+    """(circuit, matrices, idle) for the part ``config`` at noise rate
+    ``p``: the frozen builder's circuit, its decoding matrices (the bit
+    matrices as uint8) and, per gate location, whether it is an idle."""
     code = code_of(config)
     circ = SyndromeCircuit(code, num_cycles=config["num_cycles"])
     path = CACHE / "matrices" / f"{config['name']}-{_key(config, p)}.npz"

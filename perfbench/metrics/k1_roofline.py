@@ -10,7 +10,10 @@ updates), the shot-iterations counted by the reference on the same draws
 depend on what implements BP. Bytes: each input read once (syndromes, the
 prior, the alpha sequence) and each output written once (posteriors, hard
 decisions, convergence flags, iteration counts). The share is the sum of
-the least times over the sum of K1's device time on those dispatches."""
+the least times over the sum of K1's device time on those dispatches. In a
+configuration of several codes the sum runs over every code's launches,
+each with its own H (``run.shape``, ``run.edges``) and shot-iterations,
+keyed by basis and code (``harness.Run``)."""
 from perfbench import peaks
 
 KERNEL = "bp_flood_kernel"

@@ -10,8 +10,9 @@ precision below the configuration's float32 messages: bfloat16 messages
 (posteriors still summed in float32). For each seed it decodes K dispatches
 of the cell's draws (dispatch indices 0..K-1; K defaults to the cell's
 ``check_dispatches``) with the reference and with the control and prints
-one JSON line per seed with the numbers ``checks.compare`` gives. Run on
-the card only: the benchmark's own runs never run it.
+one JSON line per seed with the numbers ``checks.compare`` gives, summed
+over the configuration's codes and per code. Run on the card only: the
+benchmark's own runs never run it.
 """
 import json
 import os
@@ -27,7 +28,6 @@ import torch  # noqa: E402
 
 from perfbench import checks, harness, matrices  # noqa: E402
 from perfbench.reference import decode  # noqa: E402
-from perfbench.traffic import Draws  # noqa: E402
 
 
 def flags_of(out: dict):
@@ -43,26 +43,32 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     _, config, traffic = harness.cell_of(harness.manifest(), args.workload)
     p = float(traffic["p"])
-    shape = config["dispatch"]
     k = args.dispatches or config["measure"]["check_dispatches"]
-    cm = matrices.load(config, p)
-    bases = harness.reference_bases(config, cm, p, "cuda")
-    n_locs = cm[0].num_error_locs
+    parts = matrices.parts(config)
+    cms = [matrices.load(part, p) for part in parts]
+    bases = [harness.reference_bases(part, cm, p, "cuda")
+             for part, cm in zip(parts, cms)]
+    n_locs = [cm[0].num_error_locs for cm in cms]
     for seed in args.seeds:
-        draws = Draws(seed, p, shape["batch"], shape["rounds"], n_locs,
-                      "cuda")
+        draws = harness.draws_of(config, seed, p, n_locs, "cuda")
         total = dict.fromkeys(checks.LIMITS, 0)
+        per_code = []
         t0 = time.time()
-        for i in range(k):
-            rnd = draws(i)
-            ref = {key: v.cpu().numpy() for key, v in
-                   decode.decode_round(bases, rnd).items()}
-            ctl = flags_of(decode.decode_round(bases, rnd,
-                                               msg_dtype=torch.bfloat16))
-            for key, v in checks.compare(ctl, ref).items():
-                total[key] += v
+        for code_bases, draw in zip(bases, draws):
+            mine = dict.fromkeys(checks.LIMITS, 0)
+            for i in range(k):
+                rnd = draw(i)
+                ref = {key: v.cpu().numpy() for key, v in
+                       decode.decode_round(code_bases, rnd).items()}
+                ctl = flags_of(decode.decode_round(code_bases, rnd,
+                                                   msg_dtype=torch.bfloat16))
+                for key, v in checks.compare(ctl, ref).items():
+                    mine[key] += v
+                    total[key] += v
+            per_code.append(mine)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "dispatches": k, "control": total,
+                          "per_code": per_code,
                           "seconds": time.time() - t0}), flush=True)
     return 0
 

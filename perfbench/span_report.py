@@ -46,8 +46,6 @@ from torch.profiler import record_function  # noqa: E402
 
 from perfbench import checks, harness, matrices, spans  # noqa: E402
 from perfbench import trace as tracing  # noqa: E402
-from perfbench.reference import decode as reference  # noqa: E402
-from perfbench.traffic import Draws  # noqa: E402
 
 METRICS = ("round_issue_ms", "osd_issue_ms", "osd_live_chunk_pct",
            "elim_empty_pct", "bp_iters_per_shot")
@@ -100,9 +98,10 @@ def report(workload: str, seed: int, dispatches=None, pairs: int = 0,
     p = float(traffic["p"])
     shape, measure = config["dispatch"], config["measure"]
     n = dispatches or measure["trace_dispatches"]
-    circ_matrices = matrices.load(config, p)
+    circ_matrices = [matrices.load(part, p)
+                     for part in matrices.parts(config)]
     pooled, n_locs, decs = harness.program(config, circ_matrices, p, device)
-    draws = Draws(seed, p, shape["batch"], shape["rounds"], n_locs, device)
+    draws = harness.draws_of(config, seed, p, n_locs, device)
     loop = SpanLoop(pooled, draws, shape["pipeline_depth"], True,
                     telemetry=telemetry)
     for _ in range(measure["warmup_dispatches"]):
@@ -165,25 +164,17 @@ def report(workload: str, seed: int, dispatches=None, pairs: int = 0,
 
     run = harness.Run(config=config, traffic=traffic, device=device,
                       setup_s=0.0, window_s=window_s,
-                      shots_per_dispatch=shape["batch"] * shape["rounds"],
+                      shots_per_dispatch=(shape["batch"] * shape["rounds"]
+                                          * len(n_locs)),
                       dispatches=records, trace=trace,
                       power_limit=harness.power_limit() if on_gpu else "cpu")
     run.telemetry, run.telemetry_unprofiled = window, unprofiled
 
     # 4. the check, with the reference's iterations
-    ref_bases = harness.reference_bases(config, circ_matrices, p, device)
-    run.edges = {b.name.lower(): b.graph.edges for b in ref_bases}
-    run.shape = {b.name.lower(): (b.graph.m, b.graph.n) for b in ref_bases}
-    numbers = dict.fromkeys(checks.LIMITS, 0)
-    for k in checks.sample(seed, len(records), measure["check_dispatches"]):
-        idx = records[k].index
-        ref = {key: v.cpu().numpy() for key, v in
-               reference.decode_round(ref_bases, draws(idx)).items()}
-        for key, v in checks.compare(flags[idx], ref).items():
-            numbers[key] += v
-        run.iterations[idx] = {
-            b: ref[f"{b}_iterations"].reshape(shape["rounds"], -1).sum(1)
-            for b in "zx"}
+    picked = [records[k].index for k in checks.sample(
+        seed, len(records), measure["check_dispatches"])]
+    numbers = harness.judge(run, config, circ_matrices, p, draws, flags,
+                            picked)
 
     names = [m["name"] for m in harness.metrics_of(man, cell, True)]
     metrics = {}

@@ -45,9 +45,15 @@ def test_configs(entry):
     conf = json.loads(path.read_text())
     assert conf["name"] == entry["name"]
     assert conf["reduced"] == entry["reduced"]
-    for key in ("source", "assumed", "code", "num_cycles", "decoder",
-                "dispatch", "measure"):
+    for key in ("source", "assumed", "decoder", "dispatch", "measure"):
         assert key in conf, key
+    # one code (code, num_cycles) or several (codes: a list of them)
+    if "codes" in conf:
+        assert "code" not in conf and "num_cycles" not in conf
+        assert len(conf["codes"]) >= 2
+    for code in conf.get("codes", [conf]):
+        for key in ("code", "num_cycles"):
+            assert key in code, key
 
 
 @pytest.mark.parametrize("cell", MAN["workloads"], ids=lambda c: c["name"])

@@ -25,10 +25,10 @@ P = 0.006
 @pytest.fixture(scope="module")
 def setup():
     cm = matrices.load(CONFIG, P)
-    pooled, n_locs, decs = program(CONFIG, cm, P, "cpu")
+    pooled, n_locs, decs = program(CONFIG, [cm], P, "cpu")
     bases = reference_bases(CONFIG, cm, P, "cpu")
-    draws = Draws(2**31 + 11, P, 128, 2, n_locs, "cpu")
-    return cm, pooled, decs, bases, draws
+    draws = Draws(2**31 + 11, P, 128, 2, n_locs[0], "cpu")
+    return cm, pooled, decs[0], bases, draws
 
 
 def _flags(out):
@@ -39,7 +39,7 @@ def _flags(out):
 def test_reference_equals_program(setup, index):
     _, pooled, decs, bases, draws = setup
     rnd = draws(index)
-    got = _flags(pooled(None, randoms=rnd))
+    got = _flags(pooled([rnd])[0])
     ref = {k: v.numpy() for k, v in decode.decode_round(bases, rnd).items()}
     assert checks.compare(got, ref) == {"conv_mismatch": 0,
                                         "decode_mismatch": 0}
