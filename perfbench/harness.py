@@ -8,7 +8,8 @@ manifest entries.
 
 The system under test is ``qldpc_tpu_torch``'s pooled decode round, built
 from the benchmark's matrices: ``parallel.engine.make_pooled_round_fn``
-for a configuration of one code, ``make_multi_code_pooled_round_fn`` (what
+for a configuration of one code, with the BP schedule its ``decoder.bp``
+states (:data:`SCHEDULES`), ``make_multi_code_pooled_round_fn`` (what
 ``run_multi_code_simulation`` dispatches) for one of several
 (``matrices.parts``). It is driven as the program's stopping loop drives
 it on a GPU: ``pipeline_depth`` dispatches in flight, each dispatch's
@@ -50,6 +51,9 @@ from .traffic import Draws
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "qldpc_tpu")
+# a configuration's ``decoder.bp`` -> the pooled round's ``bp_variant``
+SCHEDULES = {"flooding normalized min-sum": "minsum",
+             "layered normalized min-sum": "layered"}
 
 
 @dataclass
@@ -158,6 +162,21 @@ def _decoders(part: dict, circ_matrices: tuple, device) -> tuple:
     return circ.num_error_locs, bases
 
 
+def schedule_refusals(config: dict, decs: list) -> list:
+    """What a configuration of one code states of its BP schedule that the
+    pooled round would not run: a ``bp`` outside :data:`SCHEDULES`, or the
+    layered schedule where a decode basis has no lifted graph (the round
+    would fall back to flooding, ``engine._round_defaults``)."""
+    bp = config["decoder"]["bp"]
+    if bp not in SCHEDULES:
+        return [f"bp {bp!r}: the round runs one of {sorted(SCHEDULES)}"]
+    if SCHEDULES[bp] == "layered" and any(
+            z.lifted is None or x.lifted is None for z, x in decs):
+        return [f"bp {bp!r}: the round runs the layered schedule only on a "
+                "lifted decoding graph, and would run flooding here"]
+    return []
+
+
 def multi_code_refusals(config: dict, decs: list) -> list:
     """What a configuration of several codes states that the program's
     multi-code round does not run. That round builds each code's round
@@ -191,20 +210,25 @@ def program(config: dict, circ_matrices: list, p: float, device):
     """The system under test, set up from the benchmark's matrices
     (``circ_matrices``: each code's, in the order of ``matrices.parts``):
     the program's own circuit of each code, its decode bases and its pooled
-    round. Returns (pooled, n_locs, decs): ``pooled(randoms, replay=False)``
-    issues one dispatch of every code (``randoms[c]``: code c's rounds) and
-    returns each code's flags; n_locs and decs (Z, X) per code."""
+    round, with the BP schedule the configuration states. Returns (pooled,
+    n_locs, decs): ``pooled(randoms, replay=False)`` issues one dispatch of
+    every code (``randoms[c]``: code c's rounds) and returns each code's
+    flags; n_locs and decs (Z, X) per code."""
     from qldpc_tpu_torch.parallel import engine
 
     n_locs, decs = zip(*[_decoders(part, cm, device) for part, cm in
                          zip(matrices.parts(config), circ_matrices)])
     d, shape = config["decoder"], config["dispatch"]
     if len(decs) == 1:
+        refused = schedule_refusals(config, decs)
+        if refused:
+            raise SystemExit("the configuration states what the round does "
+                             "not run: " + "; ".join(refused))
         one = engine.make_pooled_round_fn(
             decs[0][0], decs[0][1], n_locs[0], p, shape["batch"],
             d["max_iter"], d["osd_order"], shape["rounds"],
-            clip_llr=d["clip_llr"], osd_chunk=shape["osd_chunk"],
-            msg_dtype=torch.float32)
+            clip_llr=d["clip_llr"], bp_variant=SCHEDULES[d["bp"]],
+            osd_chunk=shape["osd_chunk"], msg_dtype=torch.float32)
 
         def pooled(randoms, replay=False):
             return [one(None, randoms=randoms[0], replay=replay)]

@@ -6,7 +6,10 @@ the round computes, for each decoding basis:
 * ``sampling``: per-location fault bits -> syndromes and true logicals;
 * ``bp``: flooding normalized min-sum with a per-iteration alpha and a
   clip, each shot stopped at its first syndrome-satisfying iteration, and
-  the iterations each shot needs;
+  the iterations each shot needs; ``bp_layered``: the time-layered
+  schedule (even cycles' checks, then odd ones, a sweep), counted in
+  sweeps; the configuration's ``decoder.bp`` chooses
+  (``decode.SCHEDULES``);
 * ``osd``: ordered-statistics decoding as the JAX package defines it:
   columns in ascending |posterior LLR| (stable), the first K of them plus a
   fixed greedy column basis of H, a greedy swap-free Gauss-Jordan pivoting

@@ -96,12 +96,53 @@ class Graph:
         col_edges = np.full((n, dc), m * dr, np.int64)  # m*dr: a zero slot
         col_edges[c, cslot] = (rows * dr + slot)[by_col]
         self.m, self.n, self.dr, self.dc = m, n, dr, dc
+        self.layer_rows = ell * mm      # the checks of one cycle
         self.edges = int(rows.size)
         self.row_cols = torch.as_tensor(row_cols, device=dev)
         self.mask = self.row_cols < n
         self.col_edges = torch.as_tensor(col_edges, device=dev)
         self.prior = torch.as_tensor(np.asarray(prior, np.float32),
                                      device=dev)
+
+
+def check_messages(Q, mask, sgn_syn, alpha_t, msg_dtype):
+    """New R (B, rows, dr) of the checks whose Q (B, rows, dr) is given:
+    R = (alpha_t * s) * |Q|min_extrinsic, absent edges (``mask`` false)
+    sending nothing and answered 0; ``sgn_syn`` (B, rows) the syndrome
+    signs."""
+    dt, dev = msg_dtype, Q.device
+    big = torch.tensor(BIG, dtype=dt, device=dev)
+    Q = torch.where(mask, Q, big)
+    absQ = Q.abs()
+    m1 = absQ.amin(2, keepdim=True)
+    is_min = absQ == m1
+    m2 = torch.where(is_min, big, absQ).amin(2, keepdim=True)
+    m2 = torch.where(is_min.sum(2, keepdim=True) > 1, m1, m2)
+    neg = Q < 0
+    sgn = torch.where(neg.sum(2) % 2 == 1, -1.0, 1.0) * sgn_syn
+    rpos = (alpha_t * sgn).to(dt)[:, :, None] * torch.where(is_min, m2, m1)
+    return torch.where(mask, torch.where(neg, -rpos, rpos),
+                       torch.zeros((), dtype=dt, device=dev))
+
+
+def posteriors(g: Graph, R):
+    """V (B, n + 1) float32: each column's prior plus its R (B, m, dr)
+    summed from zero in the column's sum order; the last column a zero
+    pad."""
+    B, dev = R.shape[0], R.device
+    Rf = torch.cat([R.reshape(B, -1).to(torch.float32),
+                    torch.zeros((B, 1), device=dev)], 1)
+    acc = torch.zeros((B, g.n), device=dev)
+    for d in range(g.dc):
+        acc = acc + Rf[:, g.col_edges[:, d]]
+    return torch.cat([g.prior[None] + acc, torch.zeros((B, 1), device=dev)],
+                     1)
+
+
+def satisfied(g: Graph, V, syn):
+    """(B,) whether the hard decision of V meets the syndrome syn (B, m)."""
+    hard = V[:, g.row_cols] < 0
+    return ((hard & g.mask).sum(2) % 2 == syn).all(1)
 
 
 def decode(g: Graph, syndrome, alpha, max_iter: int, clip: float,
@@ -111,11 +152,10 @@ def decode(g: Graph, syndrome, alpha, max_iter: int, clip: float,
     ran (its converging one counted; max_iter when it never converged)."""
     dev = syndrome.device
     B = syndrome.shape[0]
-    f32, dt = torch.float32, msg_dtype
+    dt = msg_dtype
     syn = syndrome.to(torch.int64)
-    sgn_syn = (1 - 2 * syn).to(f32)
+    sgn_syn = (1 - 2 * syn).to(torch.float32)
     alpha = torch.as_tensor(np.asarray(alpha, np.float32), device=dev)
-    big = torch.tensor(BIG, dtype=dt, device=dev)
     prior_pad = torch.cat([g.prior, torch.zeros(1, device=dev)])
     V = prior_pad[None].expand(B, -1).clone()           # (B, n + 1)
     R = torch.zeros((B, g.m, g.dr), dtype=dt, device=dev)
@@ -125,27 +165,9 @@ def decode(g: Graph, syndrome, alpha, max_iter: int, clip: float,
     for t in range(max_iter):
         Vr = V[:, g.row_cols].to(dt)
         Q = Vr if t == 0 else torch.clamp(Vr - R, -clip, clip)
-        Q = torch.where(g.mask, Q, big)
-        absQ = Q.abs()
-        m1 = absQ.amin(2, keepdim=True)
-        is_min = absQ == m1
-        m2 = torch.where(is_min, big, absQ).amin(2, keepdim=True)
-        m2 = torch.where(is_min.sum(2, keepdim=True) > 1, m1, m2)
-        neg = Q < 0
-        sgn = torch.where(neg.sum(2) % 2 == 1, -1.0, 1.0) * sgn_syn
-        rpos = (alpha[t] * sgn).to(dt)[:, :, None] * torch.where(is_min, m2,
-                                                                 m1)
-        R = torch.where(g.mask, torch.where(neg, -rpos, rpos),
-                        torch.zeros((), dtype=dt, device=dev))
-        Rf = torch.cat([R.reshape(B, -1).to(f32),
-                        torch.zeros((B, 1), device=dev)], 1)
-        acc = torch.zeros((B, g.n), device=dev)
-        for d in range(g.dc):
-            acc = acc + Rf[:, g.col_edges[:, d]]
-        V = torch.cat([g.prior[None] + acc, torch.zeros((B, 1), device=dev)],
-                      1)
-        hard = V[:, g.row_cols] < 0
-        ok = ((hard & g.mask).sum(2) % 2 == syn).all(1)
+        R = check_messages(Q, g.mask, sgn_syn, alpha[t], dt)
+        V = posteriors(g, R)
+        ok = satisfied(g, V, syn)
         new = ok & ~done
         values = torch.where(done[:, None], values, V[:, :g.n])
         iters = torch.where(new, t + 1, iters)

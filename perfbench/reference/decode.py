@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import bp, osd
+from . import bp, bp_layered, osd
 from .sampling import Signatures
 
 
@@ -49,14 +49,20 @@ def alpha_schedule(mode: str, max_iter: int) -> np.ndarray:
 
 OSD_BLOCK = 32   # shots whose columns are packed at once (bounds memory)
 
+# a configuration's ``decoder.bp`` -> the reference's BP of that schedule
+SCHEDULES = {"flooding normalized min-sum": bp.decode,
+             "layered normalized min-sum": bp_layered.decode}
+
 
 def decode_basis(b: Basis, syndrome, true_log, msg_dtype=torch.float32,
                  block: int = 1024) -> dict:
-    """BP, OSD of the unconverged shots and the readout of one basis for a
-    pool of shots. Returns err, conv, rankdef (bool) and iterations."""
+    """BP of the decoder's schedule, OSD of the unconverged shots and the
+    readout of one basis for a pool of shots. Returns err, conv, rankdef
+    (bool) and iterations."""
     d = b.decoder
-    parts = [bp.decode(b.graph, syndrome[i:i + block], b.alpha,
-                       d["max_iter"], d["clip_llr"], msg_dtype)
+    decode = SCHEDULES[d["bp"]]
+    parts = [decode(b.graph, syndrome[i:i + block], b.alpha, d["max_iter"],
+                    d["clip_llr"], msg_dtype)
              for i in range(0, syndrome.shape[0], block)]
     res = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
     conv, hard = res["converged"], res["hard"]

@@ -15,7 +15,8 @@ from perfbench.traffic import Draws
 
 CONFIG = {**json.loads(
     (Path(__file__).parent / "data" / "bb72_small.json").read_text()),
-    "decoder": {"max_iter": 50, "alpha": "dynamical", "clip_llr": 20.0,
+    "decoder": {"bp": "flooding normalized min-sum", "max_iter": 50,
+                "alpha": "dynamical", "clip_llr": 20.0,
                 "clip_channel": 50.0, "osd_order": 2, "osd_margin": 128},
     "dispatch": {"batch": 128, "rounds": 2, "osd_chunk": None,
                  "pipeline_depth": 1}}
