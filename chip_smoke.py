@@ -15,8 +15,11 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all eight kernels (an eliminator, G1 or
-P1 instance that spills fails), (2) flooding BP kernel
+Phases: (1) device and build of all nine kernels (an eliminator, G1 or
+P1 instance that spills fails), (2) the sampling kernel S1 vs its plain
+version (fault bits and the float32 signature product, both frames) bit
+for bit, with its time beside its byte bound and the two products alone,
+then flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
 (3) GF(2) elimination kernel K2 on G1's column pack vs its plain
 (words-major) version at the stage-1, prefix and full widths, with and
@@ -26,7 +29,8 @@ step and the share of its load and store, its device-memory branch
 launch, and K2
 at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
 version at stage 1, the prefix and the basis rerun's width (the prefix with
-the column basis appended), (4) main path (flooding, K1 + K2), (5) layered
+the column basis appended), (4) main path (flooding, S1 + K1 + K2; one S1
+launch a round), (5) layered
 BP kernel K3 vs its plain version and vs K1 on the same syndromes, with
 K3's shape and ms per sweep, then K1's and K3's device-memory branch
 (forced) vs their shared-memory launches, and K1 and K3 at [[288,12,18]]
@@ -241,12 +245,14 @@ def main():
         from qldpc_tpu_torch.models import gf2
         from qldpc_tpu_torch.ops import (bp, bp_lift_cuda,
                                          bp_lift_layered_cuda, calibrate,
-                                         gather, osd, osd_cuda)
+                                         gather, osd, osd_cuda, sampler)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
         from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
                                                  sample_gate_randoms,
-                                                 trial_batch)
+                                                 trial_batch,
+                                                 trial_syndromes,
+                                                 trial_syndromes_plain)
         from qldpc_tpu_torch.parallel import engine, mesh
         from qldpc_tpu_torch.scripts import (bp_breakdown, device_ms,
                                              gather_bench, gather_probe,
@@ -311,7 +317,8 @@ def main():
                     k4=osd_cuda.eliminate_blocks_fused,
                     k5=osd_cuda.eliminate_blocks_pair,
                     g1=osd_cuda.gather_pack,
-                    p1=gather.gather_iterate, p2=gather.take_along)
+                    p1=gather.gather_iterate, p2=gather.take_along,
+                    s1=trial_syndromes)
 
     def reset_counts():
         for w in wrappers.values():
@@ -320,7 +327,43 @@ def main():
     def counts() -> dict:
         return {k: w.launches for k, w in wrappers.items()}
 
-    # ---- phase 2: K1 against its plain version ----
+    # ---- phase 2: S1 and K1 against their plain versions ----
+    maps = (decs[0].maps, decs[1].maps)
+    s1_out = trial_syndromes(err, pauli, cat2, *maps)
+    torch.cuda.synchronize()
+    for key, v in trial_syndromes_plain(err, pauli, cat2, *maps).items():
+        if not torch.equal(s1_out[key], v):
+            fail(f"phase 2: S1 {key} differs from the plain version")
+    bits = [fault_bits(err, pauli, cat2, m, b) for m, b in zip(maps, "ZX")]
+    floats = [b.to(torch.float32) for b in bits]
+    erring = int(err.sum())
+    s1 = dict(
+        ms=cuda_ms(lambda: trial_syndromes(err, pauli, cat2, *maps), 20),
+        kernel_ms=gather_timing.graph_ms(
+            lambda: trial_syndromes(err, pauli, cat2, *maps), 20, dev),
+        plain_ms=cuda_ms(
+            lambda: trial_syndromes_plain(err, pauli, cat2, *maps), 3),
+        # the plain version's two float32 signature products alone
+        library_ms=gather_timing.graph_ms(
+            lambda: [m.A_loc_T @ f for m, f in zip(maps, floats)], 3, dev),
+        erring_per_shot=erring / BATCH,
+        flips_per_shot_frame=sum(int(b.sum()) for b in bits) / (2 * BATCH))
+    del bits, floats
+    # the least S1 moves: each shot's err row, pauli and cat2 at the erring
+    # gate locations, its four outputs and its tables, each once
+    s1["bound_ms"], s1["bound_by"] = bound(
+        nbytes(err, *s1_out.values(), *(
+            t for m in maps
+            for t in (m.loc_ptr, m.loc_entry, m.sig_ptr, m.sig_row)))
+        + (pauli.element_size() + cat2.element_size()) * erring, 0)
+    print(f"phase 2: S1 at {CODE} (B={BATCH}, both frames): exact; "
+          f"{s1['ms']:.4f} ms a call, {s1['kernel_ms']:.4f} ms alone (bound "
+          f"{s1['bound_ms']:.4f} ms by {s1['bound_by']}), plain "
+          f"{s1['plain_ms']:.3f} ms, its two products alone "
+          f"{s1['library_ms']:.3f} ms; {s1['erring_per_shot']:.1f} erring "
+          f"gate locations a shot, {s1['flips_per_shot_frame']:.1f} flipped "
+          f"locations a shot and frame", flush=True)
+
     k1 = {}
     failed = {}
     syns = {}
@@ -334,9 +377,7 @@ def main():
     if shape["blocks_per_sm"] < 1:
         fail(f"phase 2: K1 cannot be resident: {shape}")
     for basis, dec in zip("ZX", decs):
-        aug = augmented_bits(fault_bits(err, pauli, cat2, dec.maps, basis),
-                             dec.maps)
-        syn = aug[:, :dec.maps.num_syn].contiguous()
+        syn = s1_out[f"syndrome_{basis.lower()}"]
         syns[basis] = syn
         args = (dec.lifted, syn, dec.prior, dec.alpha_seq, MAXITER)
         a = bp_lift_cuda.decode_batch_lift_cuda(*args)
@@ -707,7 +748,8 @@ def main():
     def plain_versions():
         saved = (engine.decode_batch_lift_cuda,
                  engine.decode_batch_lift_layered_cuda, osd.eliminate_blocks,
-                 osd.gather_pack)
+                 osd.gather_pack, sampler.trial_syndromes)
+        sampler.trial_syndromes = trial_syndromes_plain
         engine.decode_batch_lift_cuda = bp_lift_cuda.decode_batch_lift_plain
         engine.decode_batch_lift_layered_cuda = \
             bp_lift_layered_cuda.decode_batch_lift_layered_plain
@@ -718,7 +760,8 @@ def main():
         finally:
             (engine.decode_batch_lift_cuda,
              engine.decode_batch_lift_layered_cuda,
-             osd.eliminate_blocks, osd.gather_pack) = saved
+             osd.eliminate_blocks, osd.gather_pack,
+             sampler.trial_syndromes) = saved
 
     t0 = time.time()
     with plain_versions():
@@ -732,8 +775,8 @@ def main():
     print(f"phase 4: pooled dispatch ({RPD}x{BATCH} shots) identical "
           f"through kernels ({dispatch_s:.2f} s) and plain versions "
           f"({plain_dispatch_s:.2f} s); launches per dispatch "
-          f"K1 {per_dispatch['k1']} K2 {per_dispatch['k2']} G1 "
-          f"{per_dispatch['g1']}; BP converged "
+          f"S1 {per_dispatch['s1']} K1 {per_dispatch['k1']} K2 "
+          f"{per_dispatch['k2']} G1 {per_dispatch['g1']}; BP converged "
           f"z {int(out_k['z_conv'].sum())} x {int(out_k['x_conv'].sum())} "
           f"of {RPD * BATCH}", flush=True)
 
@@ -756,9 +799,13 @@ def main():
           f"(z {(ler - ARCHIVE_LER) / sig:+.2f} vs the reference archive "
           f"{ARCHIVE_LER:.3f}, maxIter unrecorded), {res['shots_per_sec']:.1f}"
           f" shots/s, {res['osd_rank_deficient_shots']} rank-deficient "
-          f"shot-bases; launches K1 {launches['k1']} K2 {launches['k2']} G1 "
-          f"{launches['g1']}", flush=True)
-    if launches["k1"] <= 0 or launches["k2"] <= 0 or launches["g1"] <= 0:
+          f"shot-bases; launches S1 {launches['s1']} K1 {launches['k1']} K2 "
+          f"{launches['k2']} G1 {launches['g1']}", flush=True)
+    if per_dispatch["s1"] != RPD:
+        fail(f"phase 4: the pooled dispatch launched S1 "
+             f"{per_dispatch['s1']} times, not once a round ({RPD})")
+    if launches["s1"] <= 0 or launches["k1"] <= 0 or launches["k2"] <= 0 \
+            or launches["g1"] <= 0:
         fail(f"phase 4: main path did not launch every kernel: {launches}")
     if launches["k3"] or launches["k4"] or launches["k5"]:
         fail(f"phase 4: main path launched another path's kernel: "
@@ -1314,7 +1361,8 @@ def main():
     brk = bp_breakdown.main(["--batch", str(BATCH), "--reps", "50"])
     torch.cuda.synchronize()
     c = counts()
-    if c["k1"] <= 0 or any(v for k, v in c.items() if k != "k1"):
+    if c["k1"] <= 0 or any(v for k, v in c.items()
+                           if k not in ("k1", "s1")):
         fail(f"phase 11: bp_breakdown did not run K1 alone: {c}")
     times = [v for k, v in brk.items() if k.endswith("_ms")]
     if not all(np.isfinite(times)) or brk["kernel20_ms"] <= 0 \
@@ -1771,7 +1819,8 @@ def main():
                      "multi-code dispatch and its own dispatch")
     print(f"phase 15: one multi-code dispatch ({RPD}x{BATCH} shots a code) "
           f"in {mc_dispatch_s:.2f} s equals each code's own pooled dispatch "
-          f"on the same seeds; launches K1 {c_mc['k1']} K2 {c_mc['k2']}; "
+          f"on the same seeds; launches S1 {c_mc['s1']} K1 {c_mc['k1']} K2 "
+          f"{c_mc['k2']}; "
           "BP converged " + ", ".join(
               f"{n} z {int(o['z_conv'].sum())} x {int(o['x_conv'].sum())}"
               for n, o in zip(MC_CODES, out_mc)), flush=True)
@@ -1790,9 +1839,12 @@ def main():
     torch.cuda.synchronize()
     mc_run_s = time.time() - t0
     launches_mc = counts()
+    if c_mc["s1"] != RPD * len(MC_CODES):
+        fail(f"phase 15: the multi-code dispatch launched S1 {c_mc['s1']} "
+             f"times, not once a round and code")
     if launches_mc["k1"] <= 0 or launches_mc["k2"] <= 0 or any(
             v for k, v in launches_mc.items()
-            if k not in ("k1", "k2", "g1")):
+            if k not in ("k1", "k2", "g1", "s1")):
         fail(f"phase 15: the multi-code run did not run K1 and K2 alone: "
              f"{launches_mc}")
     for name in MC_CODES:
@@ -2163,7 +2215,7 @@ def main():
                          "rank-deficient shot-bases")
                 if c[bp21] <= 0 or c["k2"] <= 0 or any(
                         v for k, v in c.items()
-                        if k not in (bp21, "k2", "g1")):
+                        if k not in (bp21, "k2", "g1", "s1")):
                     fail(f"phase 21: {name} {variant} did not run "
                          f"{bp21.upper()} and K2 alone: {c}")
     finally:
@@ -2470,7 +2522,8 @@ def main():
     def entry(label, main_fn, argv, want, phase=23):
         """``main_fn(argv)`` on the card with its output captured; fails
         unless it printed the card's line first and a result line last and
-        launched the kernels ``want`` (keys of counts()) and no other."""
+        launched the kernels ``want`` (keys of counts()) and no other
+        decoder kernel (S1 runs wherever the entry point samples)."""
         reset_counts()
         buf = io.StringIO()
         t0 = time.time()
@@ -2485,11 +2538,12 @@ def main():
         if len(lines) < 2 or not lines[0].startswith("card: "):
             fail(f"phase {phase}: {label} printed no card line or no "
                  f"result: {lines[:2]}")
-        if {k for k, v in c.items() if v} != set(want):
+        if {k for k, v in c.items() if v} - {"s1"} != set(want):
             fail(f"phase {phase}: {label} launched {c}, not {sorted(want)} "
                  f"alone")
         print(f"phase {phase}: {label} ({time.time() - t0:.1f} s): launches "
-              + ", ".join(f"{k.upper()} {c[k]}" for k in sorted(want))
+              + ", ".join(f"{k.upper()} {c[k]}"
+                          for k in sorted(set(want) | {"s1"}))
               + f"; {lines[-1][:400]}", flush=True)
         return out, lines
 
@@ -3158,10 +3212,24 @@ def main():
              kernel_ms=p2_top["kernel_ms"], plain_ms=p2_top["plain_ms"],
              bound_ms=p2_top["bound_ms"], bound_by="bytes",
              library_ms=p2_top["library_ms"]),
+        dict(name="trial_syndromes_kernel", route="cuda",
+             source="qldpc_tpu_torch/csrc/trial_syndromes.cu",
+             replaces="qldpc_tpu/ops/sampler.py:120",
+             launches=launches["s1"], max_abs_err=0.0, ms=s1["ms"],
+             kernel_ms=s1["kernel_ms"], plain_ms=s1["plain_ms"],
+             bound_ms=s1["bound_ms"], bound_by=s1["bound_by"],
+             library_ms=s1["library_ms"],
+             erring_per_shot=s1["erring_per_shot"],
+             flips_per_shot_frame=s1["flips_per_shot_frame"],
+             launches_per_dispatch=per_dispatch["s1"],
+             multicode_launches=launches_mc["s1"],
+             validate_ler_launches=sum(c["s1"]
+                                       for c in launches_sw.values())),
     ]
     keys23 = dict(bp_flood_kernel="k1", gf2_elim_kernel="k2",
                   bp_layered_kernel="k3", gf2_elim_fused_kernel="k4",
-                  gf2_elim_pair_kernel="k5", gather_pack_kernel="g1")
+                  gf2_elim_pair_kernel="k5", gather_pack_kernel="g1",
+                  trial_syndromes_kernel="s1")
     for kd in kernels:
         if kd["name"] in keys23:
             kd["entry_point_launches"] = {

@@ -12,6 +12,14 @@ precomputes, for every elementary fault location, its augmented signature
        decompose into control/target legs — correlations preserved exactly);
     3. augmented = A_loc^T @ fault_bits mod 2 — one float32 matmul.
 
+On a CUDA tensor steps 2 and 3 are one launch of kernel S1
+(``csrc/trial_syndromes.cu``, :func:`trial_syndromes`) for both frames: it
+reads each shot's ``err`` row once and, at the erring gate locations only,
+XORs the flipped elementary locations' signature rows into a bitset, from
+tables that :class:`TrialMaps` holds beside the dense ``A_loc_T``. The two
+steps above are its plain version (:func:`trial_syndromes_plain`), which
+CPU tensors run.
+
 Exactness of step 3: a row of A_loc^T @ bits counts up to a few hundred set
 signature bits, so the product must be exact on integers before ``& 1``.
 float32 holds every integer below 2^24 and its inputs are 0/1, so the count
@@ -21,14 +29,17 @@ bf16 inputs returns bf16 and rounds counts above 256.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import _kernels, resolve_device
 from ..models.builder import ROLE_CTRL, ROLE_SINGLE, ROLE_TGT
 from ..models.circuit import LOC_IDLE, SyndromeCircuit
+from ..utils import telemetry
 
 # --- two-qubit Pauli decomposition tables -------------------------------
 # The 15 non-identity two-qubit Paulis, indexed as the reference samples
@@ -51,31 +62,83 @@ SEL_CTRL = 2    # CNOT control leg
 SEL_TGT = 3     # CNOT target leg
 
 
+def _mask(lut) -> int:
+    return sum(1 << i for i, hit in enumerate(lut) if hit)
+
+
+# The flip rules of fault_bits as S1 takes them, a frame each (Z, X): the
+# idle Pauli that leaves the frame alone (X for Z, Z for X), and the 15-bit
+# masks of the two-qubit categories whose control / target leg flips it.
+FRAME_RULES = ((0, _mask(Z_CTRL_LUT), _mask(Z_TGT_LUT)),
+               (2, _mask(X_CTRL_LUT), _mask(X_TGT_LUT)))
+
+
 @dataclasses.dataclass(frozen=True)
 class TrialMaps:
-    """Device-resident static data of the linear-map trial path (a basis)."""
+    """Device-resident static data of the linear-map trial path (a basis).
+
+    ``sel``, ``gate_loc`` and ``A_loc_T`` are the plain version's;
+    ``loc_ptr`` / ``loc_entry`` and ``sig_ptr`` / ``sig_row`` are the same
+    maps as S1 reads them: the elementary locations of each gate location
+    (CSR over the gate locations up to the last that has one, each entry
+    ``location << 2 | selector``) and the set rows of each location's
+    signature (CSR over the locations, ``A_loc_T``'s columns)."""
 
     sel: torch.Tensor       # (L,) int32 selector per elementary location
     gate_loc: torch.Tensor  # (L,) int64 gate-location index
     A_loc_T: torch.Tensor   # (R, L) float32 per-location augmented signature
     num_syn: int            # syndrome rows (first num_syn rows of R axis)
     k: int                  # logical rows (last k rows)
+    loc_ptr: torch.Tensor    # (G + 1,) int32, G = max(gate_loc) + 1
+    loc_entry: torch.Tensor  # (L,) int32 location << 2 | selector
+    sig_ptr: torch.Tensor    # (L + 1,) int32
+    sig_row: torch.Tensor    # (nnz,) int32 rows, ascending a location
 
     @property
     def num_locations(self) -> int:
         return self.A_loc_T.shape[1]
 
 
+def _location_index(sel: np.ndarray, gate_loc: np.ndarray) -> tuple:
+    """(loc_ptr, loc_entry): each gate location's elementary locations."""
+    if gate_loc.size >= 2 ** 29:
+        raise ValueError(f"{gate_loc.size} elementary locations: an entry "
+                         f"packs its location in 29 bits")
+    gates = int(gate_loc.max()) + 1 if gate_loc.size else 0
+    order = np.argsort(gate_loc, kind="stable")
+    ptr = np.zeros(gates + 1, np.int32)
+    np.cumsum(np.bincount(gate_loc, minlength=gates), out=ptr[1:])
+    return ptr, ((order << 2) | sel[order]).astype(np.int32)
+
+
+def _signature_rows(A_loc_T: torch.Tensor) -> tuple:
+    """(sig_ptr, sig_row): the set rows of each column of ``A_loc_T``,
+    found on its own device."""
+    rows, locs = torch.nonzero(A_loc_T, as_tuple=True)  # by row, then column
+    locs, order = torch.sort(locs, stable=True)
+    L = A_loc_T.shape[1]
+    ptr = torch.zeros(L + 1, dtype=torch.int64, device=A_loc_T.device)
+    ptr[1:] = torch.cumsum(torch.bincount(locs, minlength=L), 0)
+    return ptr.to(torch.int32), rows[order].to(torch.int32)
+
+
 def trial_maps_from_arrays(sel, gate_loc, A_loc, num_syn: int, k: int,
                            device) -> TrialMaps:
     """TrialMaps from host arrays; ``A_loc`` is (L, R) 0/1."""
     dev = resolve_device(device)
+    sel = np.array(sel, np.int32)
+    gate_loc = np.array(gate_loc, np.int64)
+    A_loc_T = torch.as_tensor(
+        np.ascontiguousarray(np.asarray(A_loc, np.float32).T), device=dev)
+    loc_ptr, loc_entry = _location_index(sel, gate_loc)
+    sig_ptr, sig_row = _signature_rows(A_loc_T)
     return TrialMaps(
-        sel=torch.as_tensor(np.array(sel, np.int32), device=dev),
-        gate_loc=torch.as_tensor(np.array(gate_loc, np.int64), device=dev),
-        A_loc_T=torch.as_tensor(
-            np.ascontiguousarray(np.asarray(A_loc, np.float32).T), device=dev),
-        num_syn=int(num_syn), k=int(k))
+        sel=torch.as_tensor(sel, device=dev),
+        gate_loc=torch.as_tensor(gate_loc, device=dev),
+        A_loc_T=A_loc_T, num_syn=int(num_syn), k=int(k),
+        loc_ptr=torch.as_tensor(loc_ptr, device=dev),
+        loc_entry=torch.as_tensor(loc_entry, device=dev),
+        sig_ptr=sig_ptr, sig_row=sig_row)
 
 
 def make_trial_maps(circ: SyndromeCircuit, matrices: dict, basis: str,
@@ -164,6 +227,94 @@ def augmented_bits(bits_T: torch.Tensor, maps: TrialMaps) -> torch.Tensor:
     return (counts.to(torch.int32) & 1).to(torch.int8).T.contiguous()
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _s1_launch():
+    fn = _kernels.load("trial_syndromes").trial_syndromes_launch
+    frame = [_P] * 6 + [_I] * 6
+    fn.argtypes = [_P] * 3 + [_I] * 2 + frame + frame + [_P] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def trial_syndromes_plain(err, pauli, cat2, maps_z: TrialMaps,
+                          maps_x: TrialMaps) -> dict:
+    """Plain version of S1: :func:`fault_bits` and :func:`augmented_bits`
+    a frame; counts the flipped locations as ``sampling.flips`` when
+    telemetry is on."""
+    out = {}
+    for basis, maps in (("z", maps_z), ("x", maps_x)):
+        bits = fault_bits(err, pauli, cat2, maps, basis)
+        if telemetry.enabled():
+            telemetry.count("sampling.flips", bits.sum())
+        aug = augmented_bits(bits, maps)
+        out[f"syndrome_{basis}"] = aug[:, :maps.num_syn].contiguous()
+        out[f"true_{basis}"] = aug[:, maps.num_syn:].contiguous()
+    return out
+
+
+def _frame_args(maps: TrialMaps, syn, tru, rules) -> list:
+    return [maps.loc_ptr.data_ptr(), maps.loc_entry.data_ptr(),
+            maps.sig_ptr.data_ptr(), maps.sig_row.data_ptr(), syn.data_ptr(),
+            tru.data_ptr(), maps.loc_ptr.shape[0] - 1, maps.A_loc_T.shape[0],
+            maps.num_syn, *rules]
+
+
+def trial_syndromes(err, pauli, cat2, maps_z: TrialMaps,
+                    maps_x: TrialMaps) -> dict:
+    """Kernel S1 (``csrc/trial_syndromes.cu``): both frames' syndromes and
+    logical effects of the draws ``err`` (B, n) bool, ``pauli`` and
+    ``cat2`` (B, n) int32, as :func:`trial_syndromes_plain` returns them,
+    bit for bit. CUDA tensors launch the kernel (the draws are used as
+    they are when contiguous and of those types); CPU tensors run the plain
+    version. With telemetry on, the kernel also counts the flipped
+    elementary locations into a device int64, ``sampling.flips``.
+    ``trial_syndromes.launches`` counts the launches."""
+    if err.device.type == "cpu":
+        return trial_syndromes_plain(err, pauli, cat2, maps_z, maps_x)
+    if err.device.type != "cuda":
+        raise ValueError(f"unsupported device {err.device}")
+    B, n = err.shape
+    err = err.to(torch.bool).contiguous()
+    pauli = pauli.to(torch.int32).contiguous()
+    cat2 = cat2.to(torch.int32).contiguous()
+    if pauli.shape != err.shape or cat2.shape != err.shape:
+        raise ValueError(f"draws of shapes {tuple(err.shape)}, "
+                         f"{tuple(pauli.shape)}, {tuple(cat2.shape)}")
+    frames, out = [], {}
+    for basis, maps, rules in (("z", maps_z, FRAME_RULES[0]),
+                               ("x", maps_x, FRAME_RULES[1])):
+        if maps.loc_ptr.device != err.device:
+            raise ValueError(f"maps on {maps.loc_ptr.device}, draws on "
+                             f"{err.device}")
+        if maps.loc_ptr.shape[0] - 1 > n:
+            raise ValueError(f"maps reach gate location "
+                             f"{maps.loc_ptr.shape[0] - 2}, draws have {n}")
+        syn = torch.empty((B, maps.num_syn), dtype=torch.int8,
+                          device=err.device)
+        tru = torch.empty((B, maps.A_loc_T.shape[0] - maps.num_syn),
+                          dtype=torch.int8, device=err.device)
+        out[f"syndrome_{basis}"], out[f"true_{basis}"] = syn, tru
+        frames += _frame_args(maps, syn, tru, rules)
+    flips = None
+    if telemetry.enabled():
+        flips = torch.zeros(1, dtype=torch.int64, device=err.device)
+    code = _s1_launch()(err.data_ptr(), pauli.data_ptr(), cat2.data_ptr(),
+                        B, n, *frames,
+                        None if flips is None else flips.data_ptr(),
+                        _kernels.stream_ptr(err.device))
+    _kernels.check(code, "trial_syndromes_launch")
+    trial_syndromes.launches += 1
+    if flips is not None:
+        telemetry.count("sampling.flips", flips)
+    return out
+
+
+trial_syndromes.launches = 0
+
+
 def trial_batch(gen: torch.Generator, error_rate, maps_z: TrialMaps,
                 maps_x: TrialMaps, n_locs: int, batch: int,
                 randoms: tuple = None) -> dict:
@@ -173,13 +324,8 @@ def trial_batch(gen: torch.Generator, error_rate, maps_z: TrialMaps,
     (decoded against HdecZ), and their X counterparts. Both frames derive
     from the same gate randoms, so Y errors and two-qubit Paulis stay
     correlated exactly. ``randoms=(err, pauli, cat2)`` replaces the draws
-    from ``gen`` (which may then be None)."""
+    from ``gen`` (which may then be None). S1 on a CUDA tensor, its plain
+    version on a CPU one (:func:`trial_syndromes`)."""
     if randoms is None:
         randoms = sample_gate_randoms(gen, batch, n_locs, error_rate)
-    err, pauli, cat2 = randoms
-    out = {}
-    for basis, maps in (("z", maps_z), ("x", maps_x)):
-        aug = augmented_bits(fault_bits(err, pauli, cat2, maps, basis), maps)
-        out[f"syndrome_{basis}"] = aug[:, :maps.num_syn].contiguous()
-        out[f"true_{basis}"] = aug[:, maps.num_syn:].contiguous()
-    return out
+    return trial_syndromes(*randoms, maps_z, maps_x)

@@ -1,4 +1,4 @@
-"""Kernels K1-K5, P1 and P2 against their plain PyTorch versions on the GPU,
+"""Kernels K1-K5, P1, P2 and S1 against their plain PyTorch versions on the GPU,
 the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
 calibration histogram) against themselves on the CPU, and the multi-code
 and shot-mesh paths on the card (K1 and K2 at the multi-code shapes),
@@ -15,7 +15,7 @@ import torch
 
 import qldpc_tpu_torch as qt
 from qldpc_tpu_torch.ops import (bp, bp_lift_cuda, bp_lift_layered_cuda,
-                                 calibrate, gather, osd_cuda)
+                                 calibrate, gather, osd_cuda, sampler)
 from qldpc_tpu_torch.ops.bp import alpha_schedule
 from qldpc_tpu_torch.ops.osd import _gather_pack, _pack_columns
 from qldpc_tpu_torch.ops.sampler import trial_batch
@@ -281,6 +281,20 @@ def test_elim_kernel_launch_info(cuda):
     assert info["shots_per_sm"] >= 4 and info["shots_per_block"] >= 2
 
 
+_BUILT = {}
+
+
+def _built(name: str, cycles: int, p: float):
+    """(circuit, decoding matrices) of a code, built once a module."""
+    key = (name, cycles, p)
+    if key not in _BUILT:
+        code = qt.get_code(name)
+        circ = qt.SyndromeCircuit(code, num_cycles=cycles)
+        _BUILT[key] = circ, qt.build_decoding_matrices(circ, code.Lx,
+                                                       code.Lz, p)
+    return _BUILT[key]
+
+
 @pytest.fixture(scope="module")
 def basis_rerun_288(cuda):
     """[[288,12,18]] basis Z at p=0.005 (18 cycles): B=37 syndromes of
@@ -289,9 +303,7 @@ def basis_rerun_288(cuda):
     the decoder's rank."""
     from qldpc_tpu_torch.models import gf2
     from qldpc_tpu_torch.ops.osd import choose_K
-    code = qt.get_code("[[288, 12, 18]]")
-    circ = qt.SyndromeCircuit(code, num_cycles=18)
-    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.005)
+    circ, M = _built("[[288, 12, 18]]", 18, 0.005)
     H = (M["HdecZ"] != 0).astype(np.uint8)
     m, n = H.shape
     rng = np.random.default_rng(14)
@@ -938,9 +950,7 @@ def test_default_osd_chunk_at_144_bench_shape(cuda, monkeypatch, tmp_path):
     about an eighth of their OSD kernel launches, and a steady one reads
     nothing back."""
     from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
-    code = qt.get_code("[[144, 12, 12]]")
-    circ = qt.SyndromeCircuit(code, num_cycles=12)
-    M = qt.build_decoding_matrices(circ, code.Lx, code.Lz, 0.004)
+    circ, M = _built("[[144, 12, 12]]", 12, 0.004)
     seq = alpha_schedule("dynamical", 50)
     decs = [engine._make_basis(circ, M, b, seq, osd_order=2, device=cuda)
             for b in "ZX"]
@@ -1184,3 +1194,89 @@ def test_osd_batch_layouts_agree_on_card(cuda, bundles, monkeypatch,
             col_index=dec.col_index)
     for k, v in out["cpu"].items():
         assert torch.equal(v, out[str(cuda)][k].cpu()), k
+
+
+# S1: a round's syndromes from its draws (csrc/trial_syndromes.cu)
+S1_SHAPES = {"[[72]] c3": ("[[72, 12, 6]]", 3, (37, 300)),
+             "[[90]] c10": ("[[90, 8, 10]]", 10, (37, 1024)),
+             "[[108]] c10": ("[[108, 8, 10]]", 10, (37, 1024)),
+             "[[144]] c12": ("[[144, 12, 12]]", 12, (37, 1024)),
+             "[[288]] c18": ("[[288, 12, 18]]", 18, (37,))}
+
+
+@pytest.fixture(scope="module")
+def s1_maps(cuda):
+    """Per shape, a function giving (gate locations, [maps_z, maps_x]) on
+    the card, each built once."""
+    from qldpc_tpu_torch.ops.sampler import make_trial_maps
+    made = {}
+
+    def get(shape):
+        if shape not in made:
+            name, cycles, _ = S1_SHAPES[shape]
+            circ, M = _built(name, cycles, 0.005 if "288" in name else 0.004)
+            made[shape] = (circ.num_error_locs,
+                           [make_trial_maps(circ, M, b, device=cuda)
+                            for b in "ZX"])
+        return made[shape]
+    return get
+
+
+@pytest.mark.parametrize("p", [0.0, 0.004, 0.05, 1.0])
+@pytest.mark.parametrize("shape", list(S1_SHAPES))
+def test_trial_syndromes_kernel_matches_plain(cuda, s1_maps, shape, p):
+    """S1's four outputs equal the plain version's bit for bit in both
+    frames (at p = 1 every gate location errs, so every row's count is far
+    above 1), its ``sampling.flips`` equals the plain fault bits' count, and
+    ``trial_batch`` launches it once. [[90]]'s rows (9,000 bytes) start off
+    a 16-byte boundary every other shot."""
+    from qldpc_tpu_torch.utils import telemetry
+    n, maps = s1_maps(shape)
+    for B in S1_SHAPES[shape][2]:
+        gen = torch.Generator(device=cuda).manual_seed(B)
+        err, pauli, cat2 = sampler.sample_gate_randoms(gen, B, n, p)
+        if p == 1.0:
+            err = torch.ones_like(err)
+        want = sampler.trial_syndromes_plain(err, pauli, cat2, *maps)
+        flips = sum(int(sampler.fault_bits(err, pauli, cat2, m, b).sum())
+                    for m, b in zip(maps, "ZX"))
+        launches = sampler.trial_syndromes.launches
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            with telemetry.span("sampling"):
+                got = trial_batch(None, p, *maps, n, B, (err, pauli, cat2))
+        finally:
+            telemetry.disable()
+        counters = telemetry.export()["spans"][0]["counters"]
+        telemetry.reset()
+        torch.cuda.synchronize()
+        assert sampler.trial_syndromes.launches == launches + 1
+        for k, v in want.items():
+            g = got[k]
+            assert g.dtype == torch.int8 and g.is_contiguous(), k
+            assert g.shape == v.shape and torch.equal(g, v), (B, k)
+        assert counters == {"sampling.flips": flips}
+        assert (flips > 0) == (p > 0)
+        # telemetry off: the same outputs, no counter
+        again = trial_batch(None, p, *maps, n, B, (err, pauli, cat2))
+        for k, v in want.items():
+            assert torch.equal(again[k], v), k
+
+
+def test_pooled_round_launches_s1_once_a_round(cuda, bundles, monkeypatch):
+    """A pooled dispatch of 3 rounds launches S1 three times and never runs
+    the plain version's product."""
+    circ, M, decs = bundles
+    dz, dx = decs[str(cuda)]
+    fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
+                                     64, 50, 2, 3)
+
+    def product(*args):
+        raise AssertionError("the plain signature product ran on the card")
+
+    monkeypatch.setattr(sampler, "augmented_bits", product)
+    launches = sampler.trial_syndromes.launches
+    fn(torch.Generator(device=cuda).manual_seed(4))
+    torch.cuda.synchronize()
+    assert sampler.trial_syndromes.launches == launches + 3

@@ -110,3 +110,117 @@ def test_port_trial_matches_oracle(setup72):
         assert np.array_equal(out["X"][0][b], sx), b
         assert np.array_equal(out["X"][1][b], tx), b
     assert err.any(1).sum() > B // 2  # the test exercised errors
+
+
+# S1's tables and algorithm (csrc/trial_syndromes.cu runs only on a card)
+def _decode_tables(maps):
+    """(sel, gate_loc, A_loc_T) rebuilt with NumPy from S1's tables, and
+    each elementary location's count of entries."""
+    ptr, entry = maps.loc_ptr.numpy(), maps.loc_entry.numpy()
+    L = maps.num_locations
+    sel = np.full(L, -1, np.int64)
+    gate_loc = np.full(L, -1, np.int64)
+    seen = np.zeros(L, np.int64)
+    for g in range(len(ptr) - 1):
+        for e in entry[ptr[g]:ptr[g + 1]]:
+            loc = e >> 2
+            sel[loc], gate_loc[loc] = e & 3, g
+            seen[loc] += 1
+    sptr, rows = maps.sig_ptr.numpy(), maps.sig_row.numpy()
+    A = np.zeros((maps.A_loc_T.shape[0], L), np.float32)
+    for loc in range(L):
+        A[rows[sptr[loc]:sptr[loc + 1]], loc] = 1
+    return sel, gate_loc, A, seen
+
+
+@pytest.mark.parametrize("basis", ["Z", "X"])
+def test_s1_tables_decode_to_the_plain_maps(setup72, basis):
+    code, circ, M, _, _ = setup72
+    maps = sampler.make_trial_maps(circ, M, basis, device="cpu")
+    sel, gate_loc, A, seen = _decode_tables(maps)
+    assert (seen == 1).all()                   # every location once
+    assert np.array_equal(sel, maps.sel.numpy())
+    assert np.array_equal(gate_loc, maps.gate_loc.numpy())
+    assert np.array_equal(A, maps.A_loc_T.numpy())
+    assert len(maps.loc_ptr) - 1 == gate_loc.max() + 1 \
+        <= circ.num_error_locs
+    for t in (maps.loc_ptr, maps.loc_entry, maps.sig_ptr, maps.sig_row):
+        assert t.dtype == torch.int32 and t.is_contiguous()
+
+
+def _s1_emulated(err, pauli, cat2, maps_z, maps_x):
+    """S1's algorithm in NumPy: each erring gate location's entries in a
+    frame, the frame's rule from FRAME_RULES, and the parity of the flipped
+    locations' signature rows from the CSR tables. Returns the four
+    outputs and the flipped locations."""
+    out, flips = {}, 0
+    for basis, maps, (idle_keep, ctrl, tgt) in zip(
+            "zx", (maps_z, maps_x), sampler.FRAME_RULES):
+        ptr, entry = maps.loc_ptr.numpy(), maps.loc_entry.numpy()
+        gate = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+        sel, loc = entry & 3, entry >> 2
+        p, c = pauli[:, gate], cat2[:, gate]
+        hit = np.where(sel == sampler.SEL_CONST, True, np.where(
+            sel == sampler.SEL_IDLE, p != idle_keep, (np.where(
+                sel == sampler.SEL_CTRL, ctrl, tgt) >> c) & 1 == 1))
+        flipped = np.zeros((err.shape[0], maps.num_locations), bool)
+        flipped[:, loc] = err[:, gate] & hit
+        flips += int(flipped.sum())
+        sptr, rows = maps.sig_ptr.numpy(), maps.sig_row.numpy()
+        owner = np.repeat(np.arange(maps.num_locations), np.diff(sptr))
+        R = maps.A_loc_T.shape[0]
+        aug = np.stack([np.bincount(rows[f[owner]], minlength=R) & 1
+                        for f in flipped]).astype(np.int8)
+        out[f"syndrome_{basis}"] = aug[:, :maps.num_syn]
+        out[f"true_{basis}"] = aug[:, maps.num_syn:]
+    return out, flips
+
+
+@pytest.mark.parametrize("p", [0.0, 0.004, 0.05, 1.0])
+def test_s1_algorithm_matches_plain(setup72, p):
+    """At p = 1 every gate location errs: every row's count is far above
+    1, so the XOR is held against the count's parity."""
+    code, circ, M, _, _ = setup72
+    maps = [sampler.make_trial_maps(circ, M, b, device="cpu") for b in "ZX"]
+    gen = torch.Generator().manual_seed(77)
+    err, pauli, cat2 = sampler.sample_gate_randoms(
+        gen, 37, circ.num_error_locs, p)
+    if p == 1.0:
+        err = torch.ones_like(err)
+    want = sampler.trial_syndromes_plain(err, pauli, cat2, *maps)
+    got, flips = _s1_emulated(err.numpy(), pauli.numpy(), cat2.numpy(),
+                              *maps)
+    for k, v in want.items():
+        assert np.array_equal(got[k], v.numpy()), k
+    assert flips == sum(int(sampler.fault_bits(err, pauli, cat2, m, b).sum())
+                        for m, b in zip(maps, "ZX"))
+    assert (flips > 0) == (p > 0)
+
+
+def test_sampling_flips_counted_on_the_cpu(setup72):
+    """``sampling.flips``: the flipped elementary locations of both frames,
+    on the innermost span, only while telemetry is on."""
+    from qldpc_tpu_torch.utils import telemetry
+    code, circ, M, _, _ = setup72
+    maps = [sampler.make_trial_maps(circ, M, b, device="cpu") for b in "ZX"]
+    randoms = sampler.sample_gate_randoms(torch.Generator().manual_seed(3),
+                                          40, circ.num_error_locs, 0.02)
+    want = sum(int(sampler.fault_bits(*randoms, m, b).sum())
+               for m, b in zip(maps, "ZX"))
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        with telemetry.span("sampling"):
+            on = sampler.trial_batch(None, 0.02, *maps,
+                                     circ.num_error_locs, 40, randoms)
+    finally:
+        telemetry.disable()
+    spans = telemetry.export()["spans"]
+    telemetry.reset()
+    assert [s["counters"] for s in spans] == [{"sampling.flips": want}]
+    off = sampler.trial_batch(None, 0.02, *maps, circ.num_error_locs, 40,
+                              randoms)
+    assert telemetry.export()["spans"] == []
+    for k, v in off.items():
+        assert torch.equal(on[k], v), k
+    assert want > 0
