@@ -248,8 +248,9 @@ def main():
                                          gather, osd, osd_cuda, sampler)
         from qldpc_tpu_torch.ops.bp import alpha_schedule
         from qldpc_tpu_torch.ops.bp_lift import LiftedGraph
-        from qldpc_tpu_torch.ops.sampler import (augmented_bits, fault_bits,
+        from qldpc_tpu_torch.ops.sampler import (fault_bits,
                                                  sample_gate_randoms,
+                                                 signature_matrix,
                                                  trial_batch,
                                                  trial_syndromes,
                                                  trial_syndromes_plain)
@@ -336,6 +337,7 @@ def main():
             fail(f"phase 2: S1 {key} differs from the plain version")
     bits = [fault_bits(err, pauli, cat2, m, b) for m, b in zip(maps, "ZX")]
     floats = [b.to(torch.float32) for b in bits]
+    dense = [signature_matrix(m) for m in maps]  # (R, L), outside the timing
     erring = int(err.sum())
     s1 = dict(
         ms=cuda_ms(lambda: trial_syndromes(err, pauli, cat2, *maps), 20),
@@ -345,10 +347,10 @@ def main():
             lambda: trial_syndromes_plain(err, pauli, cat2, *maps), 3),
         # the plain version's two float32 signature products alone
         library_ms=gather_timing.graph_ms(
-            lambda: [m.A_loc_T @ f for m, f in zip(maps, floats)], 3, dev),
+            lambda: [a @ f for a, f in zip(dense, floats)], 3, dev),
         erring_per_shot=erring / BATCH,
         flips_per_shot_frame=sum(int(b.sum()) for b in bits) / (2 * BATCH))
-    del bits, floats
+    del bits, floats, dense
     # the least S1 moves: each shot's err row, pauli and cat2 at the erring
     # gate locations, its four outputs and its tables, each once
     s1["bound_ms"], s1["bound_by"] = bound(
@@ -2780,9 +2782,7 @@ def main():
         str(MAXITER), "--reps", "5"], {"k1", "k2", "g1"}, phase=24)
     g24 = torch.Generator(device=dev).manual_seed(SEED + 24)
     e24, p24, c24 = sample_gate_randoms(g24, 256, n_locs, P)
-    syn24 = augmented_bits(fault_bits(e24, p24, c24, decs[0].maps, "Z"),
-                           decs[0].maps)[:, :decs[0].maps.num_syn]
-    syn24 = syn24.contiguous()
+    syn24 = trial_syndromes(e24, p24, c24, *maps)["syndrome_z"]
     bp24 = engine._bp_one_basis(syn24, decs[0], MAXITER)
     plain24 = bp_lift_cuda.decode_batch_lift_plain(
         decs[0].lifted, syn24, decs[0].prior, decs[0].alpha_seq, MAXITER)

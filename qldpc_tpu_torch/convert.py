@@ -63,8 +63,8 @@ def basis_from_jax(arrays: dict, meta: dict, device=None) -> BasisDecoder:
         return _tensor(arrays, name, dtype, dev)
 
     maps = trial_maps_from_arrays(arrays["sel"], arrays["gate_loc"],
-                                  np.asarray(arrays["A_loc"], np.float32),
-                                  meta["num_syn"], meta["k"], dev)
+                                  arrays["A_loc"], meta["num_syn"], meta["k"],
+                                  dev)
     statics = {k: (tuple(int(v) for v in meta[k])
                    if k.startswith("eb_") else int(meta[k]))
                for k in LIFT_STATICS if k in meta}

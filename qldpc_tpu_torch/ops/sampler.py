@@ -15,10 +15,10 @@ precomputes, for every elementary fault location, its augmented signature
 On a CUDA tensor steps 2 and 3 are one launch of kernel S1
 (``csrc/trial_syndromes.cu``, :func:`trial_syndromes`) for both frames: it
 reads each shot's ``err`` row once and, at the erring gate locations only,
-XORs the flipped elementary locations' signature rows into a bitset, from
-tables that :class:`TrialMaps` holds beside the dense ``A_loc_T``. The two
-steps above are its plain version (:func:`trial_syndromes_plain`), which
-CPU tensors run.
+XORs the flipped elementary locations' signature rows into a bitset, read
+from :class:`TrialMaps`' CSR tables, the one form of A_loc^T it holds. The
+two steps above are its plain version (:func:`trial_syndromes_plain`),
+which CPU tensors run.
 
 Exactness of step 3: a row of A_loc^T @ bits counts up to a few hundred set
 signature bits, so the product must be exact on integers before ``& 1``.
@@ -77,16 +77,14 @@ FRAME_RULES = ((0, _mask(Z_CTRL_LUT), _mask(Z_TGT_LUT)),
 class TrialMaps:
     """Device-resident static data of the linear-map trial path (a basis).
 
-    ``sel``, ``gate_loc`` and ``A_loc_T`` are the plain version's;
-    ``loc_ptr`` / ``loc_entry`` and ``sig_ptr`` / ``sig_row`` are the same
-    maps as S1 reads them: the elementary locations of each gate location
-    (CSR over the gate locations up to the last that has one, each entry
-    ``location << 2 | selector``) and the set rows of each location's
-    signature (CSR over the locations, ``A_loc_T``'s columns)."""
+    ``sel`` and ``gate_loc`` are the plain version's, ``loc_ptr`` /
+    ``loc_entry`` the same map as S1 reads it: the elementary locations of
+    each gate location (CSR over the gate locations up to the last that has
+    one, each entry ``location << 2 | selector``). Both read ``sig_ptr`` /
+    ``sig_row``: the set rows of each location's signature (CSR)."""
 
     sel: torch.Tensor       # (L,) int32 selector per elementary location
     gate_loc: torch.Tensor  # (L,) int64 gate-location index
-    A_loc_T: torch.Tensor   # (R, L) float32 per-location augmented signature
     num_syn: int            # syndrome rows (first num_syn rows of R axis)
     k: int                  # logical rows (last k rows)
     loc_ptr: torch.Tensor    # (G + 1,) int32, G = max(gate_loc) + 1
@@ -96,49 +94,44 @@ class TrialMaps:
 
     @property
     def num_locations(self) -> int:
-        return self.A_loc_T.shape[1]
+        return self.sel.shape[0]
 
 
-def _location_index(sel: np.ndarray, gate_loc: np.ndarray) -> tuple:
-    """(loc_ptr, loc_entry): each gate location's elementary locations."""
+def signature_rows(columns, loc_col) -> tuple:
+    """(sig_ptr, sig_row) int32: the set rows, ascending, of column
+    ``loc_col[l]`` of the 0/1 matrix ``columns`` (R, C) for each location l."""
+    col, row = np.nonzero(np.asarray(columns).T)  # by column, then row
+    col_ptr = np.searchsorted(col, np.arange(columns.shape[1] + 1))
+    loc_col = np.asarray(loc_col, np.int64)
+    counts = col_ptr[loc_col + 1] - col_ptr[loc_col]
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    start = np.repeat(col_ptr[loc_col] - ptr[:-1], counts)
+    return ptr, row[start + np.arange(ptr[-1])].astype(np.int32)
+
+
+def _trial_maps(sel, gate_loc, signature, num_syn, k, device) -> TrialMaps:
+    """TrialMaps on ``device``, ``loc_ptr`` / ``loc_entry`` built here."""
+    sel, gate_loc = np.array(sel, np.int32), np.array(gate_loc, np.int64)
     if gate_loc.size >= 2 ** 29:
         raise ValueError(f"{gate_loc.size} elementary locations: an entry "
                          f"packs its location in 29 bits")
-    gates = int(gate_loc.max()) + 1 if gate_loc.size else 0
     order = np.argsort(gate_loc, kind="stable")
-    ptr = np.zeros(gates + 1, np.int32)
-    np.cumsum(np.bincount(gate_loc, minlength=gates), out=ptr[1:])
-    return ptr, ((order << 2) | sel[order]).astype(np.int32)
-
-
-def _signature_rows(A_loc_T: torch.Tensor) -> tuple:
-    """(sig_ptr, sig_row): the set rows of each column of ``A_loc_T``,
-    found on its own device."""
-    rows, locs = torch.nonzero(A_loc_T, as_tuple=True)  # by row, then column
-    locs, order = torch.sort(locs, stable=True)
-    L = A_loc_T.shape[1]
-    ptr = torch.zeros(L + 1, dtype=torch.int64, device=A_loc_T.device)
-    ptr[1:] = torch.cumsum(torch.bincount(locs, minlength=L), 0)
-    return ptr.to(torch.int32), rows[order].to(torch.int32)
+    gates = int(gate_loc.max()) + 1 if gate_loc.size else 0
+    loc_ptr = np.searchsorted(gate_loc[order], np.arange(gates + 1))
+    loc_entry = (order << 2) | sel[order]
+    t = functools.partial(torch.as_tensor, device=resolve_device(device))
+    return TrialMaps(t(sel), t(gate_loc), int(num_syn), int(k),
+                     t(loc_ptr.astype(np.int32)),
+                     t(loc_entry.astype(np.int32)), *map(t, signature))
 
 
 def trial_maps_from_arrays(sel, gate_loc, A_loc, num_syn: int, k: int,
                            device) -> TrialMaps:
     """TrialMaps from host arrays; ``A_loc`` is (L, R) 0/1."""
-    dev = resolve_device(device)
-    sel = np.array(sel, np.int32)
-    gate_loc = np.array(gate_loc, np.int64)
-    A_loc_T = torch.as_tensor(
-        np.ascontiguousarray(np.asarray(A_loc, np.float32).T), device=dev)
-    loc_ptr, loc_entry = _location_index(sel, gate_loc)
-    sig_ptr, sig_row = _signature_rows(A_loc_T)
-    return TrialMaps(
-        sel=torch.as_tensor(sel, device=dev),
-        gate_loc=torch.as_tensor(gate_loc, device=dev),
-        A_loc_T=A_loc_T, num_syn=int(num_syn), k=int(k),
-        loc_ptr=torch.as_tensor(loc_ptr, device=dev),
-        loc_entry=torch.as_tensor(loc_entry, device=dev),
-        sig_ptr=sig_ptr, sig_row=sig_row)
+    A_loc = np.asarray(A_loc)
+    return _trial_maps(sel, gate_loc,
+                       signature_rows(A_loc.T, np.arange(A_loc.shape[0])),
+                       num_syn, k, device)
 
 
 def make_trial_maps(circ: SyndromeCircuit, matrices: dict, basis: str,
@@ -147,7 +140,6 @@ def make_trial_maps(circ: SyndromeCircuit, matrices: dict, basis: str,
     b = basis.lower()
     role = matrices[f"{b}_loc_role"]
     gate_loc = matrices[f"{b}_loc_gate_loc"]
-    cls = matrices[f"{b}_loc_class"]
     full = matrices["HZ_full"] if b == "z" else matrices["HX_full"]
     num_syn = matrices[f"first_logical_row{basis.upper()}"]
     kind = circ.loc_kind[gate_loc]
@@ -155,8 +147,9 @@ def make_trial_maps(circ: SyndromeCircuit, matrices: dict, basis: str,
                    np.where(role == ROLE_TGT, SEL_TGT,
                             np.where(kind == LOC_IDLE, SEL_IDLE, SEL_CONST)))
     assert (role[sel == SEL_CONST] == ROLE_SINGLE).all()
-    return trial_maps_from_arrays(sel, gate_loc, full[:, cls].T, num_syn,
-                                  matrices["k"], device)
+    return _trial_maps(sel, gate_loc,
+                       signature_rows(full, matrices[f"{b}_loc_class"]),
+                       num_syn, matrices["k"], device)
 
 
 def sample_gate_randoms(gen: torch.Generator, batch: int, n_locs: int,
@@ -220,10 +213,20 @@ def fault_bits(err, pauli, cat2, maps: TrialMaps, basis: str) -> torch.Tensor:
     return e & hit
 
 
+def signature_matrix(maps: TrialMaps) -> torch.Tensor:
+    """(R, L) float32 A_loc^T, scattered from ``sig_ptr`` / ``sig_row`` on
+    their device."""
+    A = torch.zeros((maps.num_syn + maps.k, maps.num_locations),
+                    device=maps.sig_row.device)
+    A[maps.sig_row.long(), torch.repeat_interleave(
+        maps.sig_ptr.diff(), output_size=maps.sig_row.shape[0])] = 1
+    return A
+
+
 def augmented_bits(bits_T: torch.Tensor, maps: TrialMaps) -> torch.Tensor:
     """(B, R) int8 augmented signature = (A_loc^T @ bits) mod 2, exact in
     float32 (see module docstring)."""
-    counts = maps.A_loc_T @ bits_T.to(torch.float32)          # (R, B)
+    counts = signature_matrix(maps) @ bits_T.to(torch.float32)  # (R, B)
     return (counts.to(torch.int32) & 1).to(torch.int8).T.contiguous()
 
 
@@ -258,7 +261,7 @@ def trial_syndromes_plain(err, pauli, cat2, maps_z: TrialMaps,
 def _frame_args(maps: TrialMaps, syn, tru, rules) -> list:
     return [maps.loc_ptr.data_ptr(), maps.loc_entry.data_ptr(),
             maps.sig_ptr.data_ptr(), maps.sig_row.data_ptr(), syn.data_ptr(),
-            tru.data_ptr(), maps.loc_ptr.shape[0] - 1, maps.A_loc_T.shape[0],
+            tru.data_ptr(), maps.loc_ptr.shape[0] - 1, maps.num_syn + maps.k,
             maps.num_syn, *rules]
 
 
@@ -294,8 +297,7 @@ def trial_syndromes(err, pauli, cat2, maps_z: TrialMaps,
                              f"{maps.loc_ptr.shape[0] - 2}, draws have {n}")
         syn = torch.empty((B, maps.num_syn), dtype=torch.int8,
                           device=err.device)
-        tru = torch.empty((B, maps.A_loc_T.shape[0] - maps.num_syn),
-                          dtype=torch.int8, device=err.device)
+        tru = torch.empty((B, maps.k), dtype=torch.int8, device=err.device)
         out[f"syndrome_{basis}"], out[f"true_{basis}"] = syn, tru
         frames += _frame_args(maps, syn, tru, rules)
     flips = None

@@ -5,9 +5,10 @@ Port of the JAX package's ``run_simulation`` and
 calibrated on the device: Alvarado, autoregressive Alvarado; optional
 SCOPT beta, reported), BP, pooled, residual-sorted OSD with the staged
 eliminator, logical readout, and exact sequential stopping.
-One decode round = ``batch`` shots: sample gate faults -> signature matmul
--> BP -> OSD on the shots BP did not converge (kernel K2, or K4 / K5 under
-``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical comparison.
+One decode round = ``batch`` shots: sample gate faults -> their syndromes
+(kernel S1, ops/sampler.py) -> BP -> OSD on the shots BP did not converge
+(kernel K2, or K4 / K5 under ``QLDPC_OSD_KERNEL=2`` / ``3``, see
+ops/osd_cuda.py) -> logical comparison.
 BP is dispatched as in the JAX package: on a lifted graph with damping 1,
 kernel K1 (flooding, ``bp_variant="minsum"``) or K3 (``"layered"``);
 damped on a lifted graph, the roll decoder (ops/bp_lift.py); tanh BP and

@@ -5,7 +5,7 @@ p=0.004, 1024 shots per round, 4 rounds per dispatch, maxIter 50, OSD
 order 2) and reports, for a few steady dispatches:
 
 * stage times from CUDA events around the pieces a pooled dispatch runs
-  (sampling + signature matmul, BP, pooled OSD, readout), summed over the
+  (the draws and S1's syndromes, BP, pooled OSD, readout), summed over the
   dispatch;
 * for each ``--pipeline-depth``: dispatches issued in turn with up to that
   many in flight, the oldest consumed by reading its outputs to the host,
@@ -68,7 +68,7 @@ import torch
 
 from . import build_decoding_matrices, get_code, SyndromeCircuit
 from .ops import osd_cuda
-from .ops.sampler import augmented_bits, fault_bits, sample_gate_randoms
+from .ops.sampler import trial_batch
 from .parallel import engine
 from .utils.benchloop import _to_host
 
@@ -92,17 +92,14 @@ def _timed_dispatch(decs, n_locs, gen, cfg, acc):
 
     rounds = []
     for _ in range(cfg["rpd"]):
-        err, pauli, cat2 = timed("sample", lambda: sample_gate_randoms(
-            gen, cfg["batch"], n_locs, cfg["p"]))
+        trials = timed("sample", lambda: trial_batch(
+            gen, cfg["p"], dz.maps, dx.maps, n_locs, cfg["batch"]))
         per = []
         for name, dec in (("z", dz), ("x", dx)):
-            aug = timed("sample", lambda: augmented_bits(
-                fault_bits(err, pauli, cat2, dec.maps, name.upper()),
-                dec.maps))
-            syn = aug[:, :dec.maps.num_syn].contiguous()
+            syn = trials[f"syndrome_{name}"]
             bp = timed("bp", lambda: engine._bp_one_basis(
                 syn, dec, cfg["maxIter"], bp_variant=cfg["bp_variant"]))
-            per.append(dict(syn=syn, true_log=aug[:, dec.maps.num_syn:],
+            per.append(dict(syn=syn, true_log=trials[f"true_{name}"],
                             values=bp["values"], hard=bp["hard"],
                             conv=bp["converged"]))
         rounds.append(per)
@@ -228,14 +225,13 @@ def cumulative_fn(level: int, decs, n_locs: int, p: float, batch: int,
         if level == 0:
             return torch.randint(0, 1 << 30, (8,), generator=gen,
                                  device=dev).sum()
-        err, pauli, cat2 = sample_gate_randoms(gen, batch, n_locs, p)
+        trials = trial_batch(gen, p, decs[0].maps, decs[1].maps, n_locs,
+                             batch)
         acc = []
-        for name, dec in zip("ZX", decs):
-            aug = augmented_bits(fault_bits(err, pauli, cat2, dec.maps,
-                                            name), dec.maps)
-            syn = aug[:, :dec.maps.num_syn].contiguous()
+        for name, dec in zip("zx", decs):
+            syn = trials[f"syndrome_{name}"]
             if level == 1:
-                acc.append(aug.sum())
+                acc.append(syn.sum() + trials[f"true_{name}"].sum())
                 continue
             bp = engine._bp_one_basis(syn, dec, maxIter)
             conv, hard, values = bp["converged"], bp["hard"], bp["values"]

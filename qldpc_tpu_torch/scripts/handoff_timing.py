@@ -75,11 +75,9 @@ def phase3_inputs(qt, engine, sampler, bp_lift_cuda, dev) -> tuple:
                                                           MAXITER),
                              osd_order=2, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err, pauli, cat2 = sampler.sample_gate_randoms(
-        gen, BATCH, circ.num_error_locs, P)
-    aug = sampler.augmented_bits(sampler.fault_bits(err, pauli, cat2,
-                                                    dec.maps, "Z"), dec.maps)
-    syn = aug[:, :dec.maps.num_syn].contiguous()
+    maps_x = sampler.make_trial_maps(circ, M, "X", device=dev)
+    syn = sampler.trial_batch(gen, P, dec.maps, maps_x, circ.num_error_locs,
+                              BATCH)["syndrome_z"]
     bp = bp_lift_cuda.decode_batch_lift_cuda(dec.lifted, syn, dec.prior,
                                              dec.alpha_seq, MAXITER)
     fail = ~bp["converged"]

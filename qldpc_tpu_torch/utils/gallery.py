@@ -388,7 +388,7 @@ def fig_complete_pipeline(out_dir):
     stages = [
         ("torch.Generator", "one stream a shard"),
         ("Pauli sampling", "(B, locs) categorical"),
-        ("signature matmul", "bits @ A mod 2 (float32)"),
+        ("syndromes", "CUDA kernel S1: XOR of rows"),
         ("min-sum BP", "CUDA kernel K1 (or K3)"),
         ("sort by residual", "unconverged first"),
         ("OSD fallback", "CUDA kernel K2: GF(2) elim."),

@@ -117,7 +117,7 @@ def test_basis_from_jax_round_trip(built, basis):
                  "alpha_seq", "basis_cols"):
         a, b = getattr(conv, name), getattr(own, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
-    for name in ("sel", "gate_loc", "A_loc_T"):
+    for name in ("sel", "gate_loc", "sig_ptr", "sig_row"):
         assert torch.equal(getattr(conv.maps, name),
                            getattr(own.maps, name)), name
     assert (conv.maps.num_syn, conv.maps.k) == (own.maps.num_syn, own.maps.k)

@@ -6,6 +6,8 @@ ways: fault bits and augmented signatures bit-exact given the same
 trial of the port's draws equal to the explicit gate-walk oracle (the
 port's copy, held against the JAX package's in test_torch_utils.py).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -56,16 +58,50 @@ def test_fault_and_augmented_bits_bit_exact(setup72, basis):
     assert jbits.any() and jaug.any()
 
 
+def _expanded(M, basis):
+    """The builder's (R, L) signature matrix, one class column a location."""
+    full = M["HZ_full"] if basis == "Z" else M["HX_full"]
+    return full[:, M[f"{basis.lower()}_loc_class"]]
+
+
 def test_signature_counts_exact_above_256(setup72):
     """Every location faulted at once: per-row counts exceed what bf16 can
     hold, and the float32 product must still give the exact parity."""
     code, circ, M, _, _ = setup72
     maps = sampler.make_trial_maps(circ, M, "Z", device="cpu")
-    A = maps.A_loc_T.numpy().astype(np.int64)                  # (R, L)
+    A = _expanded(M, "Z").astype(np.int64)                     # (R, L)
     assert A.sum(1).max() > 256
     ones = torch.ones((A.shape[1], 2), dtype=torch.bool)
     aug = sampler.augmented_bits(ones, maps)
     assert np.array_equal(aug[0].numpy(), (A.sum(1) % 2).astype(np.int8))
+
+
+@pytest.mark.parametrize("basis", ["Z", "X"])
+def test_signature_held_once_as_csr(setup72, basis):
+    """The tables make_trial_maps builds from the class matrix equal the
+    CSR of the expanded (R, L) matrix, found by np.nonzero and by
+    trial_maps_from_arrays; and the maps hold no dense copy of it."""
+    code, circ, M, _, _ = setup72
+    maps = sampler.make_trial_maps(circ, M, basis, device="cpu")
+    A = _expanded(M, basis)
+    R, L = A.shape
+    assert (R, L) == (maps.num_syn + maps.k, maps.num_locations)
+    loc, row = np.nonzero(A.T)
+    ptr = np.searchsorted(loc, np.arange(L + 1))
+    assert np.array_equal(maps.sig_ptr.numpy(), ptr)
+    assert np.array_equal(maps.sig_row.numpy(), row)
+    dense = sampler.trial_maps_from_arrays(maps.sel.numpy(),
+                                           maps.gate_loc.numpy(), A.T,
+                                           maps.num_syn, maps.k, "cpu")
+    for f in dataclasses.fields(sampler.TrialMaps):
+        a, b = getattr(maps, f.name), getattr(dense, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    held = sum(t.numel() * t.element_size() for t in vars(maps).values()
+               if isinstance(t, torch.Tensor))
+    assert held < R * L * 4 / 10, (held, R * L * 4)
 
 
 def test_sample_gate_randoms_distribution():
@@ -114,8 +150,8 @@ def test_port_trial_matches_oracle(setup72):
 
 # S1's tables and algorithm (csrc/trial_syndromes.cu runs only on a card)
 def _decode_tables(maps):
-    """(sel, gate_loc, A_loc_T) rebuilt with NumPy from S1's tables, and
-    each elementary location's count of entries."""
+    """(sel, gate_loc, A) rebuilt with NumPy from S1's tables, A the (R, L)
+    signature matrix, and each elementary location's count of entries."""
     ptr, entry = maps.loc_ptr.numpy(), maps.loc_entry.numpy()
     L = maps.num_locations
     sel = np.full(L, -1, np.int64)
@@ -127,7 +163,7 @@ def _decode_tables(maps):
             sel[loc], gate_loc[loc] = e & 3, g
             seen[loc] += 1
     sptr, rows = maps.sig_ptr.numpy(), maps.sig_row.numpy()
-    A = np.zeros((maps.A_loc_T.shape[0], L), np.float32)
+    A = np.zeros((maps.num_syn + maps.k, L), np.int64)
     for loc in range(L):
         A[rows[sptr[loc]:sptr[loc + 1]], loc] = 1
     return sel, gate_loc, A, seen
@@ -141,7 +177,7 @@ def test_s1_tables_decode_to_the_plain_maps(setup72, basis):
     assert (seen == 1).all()                   # every location once
     assert np.array_equal(sel, maps.sel.numpy())
     assert np.array_equal(gate_loc, maps.gate_loc.numpy())
-    assert np.array_equal(A, maps.A_loc_T.numpy())
+    assert np.array_equal(A, _expanded(M, basis))
     assert len(maps.loc_ptr) - 1 == gate_loc.max() + 1 \
         <= circ.num_error_locs
     for t in (maps.loc_ptr, maps.loc_entry, maps.sig_ptr, maps.sig_row):
@@ -168,7 +204,7 @@ def _s1_emulated(err, pauli, cat2, maps_z, maps_x):
         flips += int(flipped.sum())
         sptr, rows = maps.sig_ptr.numpy(), maps.sig_row.numpy()
         owner = np.repeat(np.arange(maps.num_locations), np.diff(sptr))
-        R = maps.A_loc_T.shape[0]
+        R = maps.num_syn + maps.k
         aug = np.stack([np.bincount(rows[f[owner]], minlength=R) & 1
                         for f in flipped]).astype(np.int8)
         out[f"syndrome_{basis}"] = aug[:, :maps.num_syn]
