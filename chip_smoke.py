@@ -15,12 +15,16 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases: (1) device and build of all nine kernels (an eliminator, G1 or
-P1 instance that spills fails), (2) the sampling kernel S1 vs its plain
+Phases: (1) device and build of all ten kernels (an eliminator, G1, P1
+or R1 instance that spills fails), (2) the sampling kernel S1 vs its plain
 version (fault bits and the float32 signature product, both frames) bit
 for bit, with its time beside its byte bound and the two products alone,
 then flooding BP kernel
 K1 vs its plain version, with its registers, state bytes and shots per SM,
+then the BP residual kernel R1 vs its plain version (the float32 product)
+bit for bit on K1's hard decisions of a pool of 4x1024 shots, both bases,
+with its time alone beside its byte bound, the plain version's and the
+product's,
 (3) GF(2) elimination kernel K2 on G1's column pack vs its plain
 (words-major) version at the stage-1, prefix and full widths, with and
 without the reduced matrix, with its launch shape, its time per column
@@ -29,8 +33,10 @@ step and the share of its load and store, its device-memory branch
 launch, and K2
 at [[288,12,18]] (B=37, three row words a lane, device memory) vs its plain
 version at stage 1, the prefix and the basis rerun's width (the prefix with
-the column basis appended), (4) main path (flooding, S1 + K1 + K2; one S1
-launch a round), (5) layered
+the column basis appended), (4) main path (flooding, S1 + K1 + R1 + K2;
+one S1 launch a round, one R1 launch a basis; its flags equal to those of
+the same dispatch through every plain version, which launches no kernel),
+(5) layered
 BP kernel K3 vs its plain version and vs K1 on the same syndromes, with
 K3's shape and ms per sweep, then K1's and K3's device-memory branch
 (forced) vs their shared-memory launches, and K1 and K3 at [[288,12,18]]
@@ -71,7 +77,8 @@ and with tanh BP (K2 and no K1), (15) the multi-code path at full width
 prefix, full width) of each code against their plain versions, one pooled
 multi-code dispatch against each code's own dispatch on the same seeds,
 run_multi_code_simulation to 200 errors a code against the JAX records
-(VALIDATION.md:15, :17) within 3 sigma, launching K1 and K2 only, and a
+(VALIDATION.md:15, :17) within 3 sigma, launching K1, R1 and K2 only
+(R1 once a basis and code a dispatch), and a
 fixed three-dispatch run for the steady shots/s, (16) the shot mesh on the
 card: multihost_smoke --device cuda (two processes sharing the card in one
 gloo group against one process holding two shards, dynamical and
@@ -80,8 +87,8 @@ all_gather and broadcast on CUDA tensors) equals the run without a group,
 (17) BatchDecoder at the bench configuration: phase 4's dispatch randoms
 decoded through BatchDecoder.decode in each basis (batch_size 1024), with
 the flooding and the layered schedule, equal to the pooled dispatches of
-phases 4 and 7 shot for shot (error, converged, rank_deficient), K1 or K3
-and K2 alone, (18) run_code_capacity on the Steane code (p=0.005, 10,000
+phases 4 and 7 shot for shot (error, converged, rank_deficient), K1 or K3,
+R1 and K2 alone, (18) run_code_capacity on the Steane code (p=0.005, 10,000
 shots: LER < 0.01, converged > 0.9) and the code-capacity round on the
 card against the CPU on the same draws (Steane, and [[144,12,12]]'s Hz
 with Lx at p=0.05, B=1024; K2 launched), (19) bench_cuda.py as a
@@ -295,11 +302,11 @@ def main():
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-            # the eliminators K2, K4, K5, G1 and P1 must not spill in any
-            # instantiation
+            # the eliminators K2, K4, K5, G1, P1 and R1 must not spill in
+            # any instantiation
             spills = re.findall(r"(\d+) bytes spill", line)
             if (name.startswith("gf2_elim")
-                    or name in ("gather_iter", "gather_pack")) \
+                    or name in ("gather_iter", "gather_pack", "bp_residual")) \
                     and any(int(x) for x in spills):
                 fail(f"phase 1: {name} spills: {line.strip()}")
 
@@ -319,7 +326,7 @@ def main():
                     k5=osd_cuda.eliminate_blocks_pair,
                     g1=osd_cuda.gather_pack,
                     p1=gather.gather_iterate, p2=gather.take_along,
-                    s1=trial_syndromes)
+                    s1=trial_syndromes, r1=osd_cuda.bp_residual)
 
     def reset_counts():
         for w in wrappers.values():
@@ -420,12 +427,60 @@ def main():
               f"{k1[basis]['converged']}/{BATCH} converged, mean "
               f"{k1[basis]['mean_iters']:.2f} iterations", flush=True)
 
+    # R1 against its plain version on K1's hard decisions of a pool of RPD
+    # rounds, as the pooled OSD reads them (its own generator: the phases
+    # below draw from gen as before)
+    POOL = RPD * BATCH
+    pool_syn = trial_syndromes(*sample_gate_randoms(
+        torch.Generator(device=dev).manual_seed(SEED + 2), POOL, n_locs, P),
+        *maps)
+    r1 = {}
+    for basis, dec in zip("ZX", decs):
+        syn = pool_syn[f"syndrome_{basis.lower()}"]
+        hard = bp_lift_cuda.decode_batch_lift_cuda(
+            dec.lifted, syn, dec.prior, dec.alpha_seq, MAXITER)["hard"]
+        index = dec.col_index
+        got = osd_cuda.bp_residual(syn, hard, dec.HT, index)
+        torch.cuda.synchronize()
+        for nm, g, w in zip(("residual", "weight"), got,
+                            osd_cuda.bp_residual_plain(syn, hard, dec.HT)):
+            if not torch.equal(g, w):
+                fail(f"phase 2: R1 {nm} differs from the plain version "
+                     f"(basis {basis})")
+        hard_f = hard.to(torch.float32)  # the product's input, untimed
+        # the least R1 moves: the hard decision and the syndrome read once,
+        # the residual and the weight written once, H's CSC read once
+        kb, bb = bound(nbytes(hard, syn, *got, index.colptr, index.rows), 0)
+        r1[basis] = dict(
+            ms=cuda_ms(lambda: osd_cuda.bp_residual(syn, hard, dec.HT,
+                                                    index), 20),
+            kernel_ms=gather_timing.graph_ms(
+                lambda: osd_cuda.bp_residual(syn, hard, dec.HT, index), 50,
+                dev),
+            plain_ms=gather_timing.graph_ms(
+                lambda: osd_cuda.bp_residual_plain(syn, hard, dec.HT), 5,
+                dev),
+            # the float32 product the round ran twice a basis before R1
+            library_ms=gather_timing.graph_ms(lambda: hard_f @ dec.HT, 5,
+                                              dev),
+            bound_ms=kb, bound_by=bb,
+            hard_ones_per_shot=int((hard & 1).sum()) / POOL)
+        del hard_f
+        r = r1[basis]
+        print(f"phase 2: R1 basis {basis} at {CODE} (B={POOL}): exact; "
+              f"{r['ms']:.4f} ms a call, {r['kernel_ms']:.4f} ms alone "
+              f"(bound {kb:.4f} ms by {bb}), plain {r['plain_ms']:.3f} ms, "
+              f"the float32 product alone {r['library_ms']:.3f} ms; "
+              f"{r['hard_ones_per_shot']:.1f} set columns a shot",
+              flush=True)
+    del pool_syn
+
     # ---- phase 3: K2 against its plain version ----
     dec = decs[0]
     syn_f, vals_f, hard_f = failed["Z"]
     m, K, KT_basis = dec.H.shape[0], dec.K, dec.basis_cols.shape[0]
-    residual = (syn_f.to(torch.int32)
-                ^ ((hard_f.float() @ dec.HT).to(torch.int32) & 1))
+    residual = osd_cuda.bp_residual(syn_f, hard_f, dec.HT,
+                                    dec.col_index)[0]
     cols = torch.sort(vals_f.abs(), dim=1, stable=True).indices[:, :K]
     HT_u8 = dec.H.T.contiguous()
     Rp = -(-KT_basis // 32) * 32
@@ -746,30 +801,41 @@ def main():
             osd_cuda.columns_to_words(Hp, s.shape[1]), s, K, m, **kw)
         return out if want_matrix else (None,) + out[1:]
 
+    def residual_plain(syndrome, hard, HT, index):
+        """R1's plain version on R1's arguments."""
+        return osd_cuda.bp_residual_plain(syndrome, hard, HT)
+
     @contextlib.contextmanager
     def plain_versions():
         saved = (engine.decode_batch_lift_cuda,
                  engine.decode_batch_lift_layered_cuda, osd.eliminate_blocks,
-                 osd.gather_pack, sampler.trial_syndromes)
+                 osd.gather_pack, sampler.trial_syndromes,
+                 engine.bp_residual, osd.bp_residual)
         sampler.trial_syndromes = trial_syndromes_plain
         engine.decode_batch_lift_cuda = bp_lift_cuda.decode_batch_lift_plain
         engine.decode_batch_lift_layered_cuda = \
             bp_lift_layered_cuda.decode_batch_lift_layered_plain
         osd.eliminate_blocks = eliminate_plain_from_columns
         osd.gather_pack = osd_cuda.gather_pack_plain
+        engine.bp_residual = osd.bp_residual = residual_plain
         try:
             yield
         finally:
             (engine.decode_batch_lift_cuda,
              engine.decode_batch_lift_layered_cuda,
              osd.eliminate_blocks, osd.gather_pack,
-             sampler.trial_syndromes) = saved
+             sampler.trial_syndromes, engine.bp_residual,
+             osd.bp_residual) = saved
 
+    reset_counts()
     t0 = time.time()
     with plain_versions():
         out_p = fn(None, randoms=randoms)
     torch.cuda.synchronize()
     plain_dispatch_s = time.time() - t0
+    if any(counts().values()):
+        fail(f"phase 4: the dispatch through the plain versions launched "
+             f"kernels: {counts()}")
     for key, v in out_k.items():
         if v.shape != (RPD * BATCH,) or not torch.equal(v, out_p[key]):
             fail(f"phase 4: pooled dispatch flag {key} differs between the "
@@ -777,8 +843,9 @@ def main():
     print(f"phase 4: pooled dispatch ({RPD}x{BATCH} shots) identical "
           f"through kernels ({dispatch_s:.2f} s) and plain versions "
           f"({plain_dispatch_s:.2f} s); launches per dispatch "
-          f"S1 {per_dispatch['s1']} K1 {per_dispatch['k1']} K2 "
-          f"{per_dispatch['k2']} G1 {per_dispatch['g1']}; BP converged "
+          f"S1 {per_dispatch['s1']} K1 {per_dispatch['k1']} R1 "
+          f"{per_dispatch['r1']} K2 {per_dispatch['k2']} G1 "
+          f"{per_dispatch['g1']}; BP converged "
           f"z {int(out_k['z_conv'].sum())} x {int(out_k['x_conv'].sum())} "
           f"of {RPD * BATCH}", flush=True)
 
@@ -801,13 +868,17 @@ def main():
           f"(z {(ler - ARCHIVE_LER) / sig:+.2f} vs the reference archive "
           f"{ARCHIVE_LER:.3f}, maxIter unrecorded), {res['shots_per_sec']:.1f}"
           f" shots/s, {res['osd_rank_deficient_shots']} rank-deficient "
-          f"shot-bases; launches S1 {launches['s1']} K1 {launches['k1']} K2 "
-          f"{launches['k2']} G1 {launches['g1']}", flush=True)
+          f"shot-bases; launches S1 {launches['s1']} K1 {launches['k1']} R1 "
+          f"{launches['r1']} K2 {launches['k2']} G1 {launches['g1']}",
+          flush=True)
     if per_dispatch["s1"] != RPD:
         fail(f"phase 4: the pooled dispatch launched S1 "
              f"{per_dispatch['s1']} times, not once a round ({RPD})")
+    if per_dispatch["r1"] != 2:
+        fail(f"phase 4: the pooled dispatch launched R1 "
+             f"{per_dispatch['r1']} times, not once a basis")
     if launches["s1"] <= 0 or launches["k1"] <= 0 or launches["k2"] <= 0 \
-            or launches["g1"] <= 0:
+            or launches["g1"] <= 0 or launches["r1"] <= 0:
         fail(f"phase 4: main path did not launch every kernel: {launches}")
     if launches["k3"] or launches["k4"] or launches["k5"]:
         fail(f"phase 4: main path launched another path's kernel: "
@@ -1739,9 +1810,8 @@ def main():
                 k1_shape=bp_lift_cuda.flood_launch_info(d.lifted, dev))
             fail_b = ~a["converged"]
             m_c, K_c, R_c = d.H.shape[0], d.K, d.basis_cols.shape[0]
-            res_c = (syn[fail_b].to(torch.int32)
-                     ^ ((a["hard"][fail_b].float() @ d.HT).to(torch.int32)
-                        & 1))
+            res_c = osd_cuda.bp_residual(syn[fail_b], a["hard"][fail_b],
+                                         d.HT, d.col_index)[0]
             cols_c = torch.sort(a["values"][fail_b].abs(), dim=1,
                                 stable=True).indices
             HT_c = d.H.T.contiguous()
@@ -1821,8 +1891,8 @@ def main():
                      "multi-code dispatch and its own dispatch")
     print(f"phase 15: one multi-code dispatch ({RPD}x{BATCH} shots a code) "
           f"in {mc_dispatch_s:.2f} s equals each code's own pooled dispatch "
-          f"on the same seeds; launches S1 {c_mc['s1']} K1 {c_mc['k1']} K2 "
-          f"{c_mc['k2']}; "
+          f"on the same seeds; launches S1 {c_mc['s1']} K1 {c_mc['k1']} R1 "
+          f"{c_mc['r1']} K2 {c_mc['k2']}; "
           "BP converged " + ", ".join(
               f"{n} z {int(o['z_conv'].sum())} x {int(o['x_conv'].sum())}"
               for n, o in zip(MC_CODES, out_mc)), flush=True)
@@ -1844,9 +1914,13 @@ def main():
     if c_mc["s1"] != RPD * len(MC_CODES):
         fail(f"phase 15: the multi-code dispatch launched S1 {c_mc['s1']} "
              f"times, not once a round and code")
-    if launches_mc["k1"] <= 0 or launches_mc["k2"] <= 0 or any(
-            v for k, v in launches_mc.items()
-            if k not in ("k1", "k2", "g1", "s1")):
+    if c_mc["r1"] != 2 * len(MC_CODES):
+        fail(f"phase 15: the multi-code dispatch launched R1 {c_mc['r1']} "
+             f"times, not once a basis and code")
+    if launches_mc["k1"] <= 0 or launches_mc["k2"] <= 0 \
+            or launches_mc["r1"] <= 0 or any(
+                v for k, v in launches_mc.items()
+                if k not in ("k1", "k2", "g1", "s1", "r1")):
         fail(f"phase 15: the multi-code run did not run K1 and K2 alone: "
              f"{launches_mc}")
     for name in MC_CODES:
@@ -1990,8 +2064,10 @@ def main():
                     fail(f"phase 17: BatchDecoder({variant}) {name} differs "
                          f"from the pooled dispatch's {key} in basis "
                          f"{b.upper()}")
-        if c17[bp_key] <= 0 or c17["k2"] <= 0 or c17["g1"] <= 0 or any(
-                v for k, v in c17.items() if k not in (bp_key, "k2", "g1")):
+        if c17[bp_key] <= 0 or c17["k2"] <= 0 or c17["g1"] <= 0 \
+                or c17["r1"] <= 0 or any(
+                    v for k, v in c17.items()
+                    if k not in (bp_key, "k2", "g1", "r1")):
             fail(f"phase 17: BatchDecoder({variant}) did not run "
                  f"{bp_key.upper()} and K2 alone: {c17}")
         api[variant] = dict(shots_per_s=RPD * BATCH / api_s, launches=c17)
@@ -2018,8 +2094,9 @@ def main():
           f"{cap['shots_per_sec']:.1f} shots/s; launches K2 {c18['k2']}",
           flush=True)
     if not (cap["num_shots"] == 10_000 and cap["logical_error_rate"] < 0.01
-            and cap["converged_rate"] > 0.9) or c18["k2"] <= 0 or any(
-                v for k, v in c18.items() if k not in ("k2", "g1")):
+            and cap["converged_rate"] > 0.9) or c18["k2"] <= 0 \
+            or c18["r1"] <= 0 or any(
+                v for k, v in c18.items() if k not in ("k2", "g1", "r1")):
         fail(f"phase 18: implausible code-capacity result {cap} or launches "
              f"{c18}")
     code_cap = dict(steane_shots_per_s=cap["shots_per_sec"],
@@ -2215,9 +2292,9 @@ def main():
                     fail(f"phase 21: {name} p={p21}: "
                          f"{res21['osd_rank_deficient_shots']} "
                          "rank-deficient shot-bases")
-                if c[bp21] <= 0 or c["k2"] <= 0 or any(
+                if c[bp21] <= 0 or c["k2"] <= 0 or c["r1"] <= 0 or any(
                         v for k, v in c.items()
-                        if k not in (bp21, "k2", "g1", "s1")):
+                        if k not in (bp21, "k2", "g1", "s1", "r1")):
                     fail(f"phase 21: {name} {variant} did not run "
                          f"{bp21.upper()} and K2 alone: {c}")
     finally:
@@ -2525,7 +2602,10 @@ def main():
         """``main_fn(argv)`` on the card with its output captured; fails
         unless it printed the card's line first and a result line last and
         launched the kernels ``want`` (keys of counts()) and no other
-        decoder kernel (S1 runs wherever the entry point samples)."""
+        decoder kernel (S1 runs wherever the entry point samples; R1 forms
+        the residual wherever G1 packs an OSD input, so ``want`` with G1
+        wants R1 too)."""
+        want = set(want) | ({"r1"} if "g1" in want else set())
         reset_counts()
         buf = io.StringIO()
         t0 = time.time()
@@ -3225,11 +3305,27 @@ def main():
              multicode_launches=launches_mc["s1"],
              validate_ler_launches=sum(c["s1"]
                                        for c in launches_sw.values())),
+        dict(name="bp_residual_kernel", route="cuda",
+             source="qldpc_tpu_torch/csrc/bp_residual.cu",
+             replaces="qldpc_tpu/parallel/engine.py:236",
+             launches=launches["r1"], max_abs_err=0.0, ms=r1["Z"]["ms"],
+             kernel_ms=r1["Z"]["kernel_ms"], plain_ms=r1["Z"]["plain_ms"],
+             bound_ms=r1["Z"]["bound_ms"], bound_by=r1["Z"]["bound_by"],
+             library_ms=r1["Z"]["library_ms"],
+             at_basis={b: {k: v for k, v in r.items() if k != "bound_by"}
+                       for b, r in r1.items()},
+             launches_per_dispatch=per_dispatch["r1"],
+             multicode_launches=launches_mc["r1"],
+             multicode_launches_per_dispatch=c_mc["r1"],
+             batch_decoder_launches=api["minsum"]["launches"]["r1"],
+             code_capacity_launches=c18["r1"],
+             validate_ler_launches=sum(c["r1"]
+                                       for c in launches_sw.values())),
     ]
     keys23 = dict(bp_flood_kernel="k1", gf2_elim_kernel="k2",
                   bp_layered_kernel="k3", gf2_elim_fused_kernel="k4",
                   gf2_elim_pair_kernel="k5", gather_pack_kernel="g1",
-                  trial_syndromes_kernel="s1")
+                  trial_syndromes_kernel="s1", bp_residual_kernel="r1")
     for kd in kernels:
         if kd["name"] in keys23:
             kd["entry_point_launches"] = {

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 SOURCES = ("bp_lift_flood", "bp_lift_layered", "gf2_elim", "gf2_elim_fused",
            "gf2_elim_pair", "gather_pack", "gather_iter", "take_along",
-           "trial_syndromes")
+           "trial_syndromes", "bp_residual")
 # shared memory one H100 block may opt in to (227 KB), in bytes
 SMEM_PER_BLOCK = 232448
 

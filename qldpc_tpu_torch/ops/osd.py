@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from . import osd_cuda
-from .osd_cuda import (_gather_pack, _to_int32, column_index,
+from .osd_cuda import (_gather_pack, _to_int32, bp_residual, column_index,
                        eliminate_blocks, gather_pack)
 from ..utils import telemetry
 
@@ -151,13 +151,14 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
               basis_cols=None, logical_pack=None,
               return_solution: bool = True, stage1_cols: int = None,
               n_live=None, reprocess_slice: int = None, col_index=None,
-              stop_after: str = None):
+              stop_after: str = None, residual=None):
     """Batched OSD post-processing of failed-BP shots.
 
     Args:
       H: (m, n) uint8 dense decoding matrix (class-level).
-      HT: (n, m) float32 transpose of H (for the residual matmul).
-      syndrome: (B, m) 0/1 target syndromes.
+      HT: (n, m) float32 transpose of H (the residual's plain version).
+      syndrome: (B, m) 0/1 target syndromes (unread when ``residual`` is
+        given).
       llr: (B, n) f32 posterior LLRs from BP.
       hard: (B, n) int8 BP hard decisions (starting point).
       K: column budget for the elimination (multiple of 32 with basis_cols).
@@ -185,12 +186,16 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
       reprocess_slice: shots the order-w reprocess holds (the failed ones
         first); None = all B, which never overflows.
       col_index: the :class:`~qldpc_tpu_torch.ops.osd_cuda.ColumnIndex` of
-        H that G1 reads; None builds it here (a host copy of H: callers in
-        a loop pass it).
+        H that G1 and R1 read; None builds it here where a kernel needs it
+        (a host copy of H: callers in a loop pass it).
       stop_after: one of :data:`PREFIXES`: return the stage's outputs (a
         tuple of tensors) right after it, for timing the pipeline's
         prefixes (use_blocks only past "sort"; "tail" is "stage1"'s when
         the scan is single-stage). None runs the whole OSD.
+      residual: optional (B, m) int32, the BP residual syndrome
+        ``syndrome ^ H @ hard`` as ``osd_cuda.bp_residual`` gives it (a
+        caller that already computed it for these shots passes their rows);
+        None computes it here, with R1 on CUDA tensors.
 
     The block shape (use_blocks): every eliminator launch asks
     ``osd_cuda.pick_block_shots`` for its shots a block at its width, where
@@ -211,7 +216,8 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     branch. Consumed outputs do not depend on the block shape.
 
     Telemetry (utils/telemetry.py): each step runs in its span,
-    ``osd.prep`` (residual, reliability sort, the columns), ``osd.stage1``,
+    ``osd.prep`` (residual, unless given, with its counter
+    ``osd.hard_ones``; reliability sort, the columns), ``osd.stage1``,
     ``osd.tail``, ``osd.basis`` (each step's G1 pack, eliminator and
     merge; a single-stage scan is ``osd.stage1``), ``osd.osd0`` (the
     OSD-0 scatter and validity), ``osd.reprocess`` (with the failed count
@@ -233,10 +239,15 @@ def osd_batch(H, HT, syndrome, llr, hard, K: int, order: int = 0,
     live = None if n_live is None or not use_blocks else lane < n_live
 
     with telemetry.span("osd.prep"):
-        # residual syndrome the correction must reproduce; float32 keeps the
-        # counts exact (see ops/sampler.py)
-        hard_syn = (hard.to(torch.float32) @ HT).to(i32) & 1
-        residual = syndrome.to(i32) ^ hard_syn                   # (B, m)
+        # residual syndrome the correction must reproduce
+        if residual is None:
+            if col_index is None and dev.type == "cuda":
+                col_index = column_index(H)
+            residual = bp_residual(syndrome, hard, HT, col_index)[0]
+        elif residual.shape != (B, m):
+            raise ValueError(f"residual {tuple(residual.shape)}, need "
+                             f"{(B, m)}")
+        residual = residual.to(i32)                              # (B, m)
         if stop_after == "residual":
             return (residual,)
         if stop_after not in (None,) + PREFIXES or (

@@ -1,5 +1,8 @@
 """Batched bit-packed GF(2) elimination: CUDA kernels K2, K4, K5 and their
-plain twins; and the gather-pack that builds their input, kernel G1.
+plain twins; the gather-pack that builds their input, kernel G1; and the
+BP residual syndrome they eliminate against, kernel R1 (:func:`bp_residual`,
+``csrc/bp_residual.cu``: each shot's hard decision's set columns XORed from
+the same CSC that G1 reads, in place of a float32 product on 0/1 operands).
 
 ``eliminate_blocks`` has the signature and outputs of the JAX package's
 ``osd_pallas.eliminate_blocks``, but takes its matrix in the eliminators'
@@ -369,6 +372,71 @@ def _gather_pack_lib():
                                            I, I, I, I, P]
         lib.gather_pack_launch.restype = I
     return lib
+
+
+def bp_residual_plain(syndrome, hard, HT) -> tuple:
+    """Plain version of R1: ``syndrome ^ (hard @ HT) & 1`` as a float32
+    product (exact: its counts stay below 2^24, see ops/sampler.py) and its
+    weight, the row sums; counts the odd bytes of ``hard`` as
+    ``osd.hard_ones`` when telemetry is on."""
+    if telemetry.enabled():
+        telemetry.count("osd.hard_ones", (hard.to(torch.int8) & 1).sum())
+    hard_syn = (hard.to(torch.float32) @ HT).to(torch.int32) & 1
+    residual = syndrome.to(torch.int32) ^ hard_syn
+    return residual, residual.sum(1, dtype=torch.int32)
+
+
+def bp_residual(syndrome, hard, HT, index: ColumnIndex) -> tuple:
+    """Kernel R1 (``csrc/bp_residual.cu``): the BP residual syndrome that
+    an OSD correction must reproduce, ``syndrome ^ H @ hard`` over GF(2),
+    (B, m) int32, and its weight (B,) int32, from the hard decision
+    ``hard`` (B, n) (its bytes' low bits) and ``syndrome`` (B, m) int8.
+    CUDA tensors launch the kernel on ``index``, H's
+    :class:`ColumnIndex`; CPU tensors run :func:`bp_residual_plain` on
+    ``HT`` (n, m) float32, H's transpose. The two agree bit for bit. With
+    telemetry on, the kernel also counts the set columns it scanned into a
+    device int64, ``osd.hard_ones``. ``bp_residual.launches`` counts the
+    launches."""
+    if hard.device.type == "cpu":
+        return bp_residual_plain(syndrome, hard, HT)
+    if hard.device.type != "cuda":
+        raise ValueError(f"unsupported device {hard.device}")
+    if index is None or index.colptr.device != hard.device:
+        raise ValueError(f"R1 needs H's column index on {hard.device}")
+    B, n = hard.shape
+    m = index.m
+    if syndrome.shape != (B, m) or index.colptr.shape[0] != n + 1:
+        raise ValueError(f"hard {tuple(hard.shape)} and syndrome "
+                         f"{tuple(syndrome.shape)} against a ({m}, "
+                         f"{index.colptr.shape[0] - 1}) matrix")
+    hard = hard.to(torch.int8).contiguous()
+    syndrome = syndrome.to(torch.int8).contiguous()
+    residual = torch.empty((B, m), dtype=torch.int32, device=hard.device)
+    weight = torch.empty(B, dtype=torch.int32, device=hard.device)
+    ones = None
+    if telemetry.enabled():
+        ones = torch.zeros(1, dtype=torch.int64, device=hard.device)
+    _kernels.check(_r1_launch()(
+        hard.data_ptr(), syndrome.data_ptr(), index.colptr.data_ptr(),
+        index.rows.data_ptr(), B, n, m, residual.data_ptr(),
+        weight.data_ptr(), None if ones is None else ones.data_ptr(),
+        _kernels.stream_ptr(hard.device)), "bp_residual_launch")
+    bp_residual.launches += 1
+    if ones is not None:
+        telemetry.count("osd.hard_ones", ones)
+    return residual, weight
+
+
+bp_residual.launches = 0
+
+
+@functools.cache
+def _r1_launch():
+    fn = _kernels.load("bp_residual").bp_residual_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 4 + [I] * 3 + [P] * 4
+    fn.restype = I
+    return fn
 
 
 def _check_inputs(Hp, s, K: int, m: int):

@@ -7,8 +7,8 @@ SCOPT beta, reported), BP, pooled, residual-sorted OSD with the staged
 eliminator, logical readout, and exact sequential stopping.
 One decode round = ``batch`` shots: sample gate faults -> their syndromes
 (kernel S1, ops/sampler.py) -> BP -> OSD on the shots BP did not converge
-(kernel K2, or K4 / K5 under ``QLDPC_OSD_KERNEL=2`` / ``3``, see
-ops/osd_cuda.py) -> logical comparison.
+(the BP residual by kernel R1, then K2, or K4 / K5 under
+``QLDPC_OSD_KERNEL=2`` / ``3``, see ops/osd_cuda.py) -> logical comparison.
 BP is dispatched as in the JAX package: on a lifted graph with damping 1,
 kernel K1 (flooding, ``bp_variant="minsum"``) or K3 (``"layered"``);
 damped on a lifted graph, the roll decoder (ops/bp_lift.py); tanh BP and
@@ -58,7 +58,8 @@ from ..ops.bp_lift_cuda import decode_batch_lift_cuda
 from ..ops.bp_lift_layered_cuda import decode_batch_lift_layered_cuda
 from ..ops import osd
 from ..ops.osd import choose_K, osd_batch
-from ..ops.osd_cuda import ColumnIndex, column_index, column_stride
+from ..ops.osd_cuda import (ColumnIndex, bp_residual, column_index,
+                            column_stride)
 from ..ops.sampler import TrialMaps, make_trial_maps, trial_batch
 from ..utils import telemetry
 from .mesh import (ShotMesh, broadcast_from_rank0, gather_flags, generator,
@@ -107,7 +108,7 @@ class BasisDecoder:
     lifted: Optional[LiftedGraph]  # circulant-structured BP layout
                                    # (ops/bp_lift.py); None without a lift
     H: torch.Tensor            # (m, n) uint8 decoding matrix
-    HT: torch.Tensor           # (n, m) float32
+    HT: torch.Tensor           # (n, m) float32 (R1's plain version)
     H_logical: torch.Tensor    # (n, k) float32 — logical action per column
     logical_pack: torch.Tensor  # (n,) int32 — the same action bit-packed
     prior: torch.Tensor        # (n,) float32
@@ -116,7 +117,7 @@ class BasisDecoder:
     K: int
     num_test: int
     rank: int                  # GF(2) rank of H (OSD early-exit target)
-    col_index: ColumnIndex     # H's columns as the gather-pack G1 reads them
+    col_index: ColumnIndex     # H's columns as G1 and R1 read them
 
 
 def _make_basis(circ, matrices, basis: str, alpha_seq, clip_channel=50.0,
@@ -227,7 +228,9 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
 
     Shots are sorted unconverged-first and by BP-residual weight
     (syndrome ^ H@hard) within the unconverged, so shots of similar
-    difficulty share an elimination launch. Every chunk of ``chunk`` shots
+    difficulty share an elimination launch. The residual is computed once
+    for the batch (kernel R1 on the card, ``osd_cuda.bp_residual``) and each
+    chunk's rows are handed to ``osd_batch``. Every chunk of ``chunk`` shots
     is issued, as the JAX package's unrolled ``lax.cond`` chunks are, with
     its count of unconverged shots, ``clamp(n_fail - c0, 0, chunk)``, on
     the device: a chunk of converged shots launches G1 and the eliminator
@@ -236,16 +239,16 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
     Per-shot OSD outputs do not depend on how shots are grouped, so the
     flags equal the JAX package's.
 
-    Telemetry (utils/telemetry.py): spans ``osd.order``, ``osd.chunk`` (one
-    a chunk, with its first shot ``c0`` and its live count ``osd.live``)
-    and ``osd.merge``; the unconverged count ``osd.failed`` and
-    ``osd.chunks_issued`` go to the span the caller opened (``osd``)."""
+    Telemetry (utils/telemetry.py): spans ``osd.order`` (with R1's
+    ``osd.hard_ones``: the set columns of ``hard`` it scanned),
+    ``osd.chunk`` (one a chunk, with its first shot ``c0`` and its live
+    count ``osd.live``) and ``osd.merge``; the unconverged count
+    ``osd.failed`` and ``osd.chunks_issued`` go to the span the caller
+    opened (``osd``)."""
     B, m = syndrome.shape
     dev = syndrome.device
     with telemetry.span("osd.order"):
-        res_wt = (syndrome.to(torch.int32)
-                  ^ ((hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
-                  ).sum(1)
+        residual, res_wt = bp_residual(syndrome, hard, dec.HT, dec.col_index)
         order = torch.sort(torch.where(conv, m + 1, res_wt),
                            stable=True).indices
         n_fail = (~conv).sum()
@@ -260,7 +263,7 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
             idx = order[c0:c0 + chunk]
             n_live = (n_fail - c0).clamp(0, len(idx))
             telemetry.count("osd.live", n_live)
-            out = osd_batch(dec.H, dec.HT, syndrome[idx], values[idx],
+            out = osd_batch(dec.H, dec.HT, None, values[idx],
                             hard[idx], K=dec.K, order=osd_order,
                             num_test=dec.num_test, rank=dec.rank,
                             basis_cols=dec.basis_cols,
@@ -268,7 +271,7 @@ def _osd_fallback(syndrome, values, hard, conv, dec: BasisDecoder,
                             return_solution=False, n_live=n_live,
                             reprocess_slice=None if replay
                             else osd.REPROCESS_SLICE,
-                            col_index=dec.col_index)
+                            col_index=dec.col_index, residual=residual[idx])
         with telemetry.span("osd.merge"):
             delta.index_copy_(0, idx, out["logical_delta_packed"])
             rdef.index_copy_(0, idx, out["rank_deficient"])

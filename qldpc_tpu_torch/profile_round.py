@@ -53,8 +53,9 @@ gives device time only).
 ``--seed``), and reports the calibration's seconds. The script reads
 nothing of the engine beyond ``make_pooled_round_fn``, ``_osd_fallback``
 and the stage functions, so it also profiles an earlier checkout's package
-when copied into it. Prints a summary, and the full report as JSON to PATH
-when given.
+when copied into it (``--cumulative``'s residual sort also calls
+``osd_cuda.bp_residual``, R1). Prints a summary, and the full report as
+JSON to PATH when given.
 """
 from __future__ import annotations
 
@@ -239,9 +240,8 @@ def cumulative_fn(level: int, decs, n_locs: int, p: float, batch: int,
                 acc.append(conv.sum() + hard.sum() + values.sum())
                 continue
             if level == 3:
-                res_wt = (syn.to(torch.int32) ^ (
-                    (hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1)
-                          ).sum(1)
+                res_wt = osd_cuda.bp_residual(syn, hard, dec.HT,
+                                              dec.col_index)[1]
                 order = torch.sort(torch.where(conv, syn.shape[1] + 1,
                                                res_wt), stable=True).indices
                 acc.append(syn[order].sum() + values[order].sum()

@@ -175,8 +175,8 @@ def residual_order(dec, syndrome, values, hard) -> tuple:
     """The OSD's inputs as ``ops.osd.osd_batch`` forms them: the residual
     syndrome (B, m) int32 that the correction must reproduce and the
     columns in reliability order (B, n) (stable sort of |LLR|)."""
-    hard_syn = (hard.to(torch.float32) @ dec.HT).to(torch.int32) & 1
-    residual = syndrome.to(torch.int32) ^ hard_syn
+    from ..ops.osd_cuda import bp_residual
+    residual = bp_residual(syndrome, hard, dec.HT, dec.col_index)[0]
     return residual, torch.sort(values.abs(), dim=1, stable=True).indices
 
 

@@ -63,10 +63,12 @@ HOST_CALLS = 1000
 PROFILE_TOP = 8  # functions a host profile reports
 
 
-def phase3_inputs(qt, engine, sampler, bp_lift_cuda, dev) -> tuple:
+def phase3_inputs(qt, engine, sampler, bp_lift_cuda, osd_cuda,
+                  dev) -> tuple:
     """chip_smoke phase 3's basis-Z inputs: the decoder, the failed shots'
     columns in |LLR| order (prefix) and with the column basis appended
-    (full), and their residual syndromes."""
+    (full), and their residual syndromes (R1, ``osd_cuda.bp_residual``, as
+    the round computes them)."""
     from qldpc_tpu_torch.ops.bp import alpha_schedule
     code = qt.get_code("[[144, 12, 12]]")
     circ = qt.SyndromeCircuit(code, num_cycles=12)
@@ -82,8 +84,7 @@ def phase3_inputs(qt, engine, sampler, bp_lift_cuda, dev) -> tuple:
                                              dec.alpha_seq, MAXITER)
     fail = ~bp["converged"]
     syn_f, vals, hard = syn[fail], bp["values"][fail], bp["hard"][fail]
-    residual = (syn_f.to(torch.int32)
-                ^ ((hard.float() @ dec.HT).to(torch.int32) & 1))
+    residual = osd_cuda.bp_residual(syn_f, hard, dec.HT, dec.col_index)[0]
     cols = torch.sort(vals.abs(), dim=1, stable=True).indices[:, :dec.K]
     full = torch.cat([cols, dec.basis_cols[None].expand(
         len(cols), len(dec.basis_cols))], 1)
@@ -216,7 +217,7 @@ def main(argv=None) -> list:
         return launch, o
 
     dec, cols, full, residual = phase3_inputs(qt, engine, sampler,
-                                              bp_lift_cuda, dev)
+                                              bp_lift_cuda, osd_cuda, dev)
     m, K = dec.H.shape[0], dec.K
     index = dec.col_index
     widths = {"stage1": (cols[:, :256], 256, 256),

@@ -75,8 +75,8 @@ def plans(dec, B: int, device, block_shots=None, smem_budget=None) -> dict:
 def sorted_failed(dec, syn, bp):
     """(syndromes, posteriors, hard decisions) sorted unconverged first by
     residual weight (stable), the engine's order."""
-    hard_syn = (bp["hard"].to(torch.float32) @ dec.HT).to(torch.int32) & 1
-    res_wt = (syn.to(torch.int32) ^ hard_syn).sum(1)
+    res_wt = osd_cuda.bp_residual(syn, bp["hard"], dec.HT,
+                                  dec.col_index)[1]
     order = torch.sort(torch.where(bp["converged"], 10000, res_wt),
                        stable=True).indices
     return syn[order], bp["values"][order], bp["hard"][order]

@@ -1,5 +1,5 @@
-"""Kernels K1-K5, P1, P2 and S1 against their plain PyTorch versions on the GPU,
-the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
+"""Kernels K1-K5, P1, P2, S1 and R1 against their plain PyTorch versions on
+the GPU, the PyTorch-op paths (padded-CSR BP, damped and tanh rounds, the
 calibration histogram) against themselves on the CPU, and the multi-code
 and shot-mesh paths on the card (K1 and K2 at the multi-code shapes),
 BatchDecoder and the code-capacity round on the card against the CPU.
@@ -9,6 +9,9 @@ on first use); every test skips without a card. Imports neither jax nor the
 JAX package, so it runs on a machine that has only PyTorch:
 ``python -m pytest tests/test_torch_cuda.py``.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1280,3 +1283,151 @@ def test_pooled_round_launches_s1_once_a_round(cuda, bundles, monkeypatch):
     fn(torch.Generator(device=cuda).manual_seed(4))
     torch.cuda.synchronize()
     assert sampler.trial_syndromes.launches == launches + 3
+
+
+# R1: the BP residual syndrome and its weight (csrc/bp_residual.cu)
+def _r1_cells() -> dict:
+    """Every code of every benchmark cell as R1 meets it, read from
+    BENCHMARK.json and the configuration and traffic files it names:
+    {cell[ code]: (code, cycles, p, shots a round, maxIter, BP schedule)}."""
+    root = Path(__file__).resolve().parents[1]
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    configs = {c["name"]: json.loads((root / c["file"]).read_text())
+               for c in bench["configs"]}
+    cells = {}
+    for w in bench["workloads"]:
+        cfg = configs[w["config"]]
+        p = json.loads((root / "perfbench" / "traffic"
+                        / f"{w['traffic']}.json").read_text())["p"]
+        dec = cfg["decoder"]
+        variant = "layered" if dec["bp"].startswith("layered") else "minsum"
+        codes = cfg.get("codes", [cfg])
+        for c in codes:
+            name = w["name"] + (f" {c['code']['name']}" if len(codes) > 1
+                                else "")
+            cells[name] = (c["code"]["name"], c["num_cycles"], p,
+                           cfg["dispatch"]["batch"], dec["max_iter"],
+                           variant)
+    return cells
+
+
+R1_CELLS = _r1_cells()
+
+
+def _r1_against_plain(syn, hard, dec):
+    """R1 on (syn, hard) equals its plain version on the residual and the
+    weight, launches once, and counts ``osd.hard_ones`` as the set bits
+    of ``hard`` with telemetry on."""
+    from qldpc_tpu_torch.utils import telemetry
+    want = osd_cuda.bp_residual_plain(syn, hard, dec.HT)
+    launches = osd_cuda.bp_residual.launches
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        with telemetry.span("osd.order"):
+            got = osd_cuda.bp_residual(syn, hard, dec.HT, dec.col_index)
+    finally:
+        telemetry.disable()
+    counters = telemetry.export()["spans"][0]["counters"]
+    telemetry.reset()
+    torch.cuda.synchronize()
+    assert osd_cuda.bp_residual.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert counters == {"osd.hard_ones": int((hard.to(torch.int8) & 1)
+                                             .sum())}
+    again = osd_cuda.bp_residual(syn, hard, dec.HT, dec.col_index)
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("cell", list(R1_CELLS))
+def test_bp_residual_kernel_matches_plain(cuda, cell):
+    """R1 against its plain version in both bases on a round of the cell's
+    shots from ``trial_batch`` through K1 (K3 under the layered schedule)
+    at its maxIter, as the pooled OSD reads them."""
+    name, cycles, p, B, max_iter, variant = R1_CELLS[cell]
+    circ, M = _built(name, cycles, p)
+    seq = alpha_schedule("dynamical", max_iter)
+    decs = [engine._make_basis(circ, M, b, seq, osd_order=2, device=cuda)
+            for b in "ZX"]
+    gen = torch.Generator(device=cuda).manual_seed(B + cycles)
+    trials = trial_batch(gen, p, decs[0].maps, decs[1].maps,
+                         circ.num_error_locs, B)
+    for basis, dec in zip("zx", decs):
+        syn = trials[f"syndrome_{basis}"]
+        bp_out = engine._bp_one_basis(syn, dec, max_iter,
+                                      bp_variant=variant)
+        res, _ = _r1_against_plain(syn, bp_out["hard"], dec)
+        conv = bp_out["converged"]
+        assert conv.any() and not conv.all()
+        # a converged shot's hard decision reproduces its syndrome
+        assert int(res[conv].sum()) == 0
+
+
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_bp_residual_kernel_adversarial(cuda, B):
+    """R1 against its plain version at [[72,12,6]] over 3 cycles (180 rows,
+    not a multiple of 32; 1,153 columns, so rows start off a 16-byte
+    boundary), on a row of no set column, a row of every column, random
+    densities, bytes other than 0 and 1, and a batch starting mid-tensor."""
+    circ, M = _built("[[72, 12, 6]]", 3, 0.006)
+    dec = engine._make_basis(circ, M, "Z", alpha_schedule("dynamical", 10),
+                             device=cuda)
+    m, n = dec.H.shape
+    assert m % 32
+    g = torch.Generator(device=cuda).manual_seed(B)
+    dens = torch.rand((B + 1, 1), generator=g, device=cuda)
+    hard = (torch.rand((B + 1, n), generator=g, device=cuda)
+            < dens).to(torch.int8)
+    hard[0] = 1
+    if B > 1:
+        hard[1] = 0
+        hard[2] = torch.randint(-3, 4, (n,), generator=g, device=cuda,
+                                dtype=torch.int8)
+    syn = (torch.rand((B + 1, m), generator=g, device=cuda)
+           < 0.5).to(torch.int8)
+    _r1_against_plain(syn[:B], hard[:B], dec)
+    _r1_against_plain(syn[1:], hard[1:], dec)  # base off 16 bytes
+    zero = torch.zeros((B, n), dtype=torch.int8, device=cuda)
+    res, wt = _r1_against_plain(syn[:B], zero, dec)
+    assert torch.equal(res, syn[:B].to(torch.int32))
+
+
+def test_pooled_round_launches_r1_once_a_basis(cuda, bundles, monkeypatch):
+    """A pooled dispatch of 3 rounds (one OSD chunk a basis) launches R1
+    twice, never runs the plain product on the card, and gives the flags
+    of the same dispatch with the plain residual."""
+    from qldpc_tpu_torch.ops import osd
+    from qldpc_tpu_torch.ops.sampler import sample_gate_randoms
+    circ, M, decs = bundles
+    dz, dx = decs[str(cuda)]
+    fn = engine.make_pooled_round_fn(dz, dx, circ.num_error_locs, 0.006,
+                                     64, 50, 2, 3)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    randoms = [sample_gate_randoms(gen, 64, circ.num_error_locs, 0.006)
+               for _ in range(3)]
+
+    def product(*args):
+        raise AssertionError("the plain residual product ran on the card")
+
+    monkeypatch.setattr(osd_cuda, "bp_residual_plain", product)
+    launches = osd_cuda.bp_residual.launches
+    got = fn(None, randoms=randoms)
+    torch.cuda.synchronize()
+    assert osd_cuda.bp_residual.launches == launches + 2
+    monkeypatch.undo()
+
+    def plain(syn, hard, HT, index):
+        return osd_cuda.bp_residual_plain(syn, hard, HT)
+
+    monkeypatch.setattr(engine, "bp_residual", plain)
+    monkeypatch.setattr(osd, "bp_residual", plain)
+    want = fn(None, randoms=randoms)
+    assert osd_cuda.bp_residual.launches == launches + 2
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    assert int((~got["z_conv"]).sum()) > 0
